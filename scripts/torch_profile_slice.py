@@ -1,0 +1,159 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's main path, on one CUDA card.
+
+    python3 scripts/torch_profile_slice.py [--batch 128] [--steps 30]
+
+Runs ``make_glass_upright_free`` through ``solve_batch_compact`` (float32,
+``bench_params()``, ``phase_qp_solves=8``): one warm-up run, one run timed
+without the profiler, then one run under ``torch.profiler`` with each layer
+of the path wrapped in a ``record_function`` range (convexify, QP assembly,
+the IPM, model values, evaluation; inside the IPM the three CUDA kernels).
+Prints one JSON line: wall times, device kernel time and busy share, CUDA
+kernel launches, host and device time per layer, and the top device
+kernels.  The full ``key_averages`` table goes to
+``chiprun_out/torch_profile_slice.txt``.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, _ROOT)
+
+
+def _dev_time(evt, self_only=False):
+    """Device time (us) of a key_averages row, across torch versions."""
+    names = (("self_device_time_total", "self_cuda_time_total") if self_only
+             else ("device_time_total", "cuda_time_total"))
+    for n in names:
+        v = getattr(evt, n, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--batch", type=int, default=128)
+    ap.add_argument("--steps", type=int, default=30)
+    args = ap.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("torch_profile_slice: CUDA is not available\n")
+        sys.exit(2)
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.benchmarks import bench_params, make_glass_upright_free
+    from trajopt_tpu_torch.ops import ipm_qp
+    from trajopt_tpu_torch.solver import sqp
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    _native.build_all()
+    dev = torch.device("cuda")
+    spec, data, _ = make_glass_upright_free(args.batch, n_steps=args.steps,
+                                            dtype=torch.float32, device=dev)
+    params = bench_params()
+
+    def run():
+        res = sqp.solve_batch_compact(spec, data, params, phase_qp_solves=8,
+                                      device=dev)
+        torch.cuda.synchronize()
+        return res
+
+    run()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    res = run()
+    wall = time.perf_counter() - t0
+    launches = dict(_native.LAUNCHES)
+
+    # layer ranges: wrap the module-level names the solver calls
+    layers = {
+        (sqp, "_convexify"): "L:convexify",
+        (sqp, "_merit_row_weights"): "L:merit_weights",
+        (sqp, "_assemble_qp"): "L:assemble_qp",
+        (sqp, "solve_ipm_qp"): "L:ipm_qp",
+        (sqp, "_model_values"): "L:model_values",
+        (sqp, "_evaluate"): "L:evaluate",
+        (ipm_qp, "bb_quad"): "K:bb_quad",
+        (ipm_qp, "btd_factor"): "K:btd_factor",
+        (ipm_qp, "btd_solve"): "K:btd_solve",
+    }
+    saved = {}
+    for (mod, name), label in layers.items():
+        fn = getattr(mod, name)
+        saved[(mod, name)] = fn
+
+        def wrapped(*a, _fn=fn, _label=label, **k):
+            with record_function(_label):
+                return _fn(*a, **k)
+        setattr(mod, name, wrapped)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            prof_wall = time.perf_counter() - t0
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+    rows = prof.key_averages()
+
+    def on_cuda(e):
+        return "CUDA" in str(getattr(e, "device_type", ""))
+
+    def is_range(e):
+        return e.key.startswith(("L:", "K:"))
+
+    # device kernels: rows recorded on the card, minus the GPU-side copies
+    # of the record_function ranges
+    kernels = [e for e in rows if on_cuda(e) and not is_range(e)
+               and _dev_time(e, True) > 0]
+    dev_us = sum(_dev_time(e, True) for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    # per layer: host time of the CPU-side range, and the device time of the
+    # kernels launched inside it
+    layer_rows = {e.key: {"count": e.count,
+                          "host_ms": e.cpu_time_total / 1e3,
+                          "device_ms": _dev_time(e) / 1e3}
+                  for e in rows if is_range(e) and not on_cuda(e)}
+    top = sorted(kernels, key=lambda e: -_dev_time(e, True))[:12]
+    n_ipm = launches["btd_factor"]
+    out = {
+        "card": smi, "batch": args.batch, "n_steps": args.steps,
+        "converged": int((res.status == 1).sum()),
+        "mean_qp_solves": float(res.n_qp_solves.float().mean()),
+        "wall_s": wall, "profiled_wall_s": prof_wall,
+        "device_kernel_ms": dev_us / 1e3,
+        "device_busy_share": dev_us / 1e6 / prof_wall,
+        "device_kernel_share_of_unprofiled_wall": dev_us / 1e6 / wall,
+        "cuda_kernel_launches": n_launch,
+        "ipm_iterations": n_ipm,
+        "launches_per_ipm_iteration": n_launch / max(n_ipm, 1),
+        "hand_kernel_launches": launches,
+        "layers": layer_rows,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms": _dev_time(e, True) / 1e3}
+                        for e in top],
+    }
+    os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(_ROOT, "chiprun_out", "torch_profile_slice.txt"),
+              "w") as f:
+        key = ("self_device_time_total" if hasattr(rows[0], "self_device_time_total")
+               else "self_cuda_time_total")
+        f.write(rows.table(sort_by=key, row_limit=60))
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()

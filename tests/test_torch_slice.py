@@ -1,0 +1,106 @@
+"""PyTorch port vs JAX reference, end to end: the glass-upright flagship
+without its collision terms (``benchmarks.make_glass_upright_free``)
+through ``solve_batch_compact`` on the banded interior-point path, float64
+on the CPU at T=6, batch 4.
+
+The reference scene is built here from the JAX package's own terms with
+the same random draws.  Per-lane status and QP-solve count must be equal
+and x agree to 1e-6 (the same float64 iterate sequence; sum orders differ
+inside the QP).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from trajopt_tpu.benchmarks import Q_GOAL, Q_START
+from trajopt_tpu.benchmarks import bench_params as j_bench_params
+from trajopt_tpu.models import arm7 as j_arm7
+from trajopt_tpu.problem.trajectory import TrajProblemBuilder, interpolated_init
+from trajopt_tpu.problem.trajectory import stack_data as j_stack
+from trajopt_tpu.solver.sqp import solve_batch_compact as j_solve
+from trajopt_tpu.terms.cartesian import upright_term
+from trajopt_tpu.terms.joint import joint_pos_term, joint_vel_term
+from trajopt_tpu_torch.benchmarks import bench_params, make_glass_upright_free
+from trajopt_tpu_torch.convert import problem_data_from_numpy
+from trajopt_tpu_torch.solver.sqp import solve_batch_compact
+from trajopt_tpu_torch.solver.types import CONVERGED
+
+T, BATCH = 6, 4
+X_TOL = 1e-6
+
+
+def _reference_scene(batch, n_steps, seed=0):
+    """make_glass_upright (benchmarks.py:62-144) minus its two cast-
+    collision terms, from the JAX package's own pieces."""
+    _, chain = j_arm7()
+    D = chain.n_dof
+    dt = np.float64
+    b = TrajProblemBuilder(chain, n_steps)
+    b.add_cost(joint_vel_term("jvel", n_steps, D),
+               {"targets": np.zeros(D, dt), "coeffs": np.full(D, 5.0, dt)})
+    b.add_constraint(
+        joint_pos_term("goal", n_steps, D, first_step=n_steps - 1,
+                       last_step=n_steps - 1, is_constraint=True),
+        {"targets": np.asarray(Q_GOAL, dt), "coeffs": np.ones(D, dt)})
+    b.add_constraint(upright_term("upright", chain, n_steps, "tool"),
+                     {"coeffs": np.ones(2, dt)})
+    b.fix_timestep(0)
+    rng = np.random.default_rng(seed)
+    yaw_mask = np.array([1.0, 0, 0, 0, 0, 0, 1.0])
+    datas = []
+    for _ in range(batch):
+        start = Q_START + rng.uniform(-0.15, 0.15, D) * yaw_mask
+        goal = Q_GOAL + rng.uniform(-0.15, 0.15, D) * yaw_mask
+        init = np.asarray(interpolated_init(start, goal, n_steps))
+        bump = rng.uniform(-0.12, 0.12, D) * np.array([0, 1, 1, 1, 1, 1, 0])
+        phase = np.sin(np.pi * np.arange(n_steps) / (n_steps - 1))[:, None]
+        init = init + phase * bump[None, :]
+        init[0] = start
+        init[n_steps - 1] = goal + rng.uniform(-0.05, 0.05, D)
+        spec, data = b.build(jnp.asarray(init))
+        data = data._replace(cnt_params=(
+            {"targets": np.asarray(goal, dt), "coeffs": np.ones(D, dt)},
+            {"coeffs": np.ones(2, dt)}))
+        datas.append(data)
+    return spec, j_stack(datas)
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    jspec, jdata = _reference_scene(BATCH, T)
+    tspec, tdata, _ = make_glass_upright_free(BATCH, n_steps=T,
+                                              dtype=torch.float64,
+                                              device="cpu")
+    return jspec, jdata, tspec, tdata
+
+
+def test_scene_data_equal(scenes):
+    _, jdata, _, tdata = scenes
+    ref = problem_data_from_numpy(jax.tree.map(np.asarray, jdata), "cpu",
+                                  torch.float64)
+    for a, b in zip(jax.tree.leaves(tuple(tdata)[:5], is_leaf=torch.is_tensor),
+                    jax.tree.leaves(tuple(ref)[:5], is_leaf=torch.is_tensor)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+@pytest.mark.parametrize("phase", [8, 1])
+def test_slice_matches_reference(scenes, phase):
+    """phase 8 mostly finishes in one phase; phase 1 resumes every lane
+    mid-solve (ProblemData.resume) in a second phase."""
+    jspec, jdata, tspec, tdata = scenes
+    jres = j_solve(jspec, jdata, j_bench_params(), phase_qp_solves=phase)
+    tres = solve_batch_compact(tspec, tdata, bench_params(),
+                               phase_qp_solves=phase, device="cpu")
+    np.testing.assert_array_equal(tres.status.numpy(), np.asarray(jres.status))
+    np.testing.assert_array_equal(tres.n_qp_solves.numpy(),
+                                  np.asarray(jres.n_qp_solves))
+    np.testing.assert_array_equal(tres.sqp_it.numpy(), np.asarray(jres.sqp_it))
+    np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x),
+                               rtol=0, atol=X_TOL)
+    np.testing.assert_allclose(tres.cnt_viols.numpy(),
+                               np.asarray(jres.cnt_viols), rtol=0, atol=X_TOL)
+    assert (tres.status == CONVERGED).all()
+    assert float(tres.cnt_viols.max()) < 1e-4

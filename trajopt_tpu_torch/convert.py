@@ -1,0 +1,51 @@
+"""Carry the JAX reference's numbers across to the port.
+
+The JAX package's containers are read by attribute name only — nothing
+here imports ``jax`` or ``trajopt_tpu``.  The tests map a JAX
+``ProblemData`` to numpy first (``jax.tree.map(np.asarray, data)``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .kinematics.chain import Chain
+from .solver.types import ProblemData
+from .utils.lanes import tree_map
+
+_CHAIN_FIELDS = ("link_names", "joint_names", "parent", "off_R", "off_p",
+                 "jtype", "axis", "dof_of_link", "link_of_dof", "ancestor",
+                 "lb", "ub", "vel")
+
+
+def _tensors(tree, device, dtype):
+    def leaf(a):
+        t = torch.as_tensor(np.asarray(a), device=device)
+        return t.to(dtype) if t.is_floating_point() else t
+    return tree_map(leaf, tree)
+
+
+def problem_data_from_numpy(tree, device="cpu",
+                            dtype=torch.float64) -> ProblemData:
+    """A (batched) JAX ``ProblemData`` with numpy leaves -> the port's
+    ``ProblemData`` on ``device``, floating leaves cast to ``dtype``."""
+    return ProblemData(
+        x0=_tensors(tree.x0, device, dtype),
+        lb=_tensors(tree.lb, device, dtype),
+        ub=_tensors(tree.ub, device, dtype),
+        cost_params=_tensors(tuple(tree.cost_params), device, dtype),
+        cnt_params=_tensors(tuple(tree.cnt_params), device, dtype),
+        resume=_tensors(tree.resume, device, dtype),
+    )
+
+
+def chain_from_numpy(chain) -> Chain:
+    """A port ``Chain`` from any chain-like object with the JAX ``Chain``'s
+    fields (names and numpy arrays)."""
+    kw = {}
+    for f in _CHAIN_FIELDS:
+        v = getattr(chain, f)
+        kw[f] = tuple(v) if f in ("link_names", "joint_names") \
+            else np.array(v, copy=True)
+    return Chain(**kw)

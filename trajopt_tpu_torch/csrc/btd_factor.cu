@@ -1,0 +1,144 @@
+// K2 btd_factor: block Cholesky of a block-tridiagonal SPD matrix.
+//
+// Replaces trajopt_tpu/ops/btridiag.py:171-185 and 208-231 (_chol_s and
+// btd_factor_scalar; the same math as btd_factor, :88-111):
+//
+//   L_0 = chol(D_0)
+//   M_t = O_{t-1} L_{t-1}^{-T}                 (t = 1..T-1)
+//   L_t = chol(D_t - M_t M_t^T)
+//
+// with each diagonal pivot floored at `tiny` (1e-18 float32, 1e-30
+// float64) so a marginally indefinite block yields finite values that the
+// IPM's NaN and descent guards catch.
+//
+// Layout: D (lanes, T, b, b), O (lanes, T-1, b, b) sub-diagonal blocks
+// (O[t] = K[t+1, t]); outputs LD (lanes, T, b, b) lower factors with zeros
+// above the diagonal, LM (lanes, T-1, b, b).  All contiguous.
+//
+// Design: one thread block of one warp per lane; the chain over T is a
+// loop inside the block.  Thread i owns row i of the current b x b blocks
+// (b <= 21 < 32), which sit in shared memory.  The column loop of each
+// Cholesky is warp-synchronous; every sum runs in the JAX routine's order.
+//
+// Bound on the H100: it reads D and O once and writes LD and LM once
+// (at b=7, T=30, 128 lanes, float32: ~3 MB, about 1 us at 3.35 TB/s) and
+// does ~T (b^3/3 + 2 b^3) flops per lane (~7 MFLOP in all, far below
+// 67 TFLOP/s).  The real limit is the dependency chain: T sequential
+// block steps, each a chain of b dependent pivots.
+
+#include <cuda_runtime.h>
+
+template <typename T>
+__device__ __forceinline__ T dsqrt(T v);
+template <>
+__device__ __forceinline__ float dsqrt<float>(float v) { return sqrtf(v); }
+template <>
+__device__ __forceinline__ double dsqrt<double>(double v) { return sqrt(v); }
+
+// In-place lower Cholesky of the BS x BS block A (shared) into L (shared).
+// Thread i (< BS) owns row i.
+template <typename T, int BS>
+__device__ void chol_block(const T* A, T* L, T tiny) {
+  const int i = threadIdx.x;
+  for (int j = 0; j < BS; ++j) {
+    if (i == j) {
+      T s = A[j * BS + j];
+      for (int k = 0; k < j; ++k) s -= L[j * BS + k] * L[j * BS + k];
+      L[j * BS + j] = dsqrt<T>(s > tiny ? s : tiny);
+    }
+    __syncwarp();
+    if (i > j && i < BS) {
+      const T inv = T(1) / L[j * BS + j];
+      T r = A[i * BS + j];
+      for (int k = 0; k < j; ++k) r -= L[i * BS + k] * L[j * BS + k];
+      L[i * BS + j] = r * inv;
+    }
+    if (i < j && j < BS) L[i * BS + j] = T(0);  // upper triangle
+    __syncwarp();
+  }
+}
+
+template <typename T, int BS>
+__global__ void __launch_bounds__(32)
+btd_factor_kernel(const T* __restrict__ D, const T* __restrict__ O,
+                  T* __restrict__ LD, T* __restrict__ LM, int nT, T tiny) {
+  constexpr int BB = BS * BS;
+  __shared__ T A[BB];   // block being factored
+  __shared__ T Lp[BB];  // factor of the previous (then current) block
+  __shared__ T M[BB];   // off-diagonal factor
+  const int lane = blockIdx.x;
+  const int i = threadIdx.x;
+  const T* Dl = D + (long)lane * nT * BB;
+  const T* Ol = O + (long)lane * (nT - 1) * BB;
+  T* LDl = LD + (long)lane * nT * BB;
+  T* LMl = LM + (long)lane * (nT - 1) * BB;
+
+  for (int e = i; e < BB; e += 32) A[e] = Dl[e];
+  __syncwarp();
+  chol_block<T, BS>(A, Lp, tiny);
+  for (int e = i; e < BB; e += 32) LDl[e] = Lp[e];
+
+  for (int t = 1; t < nT; ++t) {
+    const T* Ot = Ol + (long)(t - 1) * BB;
+    const T* Dt = Dl + (long)t * BB;
+    for (int e = i; e < BB; e += 32) M[e] = Ot[e];
+    __syncwarp();
+    // M = O L^{-T}: row i solves L y = O[i, :] by forward substitution
+    if (i < BS) {
+      for (int j = 0; j < BS; ++j) {
+        T s = M[i * BS + j];
+        for (int k = 0; k < j; ++k) s -= Lp[j * BS + k] * M[i * BS + k];
+        M[i * BS + j] = s / Lp[j * BS + j];
+      }
+    }
+    __syncwarp();
+    // S = D_t - M M^T (the sum is taken first, as in the JAX routine)
+    if (i < BS) {
+      for (int j = 0; j < BS; ++j) {
+        T acc = T(0);
+        for (int k = 0; k < BS; ++k) acc += M[i * BS + k] * M[j * BS + k];
+        A[i * BS + j] = Dt[i * BS + j] - acc;
+      }
+    }
+    for (int e = i; e < BB; e += 32) LMl[(long)(t - 1) * BB + e] = M[e];
+    __syncwarp();
+    chol_block<T, BS>(A, Lp, tiny);
+    for (int e = i; e < BB; e += 32) LDl[(long)t * BB + e] = Lp[e];
+    __syncwarp();
+  }
+}
+
+template <typename T>
+static int launch(const void* D, const void* O, void* LD, void* LM, int lanes,
+                  int nT, int b, double tiny, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (b) {
+    case 7:
+      btd_factor_kernel<T, 7><<<lanes, 32, 0, s>>>(
+          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
+      break;
+    case 14:
+      btd_factor_kernel<T, 14><<<lanes, 32, 0, s>>>(
+          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
+      break;
+    case 21:
+      btd_factor_kernel<T, 21><<<lanes, 32, 0, s>>>(
+          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
+      break;
+    default:
+      return -1;
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int btd_factor_f32(const void* D, const void* O, void* LD, void* LM,
+                              int lanes, int nT, int b, double tiny,
+                              void* stream) {
+  return launch<float>(D, O, LD, LM, lanes, nT, b, tiny, stream);
+}
+
+extern "C" int btd_factor_f64(const void* D, const void* O, void* LD, void* LM,
+                              int lanes, int nT, int b, double tiny,
+                              void* stream) {
+  return launch<double>(D, O, LD, LM, lanes, nT, b, tiny, stream);
+}
