@@ -8,20 +8,37 @@ Every line printed is one JSON object.  Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every kernel of ``trajopt_tpu_torch/csrc``
    (one nvcc per source, all at once);
-2. each kernel (K1 bb_quad, K2 btd_factor, K3 btd_solve) at the slice's
-   shapes and at block sizes 14 and 21, in float32 and float64, on random
-   well-conditioned inputs made with numpy, held against its plain PyTorch
-   version on the same inputs (tolerances below); then its time, its
-   plain version's time, one PyTorch library call's time where one
-   computes the same function, and its bound on the card;
-3. the slice's main path: ``make_glass_upright_free(batch=128, T=30,
+2. each kernel held against its plain PyTorch version on the same inputs
+   (tolerances below), in float32 and float64, then its time, its plain
+   version's time, one PyTorch library call's time where one computes the
+   same function, and its bound on the card:
+   K1 bb_quad, K2 btd_factor, K3 btd_solve at the banded IPM's shapes
+   (block sizes 7, 14, 21; K1 also at the collision row group, 29 gaps x
+   28 rows); K4 cast_seg, K4v cast_seg_value (n_sub 2 and 3) and K5
+   cast_sweep (n_sub 16) at the flagship's 128 lanes x 29 gaps x 28 pairs,
+   on its initial trajectories plus seeded noise.  Their values are
+   compared on every row (in float32 a row over the tolerance must be one
+   whose plain value moves by more than it under a few ulps of change of
+   x); their Jacobians on the rows whose witness decision is not tied
+   (``CollisionWorld.cast_ties``), the tied rows counted;
+3. the collision-free slice: ``make_glass_upright_free(batch=128, T=30,
    float32)`` through ``solve_batch_compact(bench_params(),
    phase_qp_solves=8)`` with every launch counter set to 0 just before and
-   read just after; every kernel must have launched, no lane may be
-   non-finite, and at least 120 of 128 lanes must be CONVERGED with max
-   violation < 1e-4;
+   read just after; K1-K3 must have launched, no lane may be non-finite,
+   and at least 120 of 128 lanes must be CONVERGED with max violation
+   < 1e-4;
+3b. the full flagship: ``make_glass_upright(batch=128, T=30, float32)``
+   through the same solve (one cold run, three warm runs, counters reset
+   before the first warm run), then the K5 gate (n_sub 16) on every lane;
+   K1-K5 must have launched, no lane may be non-finite, and at least 120
+   of 128 lanes must be CONVERGED with max violation < 1e-4 and min swept
+   distance >= 0 (the bench's gate);
 4. 16 lanes in float64 through the kernel path and through the plain path
-   on the card: equal statuses and QP-solve counts, x within 1e-8;
+   on the card, for the free slice (4) and the full flagship (4b): equal
+   statuses and QP-solve counts, x within 1e-8 (free slice) and 3e-5
+   (flagship: a tied witness decision on a lane's path is resolved by
+   rounding, which differs between the kernel and torch; the plain path
+   from x0 moved by one ulp is printed beside it);
 5. the kernel summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -38,10 +55,100 @@ import time
 # float32 carries ~7 digits and the kernels sum in another order than the
 # plain versions (one FMA per step, the chains T*b long); float64 ~16
 REL_TOL = {"float32": 1e-4, "float64": 1e-10}
+# collision kernels: values relative to the largest |D| and Jacobians
+# relative to the largest |J|; Jacobians on the rows without a tied
+# decision (in float32 a decision within (rel, witness change, band in
+# metres) of its runner-up or threshold, in float64 within rounding)
+COLL_TOL = {"float32": (1e-4, 1e-3), "float64": (1e-10, 1e-8)}
+TIE_RULE = {"float32": (1e-3, 1e-4, 1e-5), "float64": (1e-9, 1e-9, 0.0)}
+# float32 values on every row: a hull route whose separation test is
+# decided by rounding (a gap of ~1e-4 m against hulls ~1 m across: the
+# test's own rounding error, extent * eps / gap, exceeds its margin)
+# takes the other branch, and its value moves by the gap plus the depth
+# cover's depth.  Every row over the value tolerance must be one whose
+# plain value itself moves by more than that tolerance when the gap's two
+# steps move by up to ULP_MOVE ulps (ULP_DRAWS seeded draws); at most
+# D_OVER_SHARE of the rows may be such, and none beyond D_ALL_TOL
+D_ALL_TOL, D_OVER_SHARE, ULP_MOVE, ULP_DRAWS = 1e-2, 1e-3, 16, 64
+# the swept sphere against a box is d_capsule_box, whose tangent runs
+# through 12 unconverged projections: in float32 its rows are held to
+# this looser Jacobian tolerance (reported apart)
+CAPBOX_JTOL = {"float32": 1e-2, "float64": 1e-8}
+# float64 flagship, kernel path vs plain path: statuses and QP counts
+# equal, x within this.  A lane whose path meets a tied witness decision
+# takes another valid Jacobian there.  The phase also runs the plain path
+# from x0 moved by one ulp, and no lane of the kernel path may move
+# further than the farthest lane that move gives
+FLAGSHIP_DX_TOL = 3e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; non-tensor-core
 # float32 67 TFLOP/s, float64 34 TFLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
+# flops of the collision kernels' pieces, counted from csrc/collision.cuh
+# (value arithmetic; a dual number with N tangent columns costs ~1 + 1.5 N
+# times as much): FK per link, joint frame per dof, canonical form per
+# geometry; discrete distance per kind pair; one candidate of the hull
+# enumeration (edge-edge, vertex-triangle); the witness / separation test
+# and the 26-direction depth cover per vertex
+FK_LINK, FK_DOF, FK_GEOM = 150, 18, 72
+DISCRETE = {(0, 0): 12, (0, 1): 40, (0, 2): 45, (1, 1): 70, (1, 2): 385}
+CAND_EE, CAND_PT, WITNESS_V, COVER_V = 85, 130, 20, 156
+_TOPO = {1: (1, 0), 2: (1, 0), 4: (6, 4), 8: (12, 12)}
+
+
+def cast_work(world, D, lanes, n_gaps, n_sub, es, nd):
+    """(bytes, flops) of K4 ("jac"), K4v ("value") and K5 ("sweep") on
+    these inputs: each input read once, each output written once; the hull
+    route's depth cover is counted on the rows this data penetrates (D
+    within 1e-6 of -(r1 + r2), the separation test's threshold)."""
+    L, NG, P = world.chain.n_links, len(world.geoms), world.n_pairs
+    dual = lambda n: 1 + 1.5 * n
+    fk = L * FK_LINK + nd * FK_DOF + NG * FK_GEOM
+    routes = world.pair_routes()
+    Dl = D.reshape(lanes, n_gaps, -1, P)
+    pen = 0
+    per = {"jac": 0.0, "value": 0.0, "sweep": 0.0}
+    for k, ((i, j), (route, hull)) in enumerate(zip(world.pairs, routes)):
+        gi, gj = world.geoms[i], world.geoms[j]
+        disc = DISCRETE[(gi.kind, gj.kind)]
+        if route == "sphere":
+            other = gj if gi.kind == 0 else gi
+            sw = DISCRETE[(1, other.kind)] if other.kind != 0 else DISCRETE[(0, 1)]
+            per["jac"] += sw * dual(2 * nd)
+            per["value"] += sw
+            per["sweep"] += sw
+            continue
+        per["jac"] += n_sub * (disc * dual(nd) + 4 * nd * 11)
+        per["value"] += n_sub * disc
+        per["sweep"] += n_sub * disc
+        if route == "hull":
+            na, nb = hull
+            (e1, t1), (e2, t2) = _TOPO[na], _TOPO[nb]
+            h = (e1 * e2 * CAND_EE + (na * t2 + nb * t1) * CAND_PT
+                 + WITNESS_V * (na + nb))
+            n_pen = int((Dl[..., k] <= -(gi.radius + gj.radius) + 1e-6).sum())
+            pen += n_pen * COVER_V * (na + nb)
+            seg = n_sub - 1
+            per["jac"] += seg * (h + 16 * nd * (na + nb))
+            per["value"] += seg * h
+            per["sweep"] += h
+    blocks = lanes * n_gaps
+    tables = sum(t.numel() * t.element_size()
+                 for t in world.kernel_tables(D.dtype, D.device))
+    x_bytes = lanes * (n_gaps + 1) * nd * es
+    n_seg = n_sub - 1
+    d_bytes = lanes * n_gaps * n_seg * P * es
+    out = {
+        "jac": (x_bytes + tables + d_bytes * (1 + 2 * nd),
+                blocks * (n_sub * fk + per["jac"]) + pen),
+        "value": (x_bytes + tables + d_bytes,
+                  blocks * (n_sub * fk + per["value"]) + pen),
+        "sweep": (x_bytes + tables + lanes * n_gaps * P * es,
+                  blocks * ((n_sub + 1) * fk + per["sweep"]) + pen),
+    }
+    return out
 
 
 def emit(obj):
@@ -58,11 +165,15 @@ def main():
     import numpy as np
 
     from trajopt_tpu_torch import _native
-    from trajopt_tpu_torch.benchmarks import bench_params, make_glass_upright_free
+    from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
+                                              make_glass_upright_free)
     from trajopt_tpu_torch.ops import banded_rows as br
     from trajopt_tpu_torch.ops import btridiag as bt
     from trajopt_tpu_torch.solver.sqp import solve_batch_compact
     from trajopt_tpu_torch.solver.types import CONVERGED
+    from trajopt_tpu_torch.terms.collision import (CastDistancePre,
+                                                   cast_sweep_distances,
+                                                   trajectory_in_collision)
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -142,7 +253,8 @@ def main():
             T = n_x // b
             # K1: the upright group (per-step windows, last step doubled up
             # in window nb-2) and the goal group (one window, r = 7)
-            for ng, r in ((T, 2), (1, D)):
+            # (b = 7 also: the collision row group, 29 gap windows x 28)
+            for ng, r in ((T, 2), (1, D)) + (((T - 1, 28),) if b == 7 else ()):
                 Bw, G, d, D0, O0 = k1_inputs(b, dtype, ng, r)
                 Dk, Ok = D0.clone(), O0.clone()
                 Dp, Op = D0.clone(), O0.clone()
@@ -156,7 +268,7 @@ def main():
                       "r": r, "max_abs_err": ea, "max_rel_err": er,
                       "tol": REL_TOL[dname], "ok": ok})
                 assert ok, "bb_quad disagrees with its plain version"
-                if b == 7 and dname == "float32" and ng == T:
+                if b == 7 and dname == "float32" and ng == T - 1:
                     slice_err["bb_quad"] = ea
             Dm, Om, rr = spd(b, dtype)
             LDk, LMk = bt.btd_factor_cuda(Dm, Om)
@@ -223,8 +335,171 @@ def main():
         tm["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         emit({"time": name, **tm, "card": smi})
 
+    # ---- K4 / K4v / K5 against their plain versions, then their times ----
+    world_cache = {}
+
+    def flagship_x(dtype, noise_seed):
+        """The flagship's initial trajectories plus seeded numpy noise."""
+        if dtype not in world_cache:
+            world_cache[dtype] = make_glass_upright(lanes, 30, dtype=dtype,
+                                                    device=dev)
+        _, dat, _, wld = world_cache[dtype]
+        noise = np.random.default_rng(noise_seed).normal(
+            0.0, 0.02, tuple(dat.x0.shape))
+        return (dat.x0 + torch.as_tensor(noise, device=dev).to(dtype)
+                ).contiguous(), wld
+
+    def ulp_spread(xg, value_fn):
+        """xg (n, 2, nd): the two steps of the gaps of n rows.  The spread
+        (max - min) of each row's plain value over its gap moved by up to
+        ULP_MOVE ulps per entry (ULP_DRAWS seeded draws, the unmoved gap
+        first); value_fn maps (n, draws, 2, nd) to (n, draws)."""
+        u = torch.as_tensor(np.random.default_rng(3).integers(
+            -ULP_MOVE, ULP_MOVE + 1, (xg.shape[0], ULP_DRAWS) + xg.shape[1:]),
+            device=dev).to(xg.dtype)
+        u[:, 0] = 0
+        v = value_fn(xg[:, None] * (1 + u * torch.finfo(xg.dtype).eps))
+        return v.amax(1) - v.amin(1)
+
+    def value_rows(name, dname, err, rows_x, value_fn, dscale, tol_d):
+        """The value check on every row: ``err`` is the kernel's error
+        relative to the largest |D|; rows over tol_d are probed by
+        ulp_spread (float32)."""
+        over = err > tol_d
+        n_over = int(over.sum())
+        rec = {"D_rel_err_all_rows": float(err.max()),
+               "D_abs_err_all_rows": float(err.max()) * dscale,
+               "D_rows_over_tol": n_over, "rows": err.numel()}
+        ok = float(err.max()) < tol_d
+        if dname == "float32":
+            ok = float(err.max()) < D_ALL_TOL and \
+                n_over <= D_OVER_SHARE * err.numel()
+            if n_over:
+                idx = torch.nonzero(over)
+                spread = ulp_spread(rows_x(idx), lambda xp: value_fn(idx, xp))
+                moved = spread > tol_d * dscale
+                rec.update(D_rows_over_tol_plain_moves=int(moved.sum()),
+                           plain_ulp_spread_min=float(spread.min()),
+                           worst_row=idx[int(err[over].argmax())].tolist())
+                ok = ok and bool(moved.all())
+            rec["tol"] = [tol_d, D_ALL_TOL, D_OVER_SHARE]
+        else:
+            rec["tol"] = tol_d
+        emit({"check": name, "dtype": dname, **rec, "ok": ok})
+        assert ok, f"{name} values disagree with the plain version"
+        return rec
+
+    coll_err = {"cast_seg": [], "cast_seg_value": [], "cast_sweep": []}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol_d, tol_j = COLL_TOL[dname]
+        x, world = flagship_x(dtype, 1)
+        X = x.reshape(lanes, 30, D)
+        P = world.n_pairs
+
+        def gap_x(idx):
+            return torch.stack([X[idx[:, 0], idx[:, 1]],
+                                X[idx[:, 0], idx[:, 1] + 1]], 1)
+
+        for n_sub in (2, 3):
+            pre = CastDistancePre(world, 30, n_sub=n_sub)
+            pre1 = CastDistancePre(world, 2, n_sub=n_sub)
+            Dk, (Jak, Jbk) = pre.value_jac(x)
+            Dv = pre.value(x)
+            sync()
+            Dp, (Jap, Jbp) = pre.value_jac(x, kernels=False)
+
+            def seg_values(idx, xp):
+                n, draws = xp.shape[:2]
+                Dx = pre1.value(xp.reshape(n * draws, 2 * D),
+                                kernels=False).reshape(n, draws, -1, P)
+                return Dx[torch.arange(n, device=dev)[:, None],
+                          torch.arange(draws, device=dev)[None],
+                          idx[:, 2:3], idx[:, 3:4]]
+
+            dscale = float(Dp.abs().max())
+            recs = {}
+            for name, Dout in (("cast_seg", Dk), ("cast_seg_value", Dv)):
+                recs[name] = value_rows(
+                    name, dname, (Dout - Dp).abs() / dscale, gap_x,
+                    seg_values, dscale, tol_d)
+                recs[name]["n_sub"] = n_sub
+            # Jacobians: rows without a tied decision
+            tie = world.cast_ties(X[:, :-1], X[:, 1:], n_sub, *TIE_RULE[dname])
+            keep = ~tie.reshape(lanes, 29, -1)
+            jscale = max(float(Jap.abs().max()), float(Jbp.abs().max()))
+            rowj = torch.maximum((Jak - Jap).abs().amax(-1),
+                                 (Jbk - Jbp).abs().amax(-1)) / jscale
+            capbox = torch.as_tensor(
+                [r == "sphere" and 2 in (world.geoms[i].kind,
+                                         world.geoms[j].kind)
+                 for (i, j), (r, _) in zip(world.pairs,
+                                           world.pair_routes())],
+                device=dev).repeat(n_sub - 1)
+            ej = float((rowj * (keep & ~capbox)).max())
+            ej_capbox = float((rowj * (keep & capbox)).max())
+            ej_all = float(rowj.max())
+            ok = ej < tol_j and ej_capbox < CAPBOX_JTOL[dname]
+            if dtype == torch.float64:  # float64: every row, ties included
+                ok = ok and ej_all < tol_j
+            recs["cast_seg"].update(
+                J_rel_err_untied_rows=ej, J_rel_err_all_rows=ej_all,
+                J_tie_rows_excluded=int(tie.sum()))
+            emit({"check": "cast_seg_jacobian", "dtype": dname,
+                  "n_sub": n_sub, "J_rel_err_untied_rows": ej,
+                  "J_rel_err_all_rows": ej_all,
+                  "J_rel_err_sphere_box_untied_rows": ej_capbox,
+                  "sphere_box_rows": int((capbox.expand_as(keep)).sum()),
+                  # rows beyond tol_j: tied ones (excluded above) and
+                  # sphere-box rows (held to CAPBOX_JTOL)
+                  "J_rows_over_tol": int((rowj > tol_j).sum()),
+                  "rows": keep.numel(), "tie_rows_excluded": int(tie.sum()),
+                  "tol": [tol_j, CAPBOX_JTOL[dname]], "ok": ok})
+            assert ok, "cast_seg's Jacobian disagrees with the plain version"
+            for name in recs:
+                coll_err[name].append(dict(recs[name], dtype=dname))
+        Ds = cast_sweep_distances(world, X, 16)
+        sync()
+        Dsp = cast_sweep_distances(world, X, 16, kernels=False)
+
+        def sweep_values(idx, xp):
+            d = world.cast_pair_distances(xp[:, :, 0], xp[:, :, 1], 16)
+            return torch.gather(d, 2, idx[:, 2:3, None].expand(
+                -1, d.shape[1], 1))[..., 0]
+
+        rec = value_rows("cast_sweep", dname,
+                         (Ds - Dsp).abs() / float(Dsp.abs().max()), gap_x,
+                         sweep_values, float(Dsp.abs().max()), tol_d)
+        coll_err["cast_sweep"].append(dict(rec, dtype=dname, n_sub=16))
+
+    xf, world = flagship_x(f32, 2)
+    Xf = xf.reshape(lanes, 30, D)
+    pre2 = CastDistancePre(world, 30, n_sub=2)
+    D2 = pre2.value(xf, kernels=False)
+    work = cast_work(world, D2, lanes, 29, 2, es, D)
+    work16 = cast_work(world, cast_sweep_distances(world, Xf, 16, False),
+                       lanes, 29, 16, es, D)
+    for name, fn, plain, w in (
+            ("cast_seg", lambda: pre2.value_jac(xf),
+             lambda: pre2.value_jac(xf, kernels=False), work["jac"]),
+            ("cast_seg_value", lambda: pre2.value(xf),
+             lambda: pre2.value(xf, kernels=False), work["value"]),
+            ("cast_sweep", lambda: cast_sweep_distances(world, Xf, 16),
+             lambda: cast_sweep_distances(world, Xf, 16, False),
+             work16["sweep"])):
+        timing[name] = dict(ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                            library_ms=None, bytes=w[0], flops=w[1],
+                            shape="x (128, 210) -> D (128, 29, 28)"
+                            + (", Ja/Jb (128, 29, 28, 7)"
+                               if name == "cast_seg" else ""))
+        t_bytes = w[0] / PEAK_BYTES * 1e3
+        t_ops = w[1] / PEAK_FLOPS["float32"] * 1e3
+        timing[name]["bound_ms"] = max(t_bytes, t_ops)
+        timing[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        emit({"time": name, **timing[name], "card": smi})
+
     # ------------------------------------------------------------------
-    # phase 3: the main path, float32, 128 lanes, T = 30
+    # phase 3: the collision-free slice, float32, 128 lanes, T = 30
     # ------------------------------------------------------------------
     params = bench_params()
     spec, data, _ = make_glass_upright_free(batch=lanes, n_steps=30,
@@ -262,9 +537,60 @@ def main():
           "wall_s": mean_wall, "walls_s": walls,
           "solves_per_s": n_ok / mean_wall, "launches": launches,
           "card": smi})
-    assert all(v > 0 for v in launches.values()), launches
+    assert all(launches[k] > 0 for k in ("bb_quad", "btd_factor",
+                                         "btd_solve")), launches
     assert finite, "non-finite lanes"
     assert n_ok >= 120, f"only {n_ok}/128 lanes converged"
+
+    # ------------------------------------------------------------------
+    # phase 3b: the full flagship, float32, 128 lanes, T = 30, and its gate
+    # ------------------------------------------------------------------
+    spec_f, data_f, _, world_f = make_glass_upright(batch=lanes, n_steps=30,
+                                                    dtype=torch.float32,
+                                                    device=dev)
+
+    def run_full():
+        res = solve_batch_compact(spec_f, data_f, params, phase_qp_solves=8,
+                                  device=dev)
+        sync()
+        return res
+
+    t0 = time.perf_counter()
+    run_full()
+    cold_f = time.perf_counter() - t0
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    res_f = run_full()
+    walls_f = [time.perf_counter() - t0]
+    t0 = time.perf_counter()
+    gate = trajectory_in_collision(world_f, res_f.x.reshape(lanes, 30, D))
+    sync()
+    gate_s = time.perf_counter() - t0
+    launches_f = dict(_native.LAUNCHES)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_full()
+        walls_f.append(time.perf_counter() - t0)
+    status = res_f.status.cpu().numpy()
+    viol = res_f.cnt_viols.max(dim=1).values.cpu().numpy()
+    gate_np = gate.cpu().numpy()
+    finite = bool(torch.isfinite(res_f.x).all())
+    good = (status == CONVERGED) & (viol < 1e-4) & (gate_np >= 0.0)
+    n_ok = int(good.sum())
+    mean_wall = sum(walls_f) / len(walls_f)
+    emit({"phase": "flagship", "batch": lanes, "n_steps": 30,
+          "dtype": "float32", "n_sub": 2, "gate_n_sub": 16,
+          "converged": int((status == CONVERGED).sum()), "gated_ok": n_ok,
+          "finite": finite,
+          "mean_qp_solves": float(res_f.n_qp_solves.float().mean()),
+          "max_viol": float(viol.max()), "min_swept_distance":
+          float(gate_np.min()), "cold_s": cold_f, "wall_s": mean_wall,
+          "walls_s": walls_f, "gate_s": gate_s,
+          "solves_per_s": n_ok / mean_wall, "launches": launches_f,
+          "card": smi})
+    assert all(v > 0 for v in launches_f.values()), launches_f
+    assert finite, "non-finite lanes"
+    assert n_ok >= 120, f"only {n_ok}/128 lanes pass the gate"
 
     # ------------------------------------------------------------------
     # phase 4: kernel path == plain path, float64, 16 lanes, on the card
@@ -288,25 +614,87 @@ def main():
           "max_abs_dx": dx, "tol": 1e-8, "plain_path_s": plain_s})
     assert same_status and same_nqp and dx < 1e-8, "kernel path != plain path"
 
+    # phase 4b: the full flagship, the same comparison
+    spec64f, data64f, _, _ = make_glass_upright(batch=16, n_steps=30,
+                                                dtype=torch.float64,
+                                                device=dev)
+    rk = solve_batch_compact(spec64f, data64f, params, phase_qp_solves=8,
+                             device=dev, kernels=True)
+    t0 = time.perf_counter()
+    rp = solve_batch_compact(spec64f, data64f, params, phase_qp_solves=8,
+                             device=dev, kernels=False)
+    sync()
+    plain_s = time.perf_counter() - t0
+    same_status = bool((rk.status == rp.status).all())
+    same_nqp = bool((rk.n_qp_solves == rp.n_qp_solves).all())
+    dx_lane = (rk.x - rp.x).abs().amax(-1)
+    dx = float(dx_lane.max())
+    # a tied witness decision (an exact tie, e.g. both poses of a pure-yaw
+    # gap at the same height over the table) is resolved by rounding, and
+    # the kernel's rounding is not torch's: a lane whose path meets such a
+    # row takes another valid Jacobian there and its x moves.  The plain
+    # path from x0 moved by one ulp shows how far rounding alone moves
+    # each lane.
+    u = torch.as_tensor(np.random.default_rng(4).integers(
+        -1, 2, tuple(data64f.x0.shape)), device=dev).to(torch.float64)
+    ru = solve_batch_compact(
+        spec64f, data64f._replace(
+            x0=data64f.x0 * (1 + u * torch.finfo(torch.float64).eps)),
+        params, phase_qp_solves=8, device=dev, kernels=False)
+    du_lane = (ru.x - rp.x).abs().amax(-1)
+    emit({"phase": "f64_flagship_kernel_vs_plain", "lanes": 16,
+          "status": rk.status.tolist(), "n_qp": rk.n_qp_solves.tolist(),
+          "same_status": same_status, "same_n_qp": same_nqp,
+          "max_abs_dx": dx, "dx_per_lane": dx_lane.tolist(),
+          "lanes_within_1e-12": int((dx_lane < 1e-12).sum()),
+          "plain_x0_ulp_dx_per_lane": du_lane.tolist(),
+          "plain_x0_ulp_same_status": bool((ru.status == rp.status).all()),
+          "lanes_moved_by_both": int(((dx_lane > 1e-12)
+                                      & (du_lane > 1e-12)).sum()),
+          "tol": FLAGSHIP_DX_TOL, "plain_path_s": plain_s})
+    # and no lane moves further than rounding alone moves the plain path
+    assert same_status and same_nqp and dx < FLAGSHIP_DX_TOL \
+        and dx <= float(du_lane.max()), "flagship kernel path != plain path"
+
     # ------------------------------------------------------------------
-    # summary
+    # summary (launches: the full flagship's run, phase 3b)
     # ------------------------------------------------------------------
     replaces = {
         "bb_quad": "trajopt_tpu/ops/banded_rows.py:89",
         "btd_factor": "trajopt_tpu/ops/btridiag.py:208",
         "btd_solve": "trajopt_tpu/ops/btridiag.py:234",
+        "cast_seg": "trajopt_tpu/terms/collision.py:165",
+        "cast_seg_value": "trajopt_tpu/terms/collision.py:159",
+        "cast_sweep": "trajopt_tpu/terms/collision.py:548",
     }
+    source = {k: f"trajopt_tpu_torch/csrc/{k}.cu" for k in replaces}
+    for k in ("cast_seg", "cast_seg_value", "cast_sweep"):
+        source[k] = "trajopt_tpu_torch/csrc/cast_seg.cu"
+    # errors: K1-K3 the largest relative error of every check and the
+    # absolute one at the main path's shape; K4, K4v, K5 the values' error
+    # on every row (D_*), K4 also the Jacobian's on the untied rows and on
+    # all rows (J_*), each the worst over float32 and float64
+    errs = {k: {"max_rel_err": max(checks[k]), "max_abs_err": slice_err[k]}
+            for k in checks}
+    for k, v in coll_err.items():
+        errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
+                   "max_abs_err_of": "D, all rows",
+                   "D_max_rel_err_all_rows": max(e["D_rel_err_all_rows"]
+                                                 for e in v),
+                   "D_rows_over_tol": max(e["D_rows_over_tol"] for e in v)}
+        if k == "cast_seg":
+            errs[k].update({f: max(e[f] for e in v) for f in (
+                "J_rel_err_untied_rows", "J_rel_err_all_rows",
+                "J_tie_rows_excluded")})
     emit({"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"trajopt_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "ok": True, "max_rel_err": max(checks[name]),
-         "max_abs_err": slice_err[name],
+        {"name": name, "route": "cuda", "source": source[name],
+         "replaces": replaces[name], "launches": launches_f[name],
+         "ok": True, **errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name in ("bb_quad", "btd_factor", "btd_solve")]})
+        for name in replaces]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
 

@@ -1,17 +1,21 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile_slice.py [--batch 128] [--steps 30]
+    python3 scripts/torch_profile_slice.py [--scene free|full] [--batch 128]
+                                           [--steps 30]
 
-Runs ``make_glass_upright_free`` through ``solve_batch_compact`` (float32,
-``bench_params()``, ``phase_qp_solves=8``): one warm-up run, one run timed
-without the profiler, then one run under ``torch.profiler`` with each layer
-of the path wrapped in a ``record_function`` range (convexify, QP assembly,
-the IPM, model values, evaluation; inside the IPM the three CUDA kernels).
-Prints one JSON line: wall times, device kernel time and busy share, CUDA
-kernel launches, host and device time per layer, and the top device
-kernels.  The full ``key_averages`` table goes to
-``chiprun_out/torch_profile_slice.txt``.
+Runs the glass-upright flagship through ``solve_batch_compact`` (float32,
+``bench_params()``, ``phase_qp_solves=8``): ``--scene free`` is
+``make_glass_upright_free`` (no collision terms), ``--scene full`` the
+full ``make_glass_upright`` (cast collision, n_sub=2).  One warm-up run,
+one run timed without the profiler (with the wall of each compaction
+phase), then one run under ``torch.profiler`` with each layer of the path
+wrapped in a ``record_function`` range (convexify, QP assembly, the IPM,
+model values, evaluation; inside them the CUDA kernels).  Prints one JSON
+line: wall times, phases, device kernel time and busy share, CUDA kernel
+launches, host and device time per layer, and the top device kernels.
+The full ``key_averages`` table goes to
+``chiprun_out/torch_profile_slice_<scene>.txt``.
 """
 
 import argparse
@@ -38,6 +42,7 @@ def _dev_time(evt, self_only=False):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--scene", choices=("free", "full"), default="free")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=30)
     args = ap.parse_args()
@@ -50,17 +55,21 @@ def main():
         sys.exit(2)
 
     from trajopt_tpu_torch import _native
-    from trajopt_tpu_torch.benchmarks import bench_params, make_glass_upright_free
+    from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
+                                              make_glass_upright_free)
     from trajopt_tpu_torch.ops import ipm_qp
     from trajopt_tpu_torch.solver import sqp
+    from trajopt_tpu_torch.terms.collision import CastDistancePre
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     _native.build_all()
     dev = torch.device("cuda")
-    spec, data, _ = make_glass_upright_free(args.batch, n_steps=args.steps,
-                                            dtype=torch.float32, device=dev)
+    make = make_glass_upright if args.scene == "full" \
+        else make_glass_upright_free
+    spec, data = make(args.batch, n_steps=args.steps, dtype=torch.float32,
+                      device=dev)[:2]
     params = bench_params()
 
     def run():
@@ -70,10 +79,27 @@ def main():
         return res
 
     run()
+    # the wall of each compaction phase (one _solve call each)
+    phases = []
+    solve_fn = sqp._solve
+
+    def timed_solve(spec_, p_, data_, kernels=True):
+        t = time.perf_counter()
+        r = solve_fn(spec_, p_, data_, kernels)
+        torch.cuda.synchronize()
+        phases.append({"lanes": int(data_.x0.shape[0]),
+                       "qp_budget": p_.max_total_qp_solves,
+                       "wall_s": time.perf_counter() - t})
+        return r
+
+    sqp._solve = timed_solve
     _native.reset_launches()
-    t0 = time.perf_counter()
-    res = run()
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        res = run()
+        wall = time.perf_counter() - t0
+    finally:
+        sqp._solve = solve_fn
     launches = dict(_native.LAUNCHES)
 
     # layer ranges: wrap the module-level names the solver calls
@@ -87,6 +113,8 @@ def main():
         (ipm_qp, "bb_quad"): "K:bb_quad",
         (ipm_qp, "btd_factor"): "K:btd_factor",
         (ipm_qp, "btd_solve"): "K:btd_solve",
+        (CastDistancePre, "value_jac"): "K:cast_seg",
+        (CastDistancePre, "value"): "K:cast_seg_value",
     }
     saved = {}
     for (mod, name), label in layers.items():
@@ -130,7 +158,8 @@ def main():
     top = sorted(kernels, key=lambda e: -_dev_time(e, True))[:12]
     n_ipm = launches["btd_factor"]
     out = {
-        "card": smi, "batch": args.batch, "n_steps": args.steps,
+        "card": smi, "scene": args.scene, "batch": args.batch,
+        "n_steps": args.steps, "phases": phases,
         "converged": int((res.status == 1).sum()),
         "mean_qp_solves": float(res.n_qp_solves.float().mean()),
         "wall_s": wall, "profiled_wall_s": prof_wall,
@@ -147,8 +176,8 @@ def main():
                         for e in top],
     }
     os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(_ROOT, "chiprun_out", "torch_profile_slice.txt"),
-              "w") as f:
+    with open(os.path.join(_ROOT, "chiprun_out",
+                           f"torch_profile_slice_{args.scene}.txt"), "w") as f:
         key = ("self_device_time_total" if hasattr(rows[0], "self_device_time_total")
                else "self_cuda_time_total")
         f.write(rows.table(sort_by=key, row_limit=60))

@@ -163,7 +163,10 @@ def test_upright_term_matches(steps):
 
 def test_import_loads_neither_jax_nor_reference():
     code = ("import sys, trajopt_tpu_torch, trajopt_tpu_torch.benchmarks, "
-            "trajopt_tpu_torch.solver.sqp, trajopt_tpu_torch.convert\n"
+            "trajopt_tpu_torch.solver.sqp, trajopt_tpu_torch.convert, "
+            "trajopt_tpu_torch.collision.world, "
+            "trajopt_tpu_torch.collision.geometry, "
+            "trajopt_tpu_torch.terms.collision\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'trajopt_tpu' or m.startswith('trajopt_tpu.')]\n"
             "assert not bad, bad\n"
@@ -177,7 +180,8 @@ def test_import_loads_neither_jax_nor_reference():
 
 def test_entry_points_default_to_cuda():
     """Without CUDA, every entry point called without device= raises."""
-    from trajopt_tpu_torch.benchmarks import make_glass_upright_free
+    from trajopt_tpu_torch.benchmarks import (make_glass_upright,
+                                              make_glass_upright_free)
     from trajopt_tpu_torch.problem.trajectory import TrajProblemBuilder
     from trajopt_tpu_torch.solver.sqp import solve_batch_compact
     from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp
@@ -189,6 +193,8 @@ def test_entry_points_default_to_cuda():
         TrajProblemBuilder(tc, 4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_glass_upright_free(2, n_steps=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_glass_upright(2, n_steps=4)
     spec, data, _ = make_glass_upright_free(2, n_steps=4, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_batch_compact(spec, data)

@@ -1,12 +1,16 @@
-"""PyTorch port vs JAX reference, end to end: the glass-upright flagship
-without its collision terms (``benchmarks.make_glass_upright_free``)
-through ``solve_batch_compact`` on the banded interior-point path, float64
-on the CPU at T=6, batch 4.
+"""PyTorch port vs JAX reference, end to end, float64 on the CPU:
 
-The reference scene is built here from the JAX package's own terms with
-the same random draws.  Per-lane status and QP-solve count must be equal
-and x agree to 1e-6 (the same float64 iterate sequence; sum orders differ
-inside the QP).
+- the glass-upright flagship without its collision terms
+  (``benchmarks.make_glass_upright_free``) through ``solve_batch_compact``
+  on the banded interior-point path at T=6, batch 4; the reference scene is
+  built here from the JAX package's own terms with the same random draws;
+- the full flagship (``make_glass_upright``, both cast-collision terms)
+  at T=6, batch 2, through the port's ``solve_batch`` against the
+  reference's ``_solve`` under one ``jit(vmap(...))`` (one compile).
+
+Per-lane status, QP-solve count and SQP iterations must be equal and x
+agree to 1e-6 (the same float64 iterate sequence; sum orders differ inside
+the QP).
 """
 
 import jax
@@ -16,17 +20,21 @@ import pytest
 import torch
 
 from trajopt_tpu.benchmarks import Q_GOAL, Q_START
+from trajopt_tpu.benchmarks import make_glass_upright as j_make_full
 from trajopt_tpu.benchmarks import bench_params as j_bench_params
 from trajopt_tpu.models import arm7 as j_arm7
 from trajopt_tpu.problem.trajectory import TrajProblemBuilder, interpolated_init
 from trajopt_tpu.problem.trajectory import stack_data as j_stack
+from trajopt_tpu.solver.sqp import _solve as j_solve_lane
 from trajopt_tpu.solver.sqp import solve_batch_compact as j_solve
 from trajopt_tpu.terms.cartesian import upright_term
 from trajopt_tpu.terms.joint import joint_pos_term, joint_vel_term
-from trajopt_tpu_torch.benchmarks import bench_params, make_glass_upright_free
+from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
+                                          make_glass_upright_free)
 from trajopt_tpu_torch.convert import problem_data_from_numpy
-from trajopt_tpu_torch.solver.sqp import solve_batch_compact
+from trajopt_tpu_torch.solver.sqp import solve_batch, solve_batch_compact
 from trajopt_tpu_torch.solver.types import CONVERGED
+from trajopt_tpu_torch.terms.collision import trajectory_in_collision
 
 T, BATCH = 6, 4
 X_TOL = 1e-6
@@ -104,3 +112,31 @@ def test_slice_matches_reference(scenes, phase):
                                np.asarray(jres.cnt_viols), rtol=0, atol=X_TOL)
     assert (tres.status == CONVERGED).all()
     assert float(tres.cnt_viols.max()) < 1e-4
+
+
+def test_full_flagship_matches_reference():
+    """The full flagship with its hinge cost and INEQ constraint over one
+    shared cast pipeline: the lanes start in collision (gate < 0) and end
+    CONVERGED and collision-free, lane for lane as the reference."""
+    jspec, jdata, _, _ = j_make_full(2, n_steps=T, dtype=jnp.float64)
+    tspec, tdata, _, world = make_glass_upright(2, n_steps=T,
+                                                dtype=torch.float64,
+                                                device="cpu")
+    ref = problem_data_from_numpy(jax.tree.map(np.asarray, jdata), "cpu",
+                                  torch.float64)
+    for a, b in zip(jax.tree.leaves(tuple(tdata)[:3], is_leaf=torch.is_tensor),
+                    jax.tree.leaves(tuple(ref)[:3], is_leaf=torch.is_tensor)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    jres = jax.jit(jax.vmap(lambda d: j_solve_lane(jspec, j_bench_params(),
+                                                   d)))(jdata)
+    tres = solve_batch(tspec, tdata, bench_params(), device="cpu")
+    np.testing.assert_array_equal(tres.status.numpy(), np.asarray(jres.status))
+    np.testing.assert_array_equal(tres.n_qp_solves.numpy(),
+                                  np.asarray(jres.n_qp_solves))
+    np.testing.assert_array_equal(tres.sqp_it.numpy(), np.asarray(jres.sqp_it))
+    np.testing.assert_allclose(tres.x.numpy(), np.asarray(jres.x),
+                               rtol=0, atol=X_TOL)
+    assert (tres.status == CONVERGED).all()
+    gate0 = trajectory_in_collision(world, tdata.x0.reshape(2, T, 7))
+    gate = trajectory_in_collision(world, tres.x.reshape(2, T, 7))
+    assert (gate0 < 0).all() and (gate >= 0).all()

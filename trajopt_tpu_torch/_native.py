@@ -7,7 +7,12 @@ a hash of the source so an edited source rebuilds; all sources compile in
 parallel.  Nothing here runs at import time.
 
 ``LAUNCHES`` counts launches per kernel: each wrapper adds one where it
-launches its kernel, and nowhere else.
+launches its kernel, and nowhere else.  A source's library is named by a
+hash of the source, the headers of ``csrc/`` and its flags.
+
+``host_library`` builds ``csrc/cast_host.cpp`` — the cast kernels' device
+code compiled for the CPU — with the host's C++ compiler, for checking
+that code against the plain PyTorch version without a card.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
+_CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -36,9 +42,18 @@ _SIGNATURES = {
                    for s in ("f32", "f64")],
     "btd_solve": [(f"btd_solve_{s}", [_P, _P, _P, _P, _I, _I, _I, _P])
                   for s in ("f32", "f64")],
+    "cast_seg": [(f"{k}_{s}", _CAST) for k in
+                 ("cast_seg", "cast_seg_value", "cast_sweep")
+                 for s in ("f32", "f64")],
 }
+# extra nvcc flags per source: the cast kernels keep every multiply and add
+# separate (no FMA contraction), as the plain PyTorch versions compute them,
+# so that their argmin decisions agree wherever there is no tie
+_EXTRA_FLAGS = {"cast_seg": ["-fmad=false"]}
 
-LAUNCHES = dict.fromkeys(_SIGNATURES, 0)
+# kernel name -> launch count; the cast source holds three kernels
+LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
+                          "cast_seg_value", "cast_sweep"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -59,10 +74,32 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc at first use")
 
 
-def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + _EXTRA_FLAGS.get(name, [])
+
+
+# the host build keeps every multiply and add separate too; unoptimised,
+# as it only checks arithmetic at small sizes (it compiles in ~1 s)
+HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
+_HOST_SIGNATURES = {"cast_host": _SIGNATURES["cast_seg"]}
+
+
+def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:
+    src = (CSRC / f"{name}{suffix}").read_bytes()
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        src += hdr.read_bytes()
+    flags = _flags(name) if flags is None else flags
+    h = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def _load(path: Path, signatures) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for sym, argtypes in signatures:
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def build_all() -> float:
@@ -76,7 +113,8 @@ def build_all() -> float:
         procs = {}
         for name, out in todo.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            cmd = [nvcc, *_flags(name), "-o", str(tmp),
+                   str(CSRC / f"{name}.cu")]
             procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True), tmp, out)
@@ -102,18 +140,35 @@ def library(name: str) -> ctypes.CDLL:
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        for sym, argtypes in _SIGNATURES[name]:
-            fn = getattr(lib, sym)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = _load(path, _SIGNATURES[name])
+    return lib
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded host build ``csrc/{name}.cpp`` (compiled at first use
+    with the C++ compiler ``$CXX``, else ``c++``)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = _lib_path(name, ".cpp", HOST_FLAGS)
+        if not path.exists():
+            cxx = os.environ.get("CXX") or shutil.which("c++")
+            if not cxx:
+                raise RuntimeError("no C++ compiler for the host build")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            subprocess.run([cxx, *HOST_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                            str(CSRC / f"{name}.cpp")], check=True,
+                           capture_output=True)
+            os.replace(tmp, path)
+        lib = _LIBS[name] = _load(path, _HOST_SIGNATURES[name])
     return lib
 
 
 def check(name: str, code: int) -> None:
-    """Raise if a launcher returned a CUDA error (or -1: unsupported size)."""
+    """Raise if a launcher returned a CUDA error (or -1: a size the kernel
+    is not instantiated for)."""
     if code == -1:
-        raise ValueError(f"{name}: block size not instantiated (7, 14, 21)")
+        raise ValueError(f"{name}: size not instantiated (block size 7, 14 "
+                         "or 21; n_dof 7 for cast_seg)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

@@ -1,0 +1,522 @@
+"""Differentiable convex signed distances (sphere / capsule / box) and the
+exact small-hull feature distance (``trajopt_tpu/collision/geometry.py``).
+
+Every function takes tensors with any leading dimensions (pairs, substates,
+lanes) and the geometry in the last axis, so a kind group evaluates as one
+batch of elementwise ops; under ``torch.func.vmap`` the same code runs per
+instance.  Forward-mode tangents follow the JAX package's exactly:
+
+- ``jnp.clip`` is ``minimum(maximum(x, lo), hi)`` and a tie of ``maximum``
+  / ``minimum`` splits the tangent 0.5 / 0.5 (``torch.maximum`` does too);
+  a clamp strictly beyond its bound passes no tangent;
+- ``jnp.abs`` has tangent +1 at 0 (``_abs``); ``torch.abs`` would give 0;
+- ``jnp.max`` over an axis splits ties evenly (``torch.amax`` does too);
+- ``stop_gradient`` becomes ``.detach()``.
+
+Ported: the closed forms, ``box_vertices`` with ``_PEN_DIRS``, and
+``make_feature_distance`` over ``small_hull_topology``.  Not ported yet
+(they raise ``NotImplementedError``): ``d_convex_convex`` / ``_fw_weights``,
+``d_box_box`` / ``d_swept_box_box``, ``generic_topology`` /
+``d_convex_auto``.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import numpy as np
+import torch
+
+_EPS = 1e-12
+
+
+def _const(x: torch.Tensor, v) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=x.dtype, device=x.device)
+
+
+def _max(x, v):
+    """``jnp.maximum(x, v)`` with its tie rule."""
+    return torch.maximum(x, v if torch.is_tensor(v) else _const(x, v))
+
+
+def _min(x, v):
+    return torch.minimum(x, v if torch.is_tensor(v) else _const(x, v))
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``."""
+    return _min(_max(x, lo), hi)
+
+
+def _abs(x):
+    """``jnp.abs`` (tangent +1 at 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _safe_norm(v):
+    """Norm over the last axis with a zero tangent at v = 0 (the double
+    ``where`` of the reference keeps the value exact)."""
+    d2 = _dot(v, v)
+    pos = d2 > 0
+    return torch.where(pos, torch.sqrt(torch.where(pos, d2, 1.0)), 0.0)
+
+
+def d_sphere_sphere(c1, r1, c2, r2):
+    return _safe_norm(c1 - c2) - (r1 + r2)
+
+
+def _closest_on_segment(a, b, p):
+    d = b - a
+    t = _dot(p - a, d) / _max(_dot(d, d), _EPS)
+    return a + _clip(t, 0.0, 1.0)[..., None] * d
+
+
+def _seg_param(a, b, p):
+    d = b - a
+    t = _dot(p - a, d) / _max(_dot(d, d), _EPS)
+    return _clip(t, 0.0, 1.0)
+
+
+def d_sphere_capsule(c, r, a, b, rc):
+    p = _closest_on_segment(a, b, c)
+    return _safe_norm(c - p) - (r + rc)
+
+
+def _seg_seg_params(a1, b1, a2, b2):
+    """Clamped (s, t) of the closest points on two segments (Ericson,
+    parallel-safe)."""
+    d1 = b1 - a1
+    d2 = b2 - a2
+    r = a1 - a2
+    a = _dot(d1, d1)
+    e = _dot(d2, d2)
+    f = _dot(d2, r)
+    c = _dot(d1, r)
+    b = _dot(d1, d2)
+    denom = a * e - b * b
+    s = torch.where(denom > _EPS,
+                    _clip((b * f - c * e) / _max(denom, _EPS), 0.0, 1.0), 0.0)
+    t = (b * s + f) / _max(e, _EPS)
+    t_cl = _clip(t, 0.0, 1.0)
+    s = _clip((b * t_cl - c) / _max(a, _EPS), 0.0, 1.0)
+    return s, t_cl
+
+
+def _seg_seg_closest(a1, b1, a2, b2):
+    s, t = _seg_seg_params(a1, b1, a2, b2)
+    return a1 + s[..., None] * (b1 - a1), a2 + t[..., None] * (b2 - a2)
+
+
+def d_capsule_capsule(a1, b1, r1, a2, b2, r2):
+    p1, p2 = _seg_seg_closest(a1, b1, a2, b2)
+    return _safe_norm(p1 - p2) - (r1 + r2)
+
+
+def _to_local(p, bc, bR):
+    """``bR.T @ (p - bc)`` over leading dimensions."""
+    return torch.einsum("...ij,...i->...j", bR, p - bc)
+
+
+def sdf_box_point(p, bc, bR, bh):
+    """Exact signed distance of a point to an oriented box."""
+    q = _abs(_to_local(p, bc, bR)) - bh
+    outside = _safe_norm(_max(q, 0.0))
+    inside = _min(torch.amax(q, dim=-1), 0.0)
+    return outside + inside
+
+
+def d_sphere_box(c, r, bc, bR, bh):
+    return sdf_box_point(c, bc, bR, bh) - r
+
+
+def d_capsule_box(a, b, r, bc, bR, bh, iters: int = 12):
+    """Capsule vs box by ``iters`` alternating projections segment <-> box;
+    the tangent is carried through every iteration, as ``jacfwd`` does."""
+    la = _to_local(a, bc, bR)
+    lb = _to_local(b, bc, bR)
+    d = lb - la
+    s = 0.5
+    for _ in range(iters):
+        s_ = s[..., None] if torch.is_tensor(s) else s
+        p_box = _clip(la + s_ * (lb - la), -bh, bh)
+        s = _clip(_dot(p_box - la, d) / _max(_dot(d, d), _EPS), 0.0, 1.0)
+    q = _abs(la + s[..., None] * (lb - la)) - bh
+    outside = _safe_norm(_max(q, 0.0))
+    inside = _min(torch.amax(q, dim=-1), 0.0)
+    return outside + inside - r
+
+
+_BOX_SIGNS = np.asarray(list(itertools.product((-1.0, 1.0), repeat=3)))
+
+
+def box_vertices(c, R, h):
+    """(..., 8, 3) world corners of oriented boxes (c (..., 3), R (..., 3,
+    3), h (..., 3)); vertex i has the signs of ``itertools.product``."""
+    signs = _const(c, _BOX_SIGNS)
+    return c[..., None, :] + (signs * h[..., None, :]) @ R.transpose(-1, -2)
+
+
+def _make_dirs():
+    ds = np.asarray([d for d in itertools.product((-1.0, 0.0, 1.0), repeat=3)
+                     if any(d)])
+    return ds / np.linalg.norm(ds, axis=1, keepdims=True)
+
+
+# the 26 box-lattice directions of the penetration-depth cover
+_PEN_DIRS = _make_dirs()
+
+
+def small_hull_topology(n_verts: int):
+    """(edges, tris) static index arrays of the cast's small vertex sets:
+    1 point, 2 segment, 4 two-pose capsule (all pairs / triples), 8 box
+    in ``box_vertices`` order (12 edges, 12 face triangles)."""
+    if n_verts == 1:
+        return np.zeros((1, 2), np.int32), np.zeros((0, 3), np.int32)
+    if n_verts == 2:
+        return np.array([[0, 1]], np.int32), np.zeros((0, 3), np.int32)
+    if n_verts == 4:
+        E = np.array(list(itertools.combinations(range(4), 2)), np.int32)
+        T = np.array(list(itertools.combinations(range(4), 3)), np.int32)
+        return E, T
+    if n_verts == 8:
+        E = np.array([(i, i ^ m) for i in range(8) for m in (1, 2, 4)
+                      if i < (i ^ m)], np.int32)
+        T = []
+        for bit in (1, 2, 4):
+            lo = [m for m in (1, 2, 4) if m != bit]
+            for val in (0, bit):
+                q00, q01 = val, val | lo[1]
+                q11, q10 = val | lo[0] | lo[1], val | lo[0]
+                T.append((q00, q01, q11))
+                T.append((q00, q11, q10))
+        return E, np.array(T, np.int32)
+    raise ValueError(f"no static topology for {n_verts} vertices")
+
+
+def _bary_cascade(d1, d2, d3, d4, d5, d6):
+    """The closest-point region cascade of a point to a triangle, carried
+    as barycentric (v, w) (closest = a + v (b - a) + w (c - a))."""
+    va = d3 * d6 - d5 * d4
+    vb = d5 * d2 - d1 * d6
+    vc = d1 * d4 - d3 * d2
+    denom_face = va + vb + vc
+    face_ok = torch.abs(denom_face) > _EPS
+    v = torch.where(face_ok, vb / torch.where(face_ok, denom_face, 1.0), 0.0)
+    w = torch.where(face_ok, vc / torch.where(face_ok, denom_face, 1.0), 0.0)
+    w_bc = _clip((d4 - d3) / _max((d4 - d3) + (d5 - d6), _EPS), 0.0, 1.0)
+    m = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)
+    v = torch.where(m, 1.0 - w_bc, v)
+    w = torch.where(m, w_bc, w)
+    w_ac = _clip(d2 / _max(d2 - d6, _EPS), 0.0, 1.0)
+    m = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    v = torch.where(m, 0.0, v)
+    w = torch.where(m, w_ac, w)
+    v_ab = _clip(d1 / _max(d1 - d3, _EPS), 0.0, 1.0)
+    m = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    v = torch.where(m, v_ab, v)
+    w = torch.where(m, 0.0, w)
+    m = (d6 >= 0) & (d5 <= d6)  # vertex c
+    v = torch.where(m, 0.0, v)
+    w = torch.where(m, 1.0, w)
+    m = (d3 >= 0) & (d4 <= d3)  # vertex b
+    v = torch.where(m, 1.0, v)
+    w = torch.where(m, 0.0, w)
+    m = (d1 <= 0) & (d2 <= 0)  # vertex a
+    v = torch.where(m, 0.0, v)
+    w = torch.where(m, 0.0, w)
+    return v, w
+
+
+def _point_tri_bary(p, a, b, c):
+    """Barycentric (v, w) of the closest point on triangle abc to p."""
+    ab = b - a
+    ac = c - a
+    ap, bp, cp = p - a, p - b, p - c
+    return _bary_cascade(_dot(ab, ap), _dot(ac, ap), _dot(ab, bp),
+                         _dot(ac, bp), _dot(ab, cp), _dot(ac, cp))
+
+
+def _mm(a, b):
+    """a @ b.T over leading dimensions: (..., m, 3) x (..., n, 3) -> (..., m, n)."""
+    return a @ b.transpose(-1, -2)
+
+
+def _seg_seg_d2_grid(A1, B1, A2, B2):
+    """(..., e1, e2) squared distances between all edge pairs, in the
+    reference's dot-product grid form (same clamped recurrence)."""
+    d1 = B1 - A1
+    d2 = B2 - A2
+    aa = _dot(d1, d1)[..., :, None]
+    ee = _dot(d2, d2)[..., None, :]
+    b = _mm(d1, d2)
+    c = _dot(d1, A1)[..., :, None] - _mm(d1, A2)
+    f = _mm(A1, d2) - _dot(d2, A2)[..., None, :]
+    denom = aa * ee - b * b
+    s = torch.where(denom > _EPS,
+                    _clip((b * f - c * ee) / _max(denom, _EPS), 0.0, 1.0), 0.0)
+    t = (b * s + f) / _max(ee, _EPS)
+    t_cl = _clip(t, 0.0, 1.0)
+    s = _clip((b * t_cl - c) / _max(aa, _EPS), 0.0, 1.0)
+    rr = (_dot(A1, A1)[..., :, None] + _dot(A2, A2)[..., None, :]
+          - 2.0 * _mm(A1, A2))
+    return (rr + s * s * aa + t_cl * t_cl * ee
+            + 2.0 * s * c - 2.0 * t_cl * f - 2.0 * s * t_cl * b)
+
+
+def _point_tri_d2_grid(P, TA, TB, TC):
+    """(..., n_p, n_t) squared point-triangle distances in grid form."""
+    ab = TB - TA
+    ac = TC - TA
+    Pab, Pac = _mm(P, ab), _mm(P, ac)
+    d1 = Pab - _dot(ab, TA)[..., None, :]
+    d2 = Pac - _dot(ac, TA)[..., None, :]
+    d3 = Pab - _dot(ab, TB)[..., None, :]
+    d4 = Pac - _dot(ac, TB)[..., None, :]
+    d5 = Pab - _dot(ab, TC)[..., None, :]
+    d6 = Pac - _dot(ac, TC)[..., None, :]
+    v, w = _bary_cascade(d1, d2, d3, d4, d5, d6)
+    pa2 = (_dot(P, P)[..., :, None] + _dot(TA, TA)[..., None, :]
+           - 2.0 * _mm(P, TA))
+    abab = _dot(ab, ab)[..., None, :]
+    acac = _dot(ac, ac)[..., None, :]
+    abac = _dot(ab, ac)[..., None, :]
+    return (pa2 + v * v * abab + w * w * acac
+            - 2.0 * v * d1 - 2.0 * w * d2 + 2.0 * v * w * abac)
+
+
+def _onehot(idx, n, dtype):
+    return (torch.arange(n, device=idx.device) == idx[..., None]).to(dtype)
+
+
+def _pick_rows(table, idx):
+    """``table[idx]`` for an integer (n, k) table and a batched index, as
+    mask arithmetic (an out-of-range index is clamped, as JAX's gather)."""
+    idx = torch.clamp(idx, max=table.shape[0] - 1)
+    m = torch.arange(table.shape[0], device=idx.device) == idx[..., None]
+    return torch.sum(torch.where(m[..., None], table, 0), dim=-2)
+
+
+def _pick_vertex(V, i):
+    """``V[..., i, :]`` for a batched index, exactly (one-hot sum)."""
+    return torch.einsum("...n,...nk->...k", _onehot(i, V.shape[-2], V.dtype), V)
+
+
+class _FeatureTables:
+    """Static candidate tables of ``make_feature_distance(n1, n2)``: flat
+    candidate order [edge-edge | v1-tri2 | v2-tri1]."""
+
+    def __init__(self, n1: int, n2: int):
+        self.n1, self.n2 = n1, n2
+        self.E1, self.T1 = small_hull_topology(n1)
+        self.E2, self.T2 = small_hull_topology(n2)
+        ct, ia, ib = [], [], []
+        for i in range(len(self.E1)):
+            for j in range(len(self.E2)):
+                ct.append(0), ia.append(i), ib.append(j)
+        for i in range(n1):
+            for j in range(len(self.T2)):
+                ct.append(1), ia.append(i), ib.append(j)
+        for i in range(n2):
+            for j in range(len(self.T1)):
+                ct.append(2), ia.append(i), ib.append(j)
+        self.cand = np.stack([ct, ia, ib], axis=1).astype(np.int64)
+
+    def candidate_d2(self, V1, V2):
+        """(..., n_cand) squared candidate distances (grid form)."""
+        E1, T1, E2, T2 = self.E1, self.T1, self.E2, self.T2
+        lead = V1.shape[:-2]
+        ds = [_seg_seg_d2_grid(V1[..., E1[:, 0], :], V1[..., E1[:, 1], :],
+                               V2[..., E2[:, 0], :], V2[..., E2[:, 1], :])
+              .reshape(lead + (-1,))]
+        if len(T2):
+            ds.append(_point_tri_d2_grid(
+                V1, V2[..., T2[:, 0], :], V2[..., T2[:, 1], :],
+                V2[..., T2[:, 2], :]).reshape(lead + (-1,)))
+        if len(T1):
+            ds.append(_point_tri_d2_grid(
+                V2, V1[..., T1[:, 0], :], V1[..., T1[:, 1], :],
+                V1[..., T1[:, 2], :]).reshape(lead + (-1,)))
+        return torch.cat(ds, dim=-1)
+
+
+def _depth_cover(V1c, V2c):
+    """(U (26, 3), h (..., 26)): the support-cover depths of the 26
+    directions (the penetration depth is the min over them)."""
+    U = torch.as_tensor(_PEN_DIRS, dtype=V1c.dtype, device=V1c.device)
+    return U, torch.amax(V1c @ U.T, dim=-2) - torch.amin(V2c @ U.T, dim=-2)
+
+
+def _witness(tb: _FeatureTables, V1c, V2c, k=None, kd=None, margins=False):
+    """Frozen witness (W1f, W2f, nf) of the feature distance between
+    conv(V1c) and conv(V2c), all from detached data.  ``k`` / ``kd`` force
+    the candidate / depth-cover decision (default: the argmins).  With
+    ``margins`` it also returns the distance of each threshold test to its
+    threshold (..., 2 + n1 + n2): the separation test's two, then the
+    support-vertex tie tests of the depth cover (where it decides)."""
+    dt, dev = V1c.dtype, V1c.device
+    n1, n2 = tb.n1, tb.n2
+    if k is None:
+        k = torch.argmin(tb.candidate_d2(V1c, V2c), dim=-1)
+    cand = _pick_rows(torch.as_tensor(tb.cand, device=dev), k)
+    ck, ak, bk = cand[..., 0], cand[..., 1], cand[..., 2]
+    E1 = torch.as_tensor(tb.E1, dtype=torch.int64, device=dev)
+    E2 = torch.as_tensor(tb.E2, dtype=torch.int64, device=dev)
+
+    e1 = _pick_rows(E1, torch.where(ck == 0, ak, torch.where(ck == 2, bk, 0)))
+    e2 = _pick_rows(E2, torch.where(ck == 0, bk, 0))
+    s, t = _seg_seg_params(_pick_vertex(V1c, e1[..., 0]),
+                           _pick_vertex(V1c, e1[..., 1]),
+                           _pick_vertex(V2c, e2[..., 0]),
+                           _pick_vertex(V2c, e2[..., 1]))
+    W1 = _onehot(e1[..., 0], n1, dt) * (1.0 - s)[..., None] \
+        + _onehot(e1[..., 1], n1, dt) * s[..., None]
+    W2 = _onehot(e2[..., 0], n2, dt) * (1.0 - t)[..., None] \
+        + _onehot(e2[..., 1], n2, dt) * t[..., None]
+    for side, T_, n_self, n_oth in ((1, tb.T2, n1, n2), (2, tb.T1, n2, n1)):
+        if not len(T_):
+            continue
+        Tt = torch.as_tensor(T_, dtype=torch.int64, device=dev)
+        tri = _pick_rows(Tt, torch.where(ck == side, bk, 0))
+        vi = torch.where(ck == side, ak, 0)
+        Vs, Vo = (V1c, V2c) if side == 1 else (V2c, V1c)
+        v, w = _point_tri_bary(_pick_vertex(Vs, vi),
+                               _pick_vertex(Vo, tri[..., 0]),
+                               _pick_vertex(Vo, tri[..., 1]),
+                               _pick_vertex(Vo, tri[..., 2]))
+        Ws = _onehot(vi, n_self, dt)
+        Wo = (_onehot(tri[..., 0], n_oth, dt) * (1.0 - v - w)[..., None]
+              + _onehot(tri[..., 1], n_oth, dt) * v[..., None]
+              + _onehot(tri[..., 2], n_oth, dt) * w[..., None])
+        hit = (ck == side)[..., None]
+        if side == 1:
+            W1, W2 = torch.where(hit, Ws, W1), torch.where(hit, Wo, W2)
+        else:
+            W2, W1 = torch.where(hit, Ws, W2), torch.where(hit, Wo, W1)
+
+    p_c = torch.einsum("...n,...nk->...k", W1, V1c)
+    q_c = torch.einsum("...n,...nk->...k", W2, V2c)
+    gap_c = _safe_norm(q_c - p_c)
+    n = (q_c - p_c) / _max(gap_c, _EPS)[..., None]
+    # supporting-plane separation test of the closest pair
+    proj1 = torch.einsum("...nk,...k->...n", V1c, n)
+    proj2 = torch.einsum("...nk,...k->...n", V2c, n)
+    margin = torch.amin(proj2, dim=-1) - torch.amax(proj1, dim=-1)
+    sep = (gap_c > 1e-6) & (margin > -1e-6 * _max(gap_c, 1.0))
+
+    # penetration: the 26-direction support-cover winner, near-tied
+    # support vertices sharing the witness weight
+    U, h = _depth_cover(V1c, V2c)
+    S1 = V1c @ U.T
+    S2 = V2c @ U.T
+    if kd is None:
+        kd = torch.argmin(h, dim=-1)
+    ohd = _onehot(kd, U.shape[0], dt)
+    s1 = torch.einsum("...nk,...k->...n", S1, ohd)
+    s2 = torch.einsum("...nk,...k->...n", S2, ohd)
+    m1 = torch.amax(s1, dim=-1, keepdim=True)
+    m2 = torch.amin(s2, dim=-1, keepdim=True)
+    a1 = (s1 >= m1 - 1e-6 * (1.0 + torch.abs(m1))).to(dt)
+    a2 = (s2 <= m2 + 1e-6 * (1.0 + torch.abs(m2))).to(dt)
+    ud = ohd @ U
+
+    sep_ = sep[..., None]
+    nf = torch.where(sep_, n, ud)
+    W1f = torch.where(sep_, W1, a1 / torch.sum(a1, dim=-1, keepdim=True))
+    W2f = torch.where(sep_, W2, a2 / torch.sum(a2, dim=-1, keepdim=True))
+    if not margins:
+        return W1f, W2f, nf
+    cover = torch.cat([s1 - (m1 - 1e-6 * (1.0 + torch.abs(m1))),
+                       (m2 + 1e-6 * (1.0 + torch.abs(m2))) - s2], dim=-1)
+    cover = torch.where(sep_, float("inf"), torch.abs(cover))
+    # the separation margin projects both sets on n = (q - p) / gap, whose
+    # rounding error grows like extent / gap: scale its distance to the
+    # threshold by 1 + extent^2 / gap
+    ext2 = torch.amax(torch.cat([_dot(V1c, V1c), _dot(V2c, V2c)], -1), -1)
+    test = torch.stack([
+        torch.abs(gap_c - 1e-6),
+        torch.abs(margin + 1e-6 * _max(gap_c, 1.0))
+        / (1.0 + ext2 / _max(gap_c, 1e-30))], -1)
+    return W1f, W2f, nf, torch.cat([test, cover], dim=-1)
+
+
+def make_feature_distance(n1: int, n2: int, topology=None):
+    """The exact feature-enumeration signed distance between conv(V1)+r1
+    and conv(V2)+r2 for vertex-set sizes (n1, n2) in {1, 2, 4, 8}:
+    ``fn(V1 (..., n1, 3), r1, V2 (..., n2, 3), r2)``.
+
+    Every discrete decision (candidate argmin, closest-feature parameters,
+    separation test, depth-cover winner) runs on detached vertices; the
+    value is the frozen-witness linear form
+    ``W2 . (V2 @ n) - W1 . (V1 @ n) - (r1 + r2)``, whose tangent is that
+    of the feature-enumeration distance (envelope theorem)."""
+    if topology is not None and topology is not small_hull_topology:
+        raise NotImplementedError("only small_hull_topology is ported "
+                                  "(generic_topology comes later)")
+    tb = _FeatureTables(n1, n2)
+
+    def fn(V1, r1, V2, r2):
+        W1f, W2f, nf = _witness(tb, V1.detach(), V2.detach())
+        return (torch.einsum("...n,...n->...", W2f,
+                             torch.einsum("...nk,...k->...n", V2, nf))
+                - torch.einsum("...n,...n->...", W1f,
+                               torch.einsum("...nk,...k->...n", V1, nf))
+                - (r1 + r2))
+
+    return fn
+
+
+def feature_ties(n1: int, n2: int, depth: int = 8):
+    """``ties(V1, V2, rel, wtol, band)`` -> (...,) bool: rows of
+    ``make_feature_distance(n1, n2)`` whose witness decision is a tie.  An
+    argmin (candidate, or depth-cover direction) is tied when one of its
+    ``depth`` best entries lies within ``rel`` (relative) of the best AND
+    gives another witness (W1, W2 or n differ by more than ``wtol``); a
+    threshold test (the separation test, the support-vertex tie sets) is
+    tied when its operand lies within ``band`` of the threshold.  Another
+    implementation, or another rounding, may then pick another valid
+    witness: the value moves by at most the decision's gap, the Jacobian
+    by O(1)."""
+    tb = _FeatureTables(n1, n2)
+
+    def differ(a, b, wtol):
+        return torch.stack([torch.amax(torch.abs(x - y), dim=-1)
+                            for x, y in zip(a, b)]).amax(0) > wtol
+
+    def ties(V1, V2, rel, wtol, band=0.0):
+        V1, V2 = V1.detach(), V2.detach()
+        d2 = tb.candidate_d2(V1, V2)
+        h = _depth_cover(V1, V2)[1]
+        kv, ki = torch.topk(d2, min(depth, d2.shape[-1]), dim=-1,
+                            largest=False)
+        hv, hi = torch.topk(h, depth, dim=-1, largest=False)
+        *best, tests = _witness(tb, V1, V2, ki[..., 0], hi[..., 0],
+                                margins=True)
+        out = torch.amin(tests, dim=-1) <= band
+        for vals, idx, is_k in ((kv, ki, True), (hv, hi, False)):
+            lim = rel * torch.clamp(torch.abs(vals[..., 0]), min=1e-30)
+            for m in range(1, vals.shape[-1]):
+                near = vals[..., m] - vals[..., 0] <= lim
+                alt = _witness(tb, V1, V2, idx[..., m] if is_k else ki[..., 0],
+                               hi[..., 0] if is_k else idx[..., m])
+                out = out | (near & differ(best, alt, wtol))
+        return out
+
+    return ties
+
+
+def _unported(name):
+    def f(*_a, **_k):
+        raise NotImplementedError(f"geometry.{name} is not ported yet")
+    f.__name__ = name
+    return f
+
+
+d_convex_convex = _unported("d_convex_convex")
+d_box_box = _unported("d_box_box")
+d_swept_box_box = _unported("d_swept_box_box")
+generic_topology = _unported("generic_topology")
+d_convex_auto = _unported("d_convex_auto")

@@ -1,0 +1,533 @@
+"""Collision world: robot link geometries, candidate pairs and batched
+distance evaluation (``trajopt_tpu/collision/world.py``).
+
+Candidate pairs are fixed when the world is built and grouped by
+(kind, kind); each group evaluates as one batch of tensor ops.  Every
+query takes configurations with any leading dimensions (lanes, gaps) and
+returns distances with the same leading dimensions.
+
+Swept ("cast") queries follow the reference: a moving sphere against
+static geometry is swept exactly (a capsule), every other pair with a
+moving side takes the min of the substate distance and the exact feature
+distance to the convex hull of its two poses.
+
+Ported kinds: SPHERE, CAPSULE, BOX.  A CONVEX geometry, a box on a moving
+link, a box-box pair or a translating box-box sweep raises
+``NotImplementedError`` when the world is built.
+
+``kernel_tables`` packs the world's static tables (chain, geometry
+constants, pair order, sweep routes, hull topologies) for the CUDA
+kernels of ``csrc/cast_seg.cu``; their layout is documented there and in
+``csrc/collision.cuh``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..kinematics.chain import Chain
+from ..kinematics.urdf import RobotModel
+from ..ops.lie import rpy_to_matrix
+from . import geometry as G
+
+SPHERE, CAPSULE, BOX, CONVEX = 0, 1, 2, 3
+# sweep routes of a pair (kernel tables and tests)
+ROUTE_NONE, ROUTE_SPHERE, ROUTE_HULL = 0, 1, 2
+# vertex count of a geometry's support set: static, and over two poses
+_SUPPORT_N = {SPHERE: 1, CAPSULE: 2, BOX: 8}
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GeomSpec:
+    link: int
+    kind: int
+    off_R: np.ndarray  # (3,3)
+    off_p: np.ndarray  # (3,)
+    radius: float
+    half: np.ndarray  # (3,) box half extents; capsule: half[2] = half-length
+    name: str = ""
+    verts: Optional[np.ndarray] = None  # CONVEX (not ported)
+
+
+# pair kernels over canonical world-space forms:
+#   sphere: (c, r); capsule: (a, b, r); box: (c, R, h)
+_KERNELS = {
+    (SPHERE, SPHERE): lambda A, B: G.d_sphere_sphere(A[0], A[1], B[0], B[1]),
+    (SPHERE, CAPSULE): lambda A, B: G.d_sphere_capsule(
+        A[0], A[1], B[0], B[1], B[2]),
+    (SPHERE, BOX): lambda A, B: G.d_sphere_box(A[0], A[1], B[0], B[1], B[2]),
+    (CAPSULE, CAPSULE): lambda A, B: G.d_capsule_capsule(
+        A[0], A[1], A[2], B[0], B[1], B[2]),
+    (CAPSULE, BOX): lambda A, B: G.d_capsule_box(
+        A[0], A[1], A[2], B[0], B[1], B[2]),
+}
+
+# the number of trailing (per-geometry) axes of each world-array entry;
+# entries without a leading (..., k) position axis are constants
+_POSED = {SPHERE: (2, None), CAPSULE: (2, 2, None), BOX: (2, 3, None)}
+
+
+def _take(wk, kind, sel):
+    """Entries of geometries ``sel`` (numpy indices into the kind) from a
+    world-kind dict; the geometry axis is the first of the trailing axes."""
+    out = []
+    for a, nd in zip(wk[kind], _POSED[kind]):
+        if nd is None:
+            out.append(a[sel])
+        else:
+            out.append(a.index_select(a.dim() - nd, torch.as_tensor(
+                sel, device=a.device)))
+    return tuple(out)
+
+
+def _narrow_sub(wk, start, length):
+    """Slice the substate axis (just before the geometry axis) of every
+    posed entry of a world-kind dict."""
+    out = {}
+    for kind, arrs in wk.items():
+        out[kind] = tuple(
+            a if nd is None else a.narrow(a.dim() - nd - 1, start, length)
+            for a, nd in zip(arrs, _POSED[kind]))
+    return out
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CollisionWorld:
+    chain: Chain
+    geoms: tuple  # tuple[GeomSpec]
+    pairs: tuple  # tuple[(gi, gj)], grouped by (kind, kind), kind_i <= kind_j
+    _kind_idx: dict  # kind -> np indices of geoms
+    _groups: tuple  # ((ka, kb), idx_a (into kind arrays), idx_b, pair_pos)
+    # sweep routes: {other_kind: (pos, sphere_idx, other_idx)} and
+    # {(ka, kb, mov_a, mov_b): (pos, idx_a, idx_b, na, nb)}
+    _sphere_routes: dict
+    _hull_routes: dict
+    _cache: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def n_pairs(self) -> int:
+        return len(self.pairs)
+
+    def pair_names(self):
+        return tuple(
+            (self.geoms[i].name, self.geoms[j].name) for i, j in self.pairs)
+
+    def pair_routes(self):
+        """Per pair: ``("sphere", None)`` (exact sphere sweep, set),
+        ``("hull", (na, nb))`` (two-pose hull feature distance, min) or
+        ``("none", None)``."""
+        out = [("none", None)] * self.n_pairs
+        for pos, _, _ in self._sphere_routes.values():
+            for k in pos:
+                out[k] = ("sphere", None)
+        for pos, _, _, na, nb in self._hull_routes.values():
+            for k in pos:
+                out[k] = ("hull", (na, nb))
+        return tuple(out)
+
+    # ---------------- world-space canonical geometry ----------------
+
+    def _const(self, name, fn, dt, dev):
+        key = (name, dt, str(dev))
+        v = self._cache.get(key)
+        if v is None:
+            v = torch.as_tensor(np.asarray(fn(), np.float64), dtype=dt,
+                                device=dev)
+            self._cache[key] = v
+        return v
+
+    def _world_kind_arrays(self, R, p, dt):
+        """Canonical world-space arrays per kind from link poses
+        (..., L, 3, 3), (..., L, 3); radii and half extents are constants
+        without the leading axes."""
+        out = {}
+        dev = R.device
+        for kind, idx in self._kind_idx.items():
+            if len(idx) == 0:
+                continue
+            gs = [self.geoms[i] for i in idx]
+            links = torch.as_tensor([g.link for g in gs], device=dev)
+            offp = self._const(("offp", kind),
+                               lambda: np.stack([g.off_p for g in gs]), dt, dev)
+            offR = self._const(("offR", kind),
+                               lambda: np.stack([g.off_R for g in gs]), dt, dev)
+            Rl = R.index_select(R.dim() - 3, links)
+            pl = p.index_select(p.dim() - 2, links)
+            c = torch.einsum("...kij,kj->...ki", Rl, offp) + pl
+            r = self._const(("r", kind), lambda: [g.radius for g in gs], dt, dev)
+            if kind == SPHERE:
+                out[kind] = (c, r)
+            elif kind == CAPSULE:
+                Rw = torch.einsum("...kij,kjl->...kil", Rl, offR)
+                hl = self._const(("hl", kind), lambda: [g.half[2] for g in gs],
+                                 dt, dev)
+                axis = Rw[..., :, 2] * hl[:, None]
+                out[kind] = (c - axis, c + axis, r)
+            else:  # BOX
+                Rw = torch.einsum("...kij,kjl->...kil", Rl, offR)
+                h = self._const(("h", kind),
+                                lambda: np.stack([g.half for g in gs]), dt, dev)
+                out[kind] = (c, Rw, h)
+        return out
+
+    # ---------------- queries ----------------
+
+    def pair_distances(self, q: torch.Tensor) -> torch.Tensor:
+        """(..., n_pairs) signed distances at configurations q (..., n_dof)."""
+        R, p = self.chain.fk(q)
+        return self._pair_distances_from_poses(R, p, q.dtype)
+
+    def _pair_distances_from_poses(self, R, p, dt) -> torch.Tensor:
+        wk = self._world_kind_arrays(R, p, dt)
+        return torch.cat([_KERNELS[key](_take(wk, key[0], ia),
+                                        _take(wk, key[1], ib))
+                          for key, ia, ib, _ in self._groups], dim=-1)
+
+    @staticmethod
+    def _fractions(n_sub, dt, dev):
+        return torch.linspace(0.0, 1.0, n_sub, dtype=torch.float64,
+                              device=dev).to(dt)
+
+    def cast_pair_distances_sub(self, qa, qb, n_sub: int = 8):
+        """(..., n_sub, n_pairs) discrete distances at the interpolated
+        substates of qa -> qb."""
+        ss = self._fractions(n_sub, qa.dtype, qa.device)
+        qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
+        return self.pair_distances(qs)
+
+    def cast_pair_distances_seg(self, qa, qb, n_sub: int = 8):
+        """(..., n_sub - 1, n_pairs) swept distances over the consecutive
+        substate segments of qa -> qb: FK and the discrete distances once
+        per substate, the exact-sweep overrides per segment."""
+        dt = qa.dtype
+        ss = self._fractions(n_sub, dt, qa.device)
+        qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
+        Rs, ps = self.chain.fk(qs)
+        wks = self._world_kind_arrays(Rs, ps, dt)
+        sub_d = self._pair_distances_from_poses(Rs, ps, dt)
+        d_min = torch.minimum(sub_d[..., :-1, :], sub_d[..., 1:, :])
+        wa = _narrow_sub(wks, 0, n_sub - 1)
+        wb = _narrow_sub(wks, 1, n_sub - 1)
+        return self._exact_sweep_overrides(wa, wb, d_min)
+
+    def cast_pair_distances(self, qa, qb, n_sub: int = 8):
+        """(..., n_pairs) swept distances over qa -> qb: the min over
+        ``n_sub`` substates, then the exact-sweep overrides between the
+        two endpoint poses."""
+        dt = qa.dtype
+        Ra, pa = self.chain.fk(qa)
+        Rb, pb = self.chain.fk(qb)
+        d_min = torch.amin(self.cast_pair_distances_sub(qa, qb, n_sub), dim=-2)
+        wa = self._world_kind_arrays(Ra, pa, dt)
+        wb = self._world_kind_arrays(Rb, pb, dt)
+        return self._exact_sweep_overrides(wa, wb, d_min)
+
+    def _vert_sets(self, wk, kind, sel, wk_b=None):
+        """Support vertex sets (..., k, V, 3) and radii (k,) of geometries
+        ``sel``; with ``wk_b`` the two-pose set conv(A(qa) u A(qb))."""
+        def one(w):
+            A = _take(w, kind, sel)
+            if kind == SPHERE:
+                return A[0][..., None, :], A[1]
+            if kind == CAPSULE:
+                return torch.stack([A[0], A[1]], dim=-2), A[2]
+            return G.box_vertices(A[0], A[1], A[2]), torch.zeros_like(
+                A[2][..., 0])
+
+        Va, r = one(wk)
+        if wk_b is None:
+            return Va, r
+        Vb, _ = one(wk_b)
+        return torch.cat([Va, Vb], dim=-2), r
+
+    def _exact_sweep_overrides(self, wa, wb, d_min):
+        """Replace the substate-min distance of every pair with a moving
+        side: a moving sphere against static geometry by its exact swept
+        capsule (set); every other such pair by the min with the exact
+        feature distance to the convex hull of its two poses."""
+        P = self.n_pairs
+        cols = [d_min]
+        src = np.arange(P)
+        off = P
+        for okind, (pos, si, oi) in self._sphere_routes.items():
+            ca = _take(wa, SPHERE, si)[0]
+            cb, r = _take(wb, SPHERE, si)[0], _take(wa, SPHERE, si)[1]
+            other = _take(wa, okind, oi)
+            if okind == SPHERE:
+                d = G.d_sphere_capsule(other[0], other[1], ca, cb, r)
+            elif okind == CAPSULE:
+                d = G.d_capsule_capsule(ca, cb, r, *other)
+            else:
+                d = G.d_capsule_box(ca, cb, r, *other)
+            cols.append(d)
+            src[pos] = off + np.arange(len(pos))
+            off += len(pos)
+        for (ka, kb, mov_a, mov_b), (pos, ai, bi, na, nb) in \
+                self._hull_routes.items():
+            VA, rA = self._vert_sets(wa, ka, ai, wb if mov_a else None)
+            VB, rB = self._vert_sets(wa, kb, bi, wb if mov_b else None)
+            d = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
+            pos_t = torch.as_tensor(pos, device=d_min.device)
+            cols.append(torch.minimum(d_min.index_select(-1, pos_t), d))
+            src[pos] = off + np.arange(len(pos))
+            off += len(pos)
+        return torch.cat(cols, dim=-1).index_select(
+            -1, torch.as_tensor(src, device=d_min.device))
+
+    def cast_ties(self, qa, qb, n_sub: int = 8, rel: float = 1e-9,
+                  wtol: float = 1e-9, band: float = 0.0):
+        """(..., n_sub - 1, n_pairs) bool: the rows of
+        ``cast_pair_distances_seg`` with a tied discrete decision — the
+        hull route's witness (``geometry.feature_ties``), or a min whose
+        two sides (two substates; substate and hull) lie within ``band``.
+        There another implementation, or another rounding, may return the
+        same distance with another valid Jacobian."""
+        dt = qa.dtype
+        ss = self._fractions(n_sub, dt, qa.device)
+        qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
+        Rs, ps = self.chain.fk(qs)
+        wks = self._world_kind_arrays(Rs, ps, dt)
+        sub_d = self._pair_distances_from_poses(Rs, ps, dt)
+        d_min = torch.minimum(sub_d[..., :-1, :], sub_d[..., 1:, :])
+        out = torch.abs(sub_d[..., :-1, :] - sub_d[..., 1:, :]) <= band
+        for pos, _, _ in self._sphere_routes.values():
+            out[..., torch.as_tensor(pos)] = False
+        wa = _narrow_sub(wks, 0, n_sub - 1)
+        wb = _narrow_sub(wks, 1, n_sub - 1)
+        for (ka, kb, mov_a, mov_b), (pos, ai, bi, na, nb) in \
+                self._hull_routes.items():
+            VA, rA = self._vert_sets(wa, ka, ai, wb if mov_a else None)
+            VB, rB = self._vert_sets(wa, kb, bi, wb if mov_b else None)
+            pos_t = torch.as_tensor(pos)
+            dh = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
+            out[..., pos_t] |= G.feature_ties(na, nb)(VA, VB, rel, wtol, band) \
+                | (torch.abs(d_min[..., pos_t] - dh) <= band)
+        return out
+
+    # ---------------- tables of the CUDA kernels ----------------
+
+    def kernel_tables(self, dtype, device):
+        """(ints (int32), reals (dtype)) device tensors describing the
+        world for ``csrc/cast_seg.cu`` (layout in ``csrc/collision.cuh``)."""
+        key = ("tables", dtype, str(device))
+        t = self._cache.get(key)
+        if t is None:
+            ints, reals = self._pack_tables()
+            t = (torch.as_tensor(ints, dtype=torch.int32, device=device),
+                 torch.as_tensor(reals, dtype=torch.float64,
+                                 device=device).to(dtype))
+            self._cache[key] = t
+        return t
+
+    def _pack_tables(self):
+        ch = self.chain
+        L, nd, NG, P = ch.n_links, ch.n_dof, len(self.geoms), self.n_pairs
+        moving = ch.ancestor.any(axis=1)
+        topo_n = (1, 2, 4, 8)
+        head = 16
+        off_dof = head
+        off_link = off_dof + nd
+        off_geom = off_link + 4 * L
+        off_pair = off_geom + 4 * NG
+        off_topo = off_pair + 8 * P
+        ints = [L, nd, NG, P, off_dof, off_link, off_geom, off_pair]
+        topo_blocks, o = [], off_topo
+        for n in topo_n:
+            E, T = G.small_hull_topology(n)
+            blk = [len(E), len(T)] + list(E.reshape(-1)) + list(T.reshape(-1))
+            ints.append(o)
+            topo_blocks.append(blk)
+            o += len(blk)
+        ints += [0] * (head - len(ints))
+        ints += list(ch.link_of_dof)
+        for l in range(L):
+            bits = sum(1 << d for d in range(nd) if ch.ancestor[l, d])
+            ints += [int(ch.parent[l]), int(ch.jtype[l]),
+                     int(ch.dof_of_link[l]), bits]
+        for g in self.geoms:
+            ints += [g.link, g.kind, int(moving[g.link]), 0]
+        rec = [[i, j, ROUTE_NONE, 0, 0, 0, 0, 0] for i, j in self.pairs]
+        for k, ((i, j), (route, hull)) in enumerate(
+                zip(self.pairs, self.pair_routes())):
+            if route == "sphere":
+                gi, gj = self.geoms[i], self.geoms[j]
+                s_is_i = gi.kind == SPHERE and moving[gi.link] \
+                    and not moving[gj.link]
+                rec[k][2] = ROUTE_SPHERE
+                rec[k][3], rec[k][4] = (i, j) if s_is_i else (j, i)
+            elif route == "hull":
+                rec[k][2] = ROUTE_HULL
+                rec[k][5], rec[k][6] = hull
+        for r in rec:
+            ints += r
+        for blk in topo_blocks:
+            ints += blk
+        reals = []
+        for l in range(L):
+            ax = ch.axis[l] / max(np.linalg.norm(ch.axis[l]), 1e-12)
+            K = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]],
+                          [-ax[1], ax[0], 0.0]])
+            reals += list(ch.off_R[l].reshape(-1)) + list(ch.off_p[l]) \
+                + list(ch.axis[l]) + list(K.reshape(-1)) \
+                + list((K @ K).reshape(-1))
+        for g in self.geoms:
+            reals += list(np.asarray(g.off_R).reshape(-1)) \
+                + list(np.asarray(g.off_p, np.float64)) + [g.radius] \
+                + list(np.asarray(g.half, np.float64))
+        reals += list(G._PEN_DIRS.reshape(-1))
+        return np.asarray(ints, np.int64), np.asarray(reals, np.float64)
+
+
+# --------------------------------------------------------------------------
+# Building a world
+# --------------------------------------------------------------------------
+
+
+def _spec_from_urdf_geom(li: int, g, name: str) -> Optional[GeomSpec]:
+    offR = rpy_to_matrix(torch.as_tensor(np.asarray(g.rpy, np.float64))).numpy()
+    if g.kind == "sphere":
+        return GeomSpec(li, SPHERE, offR, g.xyz, float(g.size[0]),
+                        np.zeros(3), name)
+    if g.kind in ("capsule", "cylinder"):
+        r, ln = float(g.size[0]), float(g.size[1])
+        return GeomSpec(li, CAPSULE, offR, g.xyz, r,
+                        np.array([0.0, 0.0, ln / 2]), name)
+    if g.kind == "box":
+        return GeomSpec(li, BOX, offR, g.xyz, 0.0,
+                        np.asarray(g.size) / 2.0, name)
+    if g.kind in ("convex", "mesh") and getattr(g, "verts", None) is not None:
+        raise NotImplementedError(
+            f"{name}: CONVEX collision geometry is not ported yet")
+    # raw meshes without vertices need an offline convex decomposition
+    return None
+
+
+def _geom_specs(model: RobotModel, chain: Chain) -> list:
+    specs = []
+    for lname, geoms in model.geoms.items():
+        if lname not in chain.link_names:
+            continue
+        li = chain.link_index(lname)
+        for gi, g in enumerate(geoms):
+            s = _spec_from_urdf_geom(li, g, f"{lname}/{gi}")
+            if s is not None:
+                specs.append(s)
+    return specs
+
+
+def build_collision_world(model: RobotModel, chain: Chain,
+                          extra_disabled: Optional[set] = None,
+                          attachments: Optional[list] = None
+                          ) -> CollisionWorld:
+    """Candidate pairs: different links, not parent-child adjacent, not
+    SRDF-disabled, at least one side movable; ordered grouped by kind pair.
+    ``attachments``: (link_name, UrdfGeom) objects carried by a link."""
+    specs = _geom_specs(model, chain)
+    for ai, (lname, g) in enumerate(attachments or []):
+        s = _spec_from_urdf_geom(chain.link_index(lname), g,
+                                 f"{lname}/attached{ai}")
+        if s is not None:
+            specs.append(s)
+    disabled = set(model.disabled_pairs) | (extra_disabled or set())
+    moving = chain.ancestor.any(axis=1)
+    parent = chain.parent
+
+    def adjacent(li, lj):
+        return parent[li] == lj or parent[lj] == li
+
+    raw_pairs = []
+    for i in range(len(specs)):
+        for j in range(i + 1, len(specs)):
+            li, lj = specs[i].link, specs[j].link
+            if li == lj or adjacent(li, lj):
+                continue
+            names = tuple(sorted((chain.link_names[li], chain.link_names[lj])))
+            if names in disabled:
+                continue
+            if not (moving[li] or moving[lj]):
+                continue
+            if specs[i].kind <= specs[j].kind:
+                raw_pairs.append((i, j))
+            else:
+                raw_pairs.append((j, i))
+    return _make_world(chain, specs, raw_pairs)
+
+
+def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
+    """The reference's ``_exact_sweep_overrides`` case split, made once."""
+    moving = chain.ancestor.any(axis=1)
+    sphere_cases, hull_cases = {}, {}
+    for k, (i, j) in enumerate(pairs):
+        gi, gj = specs[i], specs[j]
+        if not (moving[gi.link] or moving[gj.link]):
+            continue
+        matched = False
+        for a_idx, b_idx in ((i, j), (j, i)):
+            a, b = specs[a_idx], specs[b_idx]
+            if moving[b.link] or not moving[a.link]:
+                continue
+            if a.kind == SPHERE:
+                sphere_cases.setdefault(b.kind, []).append(
+                    (k, kind_pos[SPHERE][a_idx], kind_pos[b.kind][b_idx]))
+                matched = True
+                break
+        if matched:
+            continue
+        key = (gi.kind, gj.kind, bool(moving[gi.link]), bool(moving[gj.link]))
+        hull_cases.setdefault(key, []).append(
+            (k, kind_pos[gi.kind][i], kind_pos[gj.kind][j]))
+
+    def arrays(cases):
+        return tuple(np.array([c[m] for c in cases]) for m in range(3))
+
+    sphere = {ok: arrays(c) for ok, c in sphere_cases.items()}
+    hull = {}
+    for (ka, kb, ma, mb), cases in hull_cases.items():
+        na = _SUPPORT_N[ka] * (2 if ma else 1)
+        nb = _SUPPORT_N[kb] * (2 if mb else 1)
+        hull[(ka, kb, ma, mb)] = arrays(cases) + (na, nb)
+    return sphere, hull
+
+
+def _make_world(chain: Chain, specs: list, raw_pairs: list) -> CollisionWorld:
+    """Group candidate pairs by (kind, kind) and build the world."""
+    moving = chain.ancestor.any(axis=1)
+    for s in specs:
+        if s.kind == CONVEX:
+            raise NotImplementedError(
+                f"{s.name}: CONVEX collision geometry is not ported yet")
+    for i, j in raw_pairs:
+        for s in (specs[i], specs[j]):
+            if s.kind == BOX and moving[s.link]:
+                raise NotImplementedError(
+                    f"{s.name}: a box on a moving link needs the two-pose "
+                    "box hull or the box-box sweep, not ported yet")
+        if specs[i].kind == BOX and specs[j].kind == BOX:
+            raise NotImplementedError("box-box pairs (d_box_box) are not "
+                                      "ported yet")
+
+    kind_idx = {k: [] for k in (SPHERE, CAPSULE, BOX, CONVEX)}
+    for gi, g in enumerate(specs):
+        kind_idx[g.kind].append(gi)
+    kind_idx = {k: np.asarray(v, dtype=np.int64) for k, v in kind_idx.items()}
+    kind_pos = {k: {g: i for i, g in enumerate(idx)}
+                for k, idx in kind_idx.items()}
+
+    by_type: dict = {}
+    for (i, j) in raw_pairs:
+        by_type.setdefault((specs[i].kind, specs[j].kind), []).append((i, j))
+    pairs, groups, pos = [], [], 0
+    for key in sorted(by_type):
+        plist = by_type[key]
+        ia = np.array([kind_pos[key[0]][i] for i, _ in plist])
+        ib = np.array([kind_pos[key[1]][j] for _, j in plist])
+        groups.append((key, ia, ib, np.arange(pos, pos + len(plist))))
+        pairs.extend(plist)
+        pos += len(plist)
+    sphere, hull = _sweep_routes(chain, specs, pairs, kind_pos)
+    return CollisionWorld(chain, tuple(specs), tuple(pairs), kind_idx,
+                          tuple(groups), sphere, hull)

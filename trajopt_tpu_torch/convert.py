@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .collision.world import CollisionWorld, GeomSpec, _make_world
 from .kinematics.chain import Chain
 from .solver.types import ProblemData
 from .utils.lanes import tree_map
@@ -49,3 +50,20 @@ def chain_from_numpy(chain) -> Chain:
         kw[f] = tuple(v) if f in ("link_names", "joint_names") \
             else np.array(v, copy=True)
     return Chain(**kw)
+
+
+def world_from_numpy(chain: Chain, geoms, pairs) -> CollisionWorld:
+    """A port ``CollisionWorld`` from the reference world's static tables:
+    ``chain`` (a port ``Chain``, e.g. from :func:`chain_from_numpy`),
+    ``geoms`` (one dict per geometry with the ``GeomSpec`` fields link,
+    kind, off_R, off_p, radius, half, name) and ``pairs`` ((gi, gj) in the
+    reference's order).  Groups and sweep routes are derived again from
+    these tables."""
+    specs = [GeomSpec(link=int(g["link"]), kind=int(g["kind"]),
+                      off_R=np.array(g["off_R"], np.float64),
+                      off_p=np.array(g["off_p"], np.float64),
+                      radius=float(g["radius"]),
+                      half=np.array(g["half"], np.float64),
+                      name=str(g["name"]))
+             for g in geoms]
+    return _make_world(chain, specs, [(int(i), int(j)) for i, j in pairs])

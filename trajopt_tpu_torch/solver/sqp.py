@@ -148,7 +148,8 @@ def _cat_rows(parts, x, width=None):
 
 
 def _convexify(plan: _Plan, data: ProblemData, x: torch.Tensor,
-               banded_rows: bool = False, band_c: int = 1) -> _Cvx:
+               banded_rows: bool = False, band_c: int = 1,
+               kernels: bool = True) -> _Cvx:
     if plan.gen:
         raise NotImplementedError("GENERIC cost terms are not ported yet")
     n_x = plan.spec.n_x
@@ -165,7 +166,7 @@ def _convexify(plan: _Plan, data: ProblemData, x: torch.Tensor,
             return None
         k = id(t.pre_fn)
         if k not in vj_cache:
-            vj_cache[k] = t.pre_fn.value_jac(x)
+            vj_cache[k] = t.pre_fn.value_jac(x, kernels=kernels)
         return vj_cache[k]
 
     def _jac_or_banded(t, p, bands_B, bands_G, vj=None):
@@ -311,7 +312,8 @@ def _model_values(plan: _Plan, cvx: _Cvx, dx: torch.Tensor, band_c: int = 1):
             _cat_rows(viols, dx))
 
 
-def _evaluate(spec: ProblemSpec, data: ProblemData, x: torch.Tensor):
+def _evaluate(spec: ProblemSpec, data: ProblemData, x: torch.Tensor,
+              kernels: bool = True):
     """Exact per-term costs (B, n_cost) and per-group violations
     (B, n_entries) at x."""
     v_cache: dict = {}
@@ -321,7 +323,7 @@ def _evaluate(spec: ProblemSpec, data: ProblemData, x: torch.Tensor):
             return None
         k = id(t.pre_fn)
         if k not in v_cache:
-            v_cache[k] = t.pre_fn.value(x)
+            v_cache[k] = t.pre_fn.value(x, kernels=kernels)
         return v_cache[k]
 
     B = x.shape[0]
@@ -422,7 +424,7 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
     x0 = torch.clamp(data.x0, min=data.lb, max=data.ub)
     dt = x0.dtype
     B = x0.shape[0]
-    cost_vals0, viols0 = _evaluate(spec, data, x0)
+    cost_vals0, viols0 = _evaluate(spec, data, x0, kernels)
     zi = torch.zeros((B,), dtype=torch.int32, device=x0.device)
     merit0 = torch.full((B, n_cnt), p.initial_merit_error_coeff, dtype=dt,
                         device=x0.device)
@@ -444,7 +446,7 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
 
     def body(st: _State) -> _State:
         cvx = _convexify(plan, data, st.x, banded_rows=banded_rows,
-                         band_c=band_c)
+                         band_c=band_c, kernels=kernels)
         w_h, w_a = _merit_row_weights(plan, cvx, st.merit)
         qp_data = _assemble_qp(plan, cvx, w_h, w_a, st.x, st.box,
                                data.lb, data.ub)
@@ -454,7 +456,7 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
 
         new_x = st.x + dx
         model_costs, model_viols = _model_values(plan, cvx, dx, band_c)
-        new_costs, new_viols = _evaluate(spec, data, new_x)
+        new_costs, new_viols = _evaluate(spec, data, new_x, kernels)
 
         def merit_of(costs, viols):
             return torch.sum(costs, dim=-1) + torch.sum(st.merit * viols, -1)
@@ -587,8 +589,8 @@ def solve_batch(spec: ProblemSpec, data: ProblemData,
     """Solve a batch of instances (every tensor of ``data`` has a leading
     lane axis) in one lockstep loop; lanes that finish are frozen.
 
-    ``kernels=False`` runs the plain PyTorch versions of the QP kernels on
-    a CUDA device as well (for comparisons)."""
+    ``kernels=False`` runs the plain PyTorch versions of the QP and
+    collision kernels on a CUDA device as well (for comparisons)."""
     return _solve(spec, params, _on_device(data, device), kernels)
 
 

@@ -1,0 +1,290 @@
+"""Swept ("cast") collision terms and the trajectory gate
+(``trajopt_tpu/terms/collision.py``).
+
+Error rows are ``margin - dist`` per (step gap, sub-segment, pair): a
+hinge cost ``coeff * max(0, margin - dist)`` or INEQ constraint rows.
+:class:`CastDistancePre` owns the FK + swept distance (+ two-endpoint
+Jacobian) pipeline; every term built over the same object receives its
+output as ``aux`` from the SQP engine, so a cost and a constraint over one
+world share one distance pass and one Jacobian pass per linearization.
+
+On a CUDA tensor the pipeline runs as hand-written kernels
+(``csrc/cast_seg.cu``): K4 ``cast_seg`` (distances + Jacobian), K4v
+``cast_seg_value`` (distances) and K5 ``cast_sweep`` (the n_sub gate of
+``trajectory_in_collision``).  On a CPU tensor — or with
+``kernels=False`` — the plain PyTorch versions run: ``value_jac`` is
+``torch.func.vmap(torch.func.jacfwd(...))`` over the plain world, the
+mirror of the reference's ``jax.vmap(jax.jacfwd(...))``.
+
+Not ported yet (``NotImplementedError``): ``weighted=True``,
+``max_contacts``, and the discrete terms (``DiscreteDistancePre``,
+``discrete_collision_term``).
+
+params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _native
+from ..collision.world import CollisionWorld
+from ..utils.lanes import lane_broadcast
+from .base import Term, hinge_cost, ineq_constraint
+
+_JAC_NDOF = 7  # the n_dof instantiated for K4 (csrc/cast_seg.cu)
+
+
+def _bcast(v, n, dtype):
+    return lane_broadcast(v.to(dtype), (n,))
+
+
+# --------------------------------------------------------------------------
+# K4 / K4v / K5 wrappers
+# --------------------------------------------------------------------------
+
+
+def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
+               n_steps: int, nc: int, first: int, n_gaps: int, n_sub: int,
+               stream=None):
+    """Call entry point ``kind`` of a cast library on ``x`` (B, n_steps *
+    nc); the gaps are steps [first, first + n_gaps].  Returns D, and Ja, Jb
+    for ``cast_seg``."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kind}: dtype {x.dtype} is not float32/float64")
+    if x.dim() != 2 or x.shape[1] != n_steps * nc or not x.is_contiguous():
+        raise ValueError(f"{kind}: x must be contiguous (B, {n_steps * nc})")
+    nd, P = world.chain.n_dof, world.n_pairs
+    if kind == "cast_seg" and nd != _JAC_NDOF:
+        raise NotImplementedError(
+            f"cast_seg: the Jacobian kernel is built for n_dof={_JAC_NDOF}, "
+            f"not {nd}")
+    if n_sub < 2 or n_gaps < 1 or first + n_gaps > n_steps - 1:
+        raise ValueError(f"{kind}: bad n_sub={n_sub} or gap range")
+    lanes = x.shape[0]
+    ints, reals = world.kernel_tables(x.dtype, x.device)
+    ss = CollisionWorld._fractions(n_sub, x.dtype, x.device)
+    n_slots = n_sub + 1 if kind == "cast_sweep" else n_sub
+    L, NG = world.chain.n_links, len(world.geoms)
+    slot = nd + 12 * L + 6 * nd + 15 * NG
+    per_d = 1 + (_JAC_NDOF if kind == "cast_seg" else 0)
+    smem = (n_slots * slot + n_sub * P * per_d) * x.element_size()
+    n_seg = n_sub - 1
+    if kind == "cast_sweep":
+        D = torch.empty((lanes, n_gaps, P), dtype=x.dtype, device=x.device)
+    else:
+        D = torch.empty((lanes, n_gaps, n_seg, P), dtype=x.dtype,
+                        device=x.device)
+    Ja = Jb = None
+    if kind == "cast_seg":
+        Ja = torch.empty((lanes, n_gaps, n_seg * P, nc), dtype=x.dtype,
+                         device=x.device)
+        Jb = torch.empty_like(Ja)
+    sfx = "f32" if x.dtype == torch.float32 else "f64"
+    code = getattr(lib, f"{kind}_{sfx}")(
+        ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
+        first, n_gaps, ss.data_ptr(), n_sub, D.data_ptr(),
+        0 if Ja is None else Ja.data_ptr(),
+        0 if Jb is None else Jb.data_ptr(), lanes, nd, smem, stream)
+    _native.check(kind, code)
+    return D, Ja, Jb
+
+
+def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
+    """Launch one of the cast kernels on the card (arguments as
+    :func:`_cast_call`)."""
+    if not x.is_cuda:
+        raise ValueError(f"{kind}: tensors must be on a CUDA device")
+    out = _cast_call(_native.library("cast_seg"), kind, world, x, *args,
+                     stream=torch.cuda.current_stream(x.device).cuda_stream)
+    _native.LAUNCHES[kind] += 1
+    return out
+
+
+def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
+    """The cast kernels' device code compiled for the host
+    (``csrc/cast_host.cpp``), on a CPU tensor: a check of the kernels'
+    arithmetic on a CPU (arguments as :func:`_cast_call`)."""
+    if x.is_cuda:
+        raise ValueError(f"{kind}: the host build takes CPU tensors")
+    return _cast_call(_native.host_library("cast_host"), kind, world, x,
+                      *args)
+
+
+class CastDistancePre:
+    """Shared swept-distance (+ two-endpoint Jacobian) pipeline.
+
+    ``value(x)`` -> D (B, n_gaps, n_seg, P); ``value_jac(x)`` -> (D, (Ja,
+    Jb)) with Ja / Jb (B, n_gaps, n_seg * P, nc) the raw distance Jacobians
+    wrt the gap's two endpoint steps."""
+
+    def __init__(self, world: CollisionWorld, n_steps: int,
+                 first_step: int = 0, last_step: Optional[int] = None,
+                 n_sub: int = 8, n_cols: Optional[int] = None):
+        self.world = world
+        self.n_steps = n_steps
+        self.first_step = first_step
+        self.last = (n_steps - 1) if last_step is None else last_step
+        self.n_gaps = self.last - first_step
+        assert self.n_gaps >= 1
+        self.n_dof = world.chain.n_dof
+        self.nc = n_cols or self.n_dof
+        self.P = world.n_pairs
+        self.n_seg = max(n_sub - 1, 1)
+        self.R = self.n_seg * self.P
+
+    def _qab(self, x):
+        X = x.reshape(x.shape[0], self.n_steps, self.nc)[..., :self.n_dof]
+        return (X[:, self.first_step:self.last],
+                X[:, self.first_step + 1:self.last + 1])
+
+    def _launch(self, kind, x):
+        return _cast_launch(kind, self.world, x.contiguous(), self.n_steps,
+                            self.nc, self.first_step, self.n_gaps,
+                            self.n_seg + 1)
+
+    def value(self, x, kernels: bool = True):
+        """D (B, n_gaps, n_seg, P): K4v on a CUDA tensor (``kernels=False``
+        takes the plain version there), the plain version on the CPU."""
+        if x.is_cuda and kernels:
+            return self._launch("cast_seg_value", x)[0]
+        qa, qb = self._qab(x)
+        return self.world.cast_pair_distances_seg(qa, qb, self.n_seg + 1)
+
+    def value_jac(self, x, kernels: bool = True):
+        """(D, (Ja, Jb)): K4 on a CUDA tensor (``kernels=False`` takes the
+        plain version there); the plain version is ``vmap(jacfwd)`` over
+        the plain world."""
+        if x.is_cuda and kernels:
+            D, Ja, Jb = self._launch("cast_seg", x)
+            return D, (Ja, Jb)
+        qa, qb = self._qab(x)
+        B = x.shape[0]
+
+        def f(a, b):
+            d = self.world.cast_pair_distances_seg(a, b, self.n_seg + 1)
+            return d, d
+
+        (Ja, Jb), D = torch.func.vmap(
+            torch.func.jacfwd(f, argnums=(0, 1), has_aux=True))(
+            qa.reshape(-1, self.n_dof), qb.reshape(-1, self.n_dof))
+        shape = (B, self.n_gaps, self.R, self.n_dof)
+        Ja, Jb = Ja.reshape(shape), Jb.reshape(shape)
+        if self.nc != self.n_dof:  # the inv-dt column has no dependence
+            z = Ja.new_zeros(shape[:-1] + (self.nc - self.n_dof,))
+            Ja = torch.cat([Ja, z], dim=-1)
+            Jb = torch.cat([Jb, z], dim=-1)
+        return D.reshape(B, self.n_gaps, self.n_seg, self.P), (Ja, Jb)
+
+
+def cast_collision_term(
+    name: str,
+    world: CollisionWorld,
+    n_steps: int,
+    first_step: int = 0,
+    last_step: Optional[int] = None,
+    n_sub: int = 8,
+    is_constraint: bool = False,
+    n_cols: Optional[int] = None,
+    weighted: bool = False,
+    max_contacts: Optional[int] = None,
+    buffer: float = 0.5,
+    pre: Optional[CastDistancePre] = None,
+) -> Term:
+    """Swept-volume collision over each step gap in [first, last-1]: one
+    hinge / INEQ row per (gap, sub-segment, pair).  ``pre``: a shared
+    :class:`CastDistancePre` (cost + constraint over one world)."""
+    if weighted:
+        raise NotImplementedError("cast_collision_term(weighted=True) is "
+                                  "not ported yet")
+    if max_contacts is not None:
+        raise NotImplementedError("cast_collision_term(max_contacts=...) is "
+                                  "not ported yet")
+    if pre is None:
+        pre = CastDistancePre(world, n_steps, first_step, last_step, n_sub,
+                              n_cols)
+    assert (pre.world is world and pre.n_steps == n_steps
+            and pre.first_step == first_step
+            and pre.last == ((n_steps - 1) if last_step is None else last_step)
+            and pre.n_seg == max(n_sub - 1, 1)
+            and pre.nc == (n_cols or world.chain.n_dof))
+    n_gaps, P, n_seg, R, nc = pre.n_gaps, pre.P, pre.n_seg, pre.R, pre.nc
+    n = n_gaps * R
+
+    def _errs(x, p, aux=None):
+        D = aux if aux is not None else pre.value(x)  # (B, n_gaps, n_seg, P)
+        margins = _bcast(p["margins"], P, x.dtype)
+        return (margins[:, None, None, :] - D).reshape(x.shape[0], n_gaps, R)
+
+    def fn(x, p, aux=None):
+        return _errs(x, p, aux).reshape(x.shape[0], -1)
+
+    def _row_coeffs(p, dtype):
+        return _bcast(p["coeffs"], P, dtype).repeat(1, n_gaps * n_seg)
+
+    def _jac_gaps(x, p, aux=None, cf=False):
+        _, (Ja, Jb) = aux if aux is not None else pre.value_jac(x)
+        if cf:
+            w = _bcast(p["coeffs"], P, x.dtype).repeat(1, n_seg)
+            Ja = Ja * w[:, None, :, None]
+            Jb = Jb * w[:, None, :, None]
+        return -Ja, -Jb  # d(margin - dist)/dq
+
+    def jac_fn(x, p, aux=None, cf=False):
+        Ja_, Jb_ = _jac_gaps(x, p, aux, cf)
+        B, nd = x.shape[0], pre.n_dof
+        J = x.new_zeros((B, n_gaps, R, n_steps, nc))
+        g = torch.arange(n_gaps, device=x.device)
+        J[:, g, :, first_step + g, :nd] = Ja_[..., :nd].permute(1, 0, 2, 3)
+        J[:, g, :, first_step + 1 + g, :nd] = Jb_[..., :nd].permute(1, 0, 2, 3)
+        return J.reshape(B, n, n_steps * nc)
+
+    def jac_banded_fn(x, p, aux=None, cf=False):
+        Ja_, Jb_ = _jac_gaps(x, p, aux, cf)
+        G = first_step + torch.arange(n_gaps, dtype=torch.int32,
+                                      device=x.device)
+        return torch.cat([Ja_, Jb_], dim=-1), G
+
+    if is_constraint:
+        def cfn(x, p, aux=None):
+            return fn(x, p, aux) * _row_coeffs(p, x.dtype)
+        return ineq_constraint(
+            name, n, cfn,
+            jac_fn=lambda x, p, aux=None: jac_fn(x, p, aux, cf=True),
+            viol_groups=n_gaps,  # one reference constraint per step gap
+            step_coupling=1,
+            jac_banded_fn=lambda x, p, aux=None: jac_banded_fn(
+                x, p, aux, cf=True),
+            pre_fn=pre)
+    return hinge_cost(name, n, fn, weight_fn=lambda p: _row_coeffs(
+        p, p["coeffs"].dtype), jac_fn=jac_fn, step_coupling=1,
+        jac_banded_fn=jac_banded_fn, pre_fn=pre)
+
+
+def cast_sweep_distances(world: CollisionWorld, X: torch.Tensor,
+                         n_sub: int = 16, kernels: bool = True):
+    """(B, T - 1, n_pairs) swept distances of every step gap of the
+    trajectories X (B, T, n_dof) at ``n_sub`` substates: K5 on a CUDA
+    tensor, the plain ``cast_pair_distances`` otherwise."""
+    if X.is_cuda and kernels:
+        B, T, nd = X.shape
+        return _cast_launch("cast_sweep", world,
+                            X.reshape(B, T * nd).contiguous(), T, nd, 0,
+                            T - 1, n_sub)[0]
+    return world.cast_pair_distances(X[:, :-1], X[:, 1:], n_sub)
+
+
+def trajectory_in_collision(world: CollisionWorld, X: torch.Tensor,
+                            margin: float = 0.0, n_sub: int = 16,
+                            pair_mask=None):
+    """Independent swept check of final trajectories X (B, T, n_dof):
+    returns each lane's minimum swept distance over all gaps and pairs
+    (>= margin means collision-free).  ``pair_mask`` (n_pairs,) restricts
+    the check to a pair subset."""
+    d = cast_sweep_distances(world, X, n_sub)
+    if pair_mask is not None:
+        keep = torch.as_tensor(pair_mask, dtype=torch.bool, device=d.device)
+        d = torch.where(keep, d, torch.full_like(d, float("inf")))
+    return torch.amin(d, dim=(1, 2))
