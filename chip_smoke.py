@@ -21,6 +21,11 @@ Every line printed is one JSON object.  Phases, in order:
    whose plain value moves by more than it under a few ulps of change of
    x); their Jacobians on the rows whose witness decision is not tied
    (``CollisionWorld.cast_ties``), the tied rows counted;
+2c. the CONVEX routes (the generic feature enumeration ``convex_feature``
+   and the Frank-Wolfe max separation ``convex_fw``), each alone through
+   the route probe ``convex_route`` on the vertex sets of the
+   pick-and-place transfer world at 128 lanes x 11 gaps (n_sub 2) against
+   its plain version, and timed;
 3. the collision-free slice: ``make_glass_upright_free(batch=128, T=30,
    float32)`` through ``solve_batch_compact(bench_params(),
    phase_qp_solves=8)`` with every launch counter set to 0 just before and
@@ -33,12 +38,26 @@ Every line printed is one JSON object.  Phases, in order:
    K1-K5 must have launched, no lane may be non-finite, and at least 120
    of 128 lanes must be CONVERGED with max violation < 1e-4 and min swept
    distance >= 0 (the bench's gate);
+3c. pick-and-place (BASELINE config 4): ``solve_pick_and_place(batch=128,
+   T=12, float32)`` (one cold run, three warm runs, counters reset before
+   the first warm run and read after it and both phases' gates), then one
+   run phase by phase for each phase's wall and launches; each phase must
+   gate at least 120 of 128 lanes (CONVERGED, max violation < 1e-4, the
+   K5 gate at n_sub 16 >= 0 in the phase's own world), the transfer's
+   step 0 must equal the approach's last step exactly, and the transfer
+   must run K4, K4v, K5 and both CONVEX routes; then K4, K4v and K5 on the
+   transfer world (its straight-line init through the wall, that init
+   plus seeded noise, and the solved trajectories) against their plain
+   versions as in phase 2, the CONVEX pairs reported apart;
 4. 16 lanes in float64 through the kernel path and through the plain path
-   on the card, for the free slice (4) and the full flagship (4b): equal
-   statuses and QP-solve counts, x within 1e-8 (free slice) and 3e-5
-   (flagship: a tied witness decision on a lane's path is resolved by
-   rounding, which differs between the kernel and torch; the plain path
-   from x0 moved by one ulp is printed beside it);
+   on the card, for the free slice (4) and the full flagship (4b), and 8
+   lanes of each pick-and-place phase (4c): equal statuses and QP-solve
+   counts, x within 1e-8 (free slice) and 3e-5 (flagship and the
+   pick-and-place approach: a tied witness decision on a lane's path is
+   resolved by rounding, which differs between the kernel and torch; the
+   plain path from x0 moved by one ulp is printed beside it, and no lane
+   may move further than that), and 1e-4 for the transfer
+   (``TRANSFER_DX_TOL``);
 5. the kernel summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
@@ -80,6 +99,19 @@ CAPBOX_JTOL = {"float32": 1e-2, "float64": 1e-8}
 # from x0 moved by one ulp, and no lane of the kernel path may move
 # further than the farthest lane that move gives
 FLAGSHIP_DX_TOL = 3e-5
+# float64 pick-and-place transfer, kernel path vs plain path: the CONVEX
+# routes' tied rows are not measure-zero there (the payload's faces are
+# parallel to the wall's and to each other's poses), and on them the two
+# roundings take Frank-Wolfe polish paths of different values (the plain
+# version alone moves as far under a few ulps of x); over a long solve a
+# lane's x then moves further than one ulp of x0 moves it.  The transfer
+# is held to the SQP's own step floor, SQPParams.min_trust_box_size
+# (measurements: PERF.md section 6)
+TRANSFER_DX_TOL = 1e-4
+# the kernels the flagship's path launches; pick-and-place's transfer also
+# runs the two CONVEX routes inside K4, K4v and K5
+PATH_KERNELS = ("bb_quad", "btd_factor", "btd_solve", "cast_seg",
+                "cast_seg_value", "cast_sweep")
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; non-tensor-core
 # float32 67 TFLOP/s, float64 34 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -96,22 +128,78 @@ FK_LINK, FK_DOF, FK_GEOM = 150, 18, 72
 DISCRETE = {(0, 0): 12, (0, 1): 40, (0, 2): 45, (1, 1): 70, (1, 2): 385}
 CAND_EE, CAND_PT, WITNESS_V, COVER_V = 85, 130, 20, 156
 _TOPO = {1: (1, 0), 2: (1, 0), 4: (6, 4), 8: (12, 12)}
+# the Frank-Wolfe route, per vertex of both sets: a support value (dot and
+# compare) 6, a weighted vertex sum 6; per step (gamma, the weights) 30
+SUPPORT_V, FW_STEP, FW_ITERS = 6, 30, 24
+GENERIC_MAX = 12  # geometry.GENERIC_FEATURE_MAX_VERTS
+
+
+def feature_flops(n1, n2, generic):
+    """flops of one feature enumeration (candidates and witness) at sizes
+    (n1, n2): the small-hull topologies, or all pairs and triples."""
+    def topo(n):
+        if not generic or n <= 2:
+            return _TOPO[n]
+        return n * (n - 1) // 2, n * (n - 1) * (n - 2) // 6
+    (e1, t1), (e2, t2) = topo(n1), topo(n2)
+    return e1 * e2 * CAND_EE + (n1 * t2 + n2 * t1) * CAND_PT \
+        + WITNESS_V * (n1 + n2)
+
+
+def fw_flops(n1, n2):
+    """flops of one Frank-Wolfe max separation (csrc/collision.cuh
+    fw_witness): the FW steps, the 28 directions, six polish steps, the
+    sharing and the value."""
+    n = n1 + n2
+    return (FW_ITERS * (2 * SUPPORT_V * n + FW_STEP) + 28 * SUPPORT_V * n
+            + 6 * (2 * SUPPORT_V * n + FW_STEP) + 3 * SUPPORT_V * n)
+
+
+def convex_flops(n1, n2):
+    """flops of d_convex_auto at sizes (n1, n2) (the depth cover of the
+    generic route counted apart)."""
+    if max(n1, n2) <= GENERIC_MAX:
+        return feature_flops(n1, n2, True)
+    return fw_flops(n1, n2)
 
 
 def cast_work(world, D, lanes, n_gaps, n_sub, es, nd):
     """(bytes, flops) of K4 ("jac"), K4v ("value") and K5 ("sweep") on
-    these inputs: each input read once, each output written once; the hull
-    route's depth cover is counted on the rows this data penetrates (D
-    within 1e-6 of -(r1 + r2), the separation test's threshold)."""
+    these inputs: each input read once, each output written once; the
+    feature enumerations' depth cover is counted on the rows this data
+    penetrates (D within 1e-6 of -(r1 + r2), the separation test's
+    threshold), a CONVEX pair's substates at the rows of its swept value
+    (D bounds them from below)."""
     L, NG, P = world.chain.n_links, len(world.geoms), world.n_pairs
     dual = lambda n: 1 + 1.5 * n
     fk = L * FK_LINK + nd * FK_DOF + NG * FK_GEOM
     routes = world.pair_routes()
+    nv = world.n_convex_verts
+    support = {0: 1, 1: 2, 2: 8, 3: nv}
     Dl = D.reshape(lanes, n_gaps, -1, P)
     pen = 0
     per = {"jac": 0.0, "value": 0.0, "sweep": 0.0}
     for k, ((i, j), (route, hull)) in enumerate(zip(world.pairs, routes)):
         gi, gj = world.geoms[i], world.geoms[j]
+        n_pen = int((Dl[..., k] <= -(gi.radius + gj.radius) + 1e-6).sum())
+        if gj.kind == 3:  # a CONVEX side: d_convex_auto, witness-linear
+            n1 = support[gi.kind]
+            c = convex_flops(n1, nv)
+            if max(n1, nv) <= GENERIC_MAX:
+                pen += n_pen * n_sub * COVER_V * (n1 + nv)
+            per["jac"] += n_sub * (c + 16 * nd * (n1 + nv))
+            per["value"] += n_sub * c
+            per["sweep"] += n_sub * c
+            if route == "convex":
+                na, nb = hull
+                h = convex_flops(na, nb)
+                if max(na, nb) <= GENERIC_MAX:
+                    pen += n_pen * COVER_V * (na + nb)
+                seg = n_sub - 1
+                per["jac"] += seg * (h + 16 * nd * (na + nb))
+                per["value"] += seg * h
+                per["sweep"] += h
+            continue
         disc = DISCRETE[(gi.kind, gj.kind)]
         if route == "sphere":
             other = gj if gi.kind == 0 else gi
@@ -125,10 +213,7 @@ def cast_work(world, D, lanes, n_gaps, n_sub, es, nd):
         per["sweep"] += n_sub * disc
         if route == "hull":
             na, nb = hull
-            (e1, t1), (e2, t2) = _TOPO[na], _TOPO[nb]
-            h = (e1 * e2 * CAND_EE + (na * t2 + nb * t1) * CAND_PT
-                 + WITNESS_V * (na + nb))
-            n_pen = int((Dl[..., k] <= -(gi.radius + gj.radius) + 1e-6).sum())
+            h = feature_flops(na, nb, False)
             pen += n_pen * COVER_V * (na + nb)
             seg = n_sub - 1
             per["jac"] += seg * (h + 16 * nd * (na + nb))
@@ -151,6 +236,11 @@ def cast_work(world, D, lanes, n_gaps, n_sub, es, nd):
     return out
 
 
+def max0(t):
+    """The largest entry of t, 0 when t is empty (no such rows)."""
+    return float(t.max()) if t.numel() else 0.0
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -165,14 +255,19 @@ def main():
     import numpy as np
 
     from trajopt_tpu_torch import _native
-    from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
-                                              make_glass_upright_free)
+    from trajopt_tpu_torch.benchmarks import (bench_params, chain_transfer,
+                                              make_glass_upright,
+                                              make_glass_upright_free,
+                                              make_pick_and_place,
+                                              solve_pick_and_place)
+    from trajopt_tpu_torch.collision import geometry as geom
     from trajopt_tpu_torch.ops import banded_rows as br
     from trajopt_tpu_torch.ops import btridiag as bt
     from trajopt_tpu_torch.solver.sqp import solve_batch_compact
     from trajopt_tpu_torch.solver.types import CONVERGED
     from trajopt_tpu_torch.terms.collision import (CastDistancePre,
                                                    cast_sweep_distances,
+                                                   convex_route,
                                                    trajectory_in_collision)
 
     dev = torch.device("cuda")
@@ -183,7 +278,7 @@ def main():
     card = torch.cuda.get_device_name(0)
     build_s = _native.build_all()
     ptxas = {}
-    for name in _native.LAUNCHES:
+    for name in _native.SOURCES:
         log = (_native.BUILD_DIR / f"{name}.log")
         if log.exists():
             ptxas[name] = [ln.strip() for ln in log.read_text().splitlines()
@@ -361,16 +456,37 @@ def main():
         v = value_fn(xg[:, None] * (1 + u * torch.finfo(xg.dtype).eps))
         return v.amax(1) - v.amin(1)
 
-    def value_rows(name, dname, err, rows_x, value_fn, dscale, tol_d):
+    def value_rows(name, dname, err, rows_x, value_fn, dscale, tol_d,
+                   tied=None):
         """The value check on every row: ``err`` is the kernel's error
         relative to the largest |D|; rows over tol_d are probed by
-        ulp_spread (float32)."""
+        ulp_spread (float32).  ``tied`` (float64): the rows whose witness
+        a tied decision picks (``cast_ties``); a Frank-Wolfe route's value
+        is a lower bound that another polish path moves, so those rows are
+        held to D_ALL_TOL and the others to tol_d."""
         over = err > tol_d
         n_over = int(over.sum())
         rec = {"D_rel_err_all_rows": float(err.max()),
                "D_abs_err_all_rows": float(err.max()) * dscale,
                "D_rows_over_tol": n_over, "rows": err.numel()}
         ok = float(err.max()) < tol_d
+        if tied is not None and dname == "float64":
+            rec.update(D_rel_err_untied_rows=max0(err[~tied]),
+                       D_tied_rows_over_tol=int((over & tied).sum()),
+                       tie_rows=int(tied.sum()))
+            ok = rec["D_rel_err_untied_rows"] < tol_d \
+                and float(err.max()) < D_ALL_TOL
+            if n_over:
+                idx = torch.nonzero(over)
+                rec["worst_row"] = idx[int(err[over].argmax())].tolist()
+                # how far the plain value of an untied row over tol_d
+                # moves under a few ulps of x (a tie the rules missed)
+                bad = torch.nonzero(over & ~tied)
+                if len(bad):
+                    spread = ulp_spread(rows_x(bad),
+                                        lambda xp: value_fn(bad, xp))
+                    rec.update(D_untied_rows_over_tol_plain_spread_min=float(
+                        (spread / dscale).min()))
         if dname == "float32":
             ok = float(err.max()) < D_ALL_TOL and \
                 n_over <= D_OVER_SHARE * err.numel()
@@ -498,6 +614,84 @@ def main():
         timing[name]["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         emit({"time": name, **timing[name], "card": smi})
 
+    # ---- 2c: the CONVEX routes alone, on the transfer world's sets ----
+    pnp_T = 12
+    _, _, pscene = make_pick_and_place(lanes, pnp_T, f32, device=dev)
+    world_att = pscene["world_att"]
+    # the transfer's straight-line init from each lane's grasp
+    XB0 = chain_transfer(pscene, pscene["grasps"])[1].x0.reshape(
+        lanes, pnp_T, D)
+    route_err = {"convex_feature": [], "convex_fw": []}
+    route_time = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol_d = COLL_TOL[dname][0]
+        Xd = XB0.to(dtype)
+        for (n1, n2), (V1, r1, V2, r2) in world_att.convex_route_sets(
+                Xd[:, :-1], Xd[:, 1:], 2).items():
+            fw = max(n1, n2) > geom.GENERIC_FEATURE_MAX_VERTS
+            name = "convex_fw" if fw else "convex_feature"
+            plain = geom.d_convex_convex if fw else geom.make_feature_distance(
+                n1, n2, geom.generic_topology)
+            ties = geom.convex_convex_ties if fw else geom.feature_ties(
+                n1, n2, topology=geom.generic_topology)
+            dk = convex_route(world_att, V1, r1, V2, r2, fw)
+            sync()
+            dp = plain(V1, r1, V2, r2)
+            dscale = float(dp.abs().max())
+            err = (dk - dp).abs() / dscale
+            tie = ties(V1, V2, *TIE_RULE[dname])
+            over = (err > tol_d) & ~tie
+            rec = {"check": f"{name}_route", "dtype": dname, "n1": n1,
+                   "n2": n2, "rows": err.numel(), "tie_rows": int(tie.sum()),
+                   "D_rel_err_untied_rows": max0(err[~tie]),
+                   "D_rel_err_all_rows": float(err.max()),
+                   "D_abs_err_all_rows": float(err.max()) * dscale,
+                   "D_untied_rows_over_tol": int(over.sum())}
+            ok = float(err.max()) < D_ALL_TOL
+            if dname == "float32":
+                ok = ok and int(over.sum()) <= D_OVER_SHARE * err.numel()
+                if int(over.sum()):
+                    # such a row's plain value must move by more than the
+                    # tolerance under a few ulps of change of its vertices
+                    idx = torch.nonzero(over)[:, 0]
+                    spread = ulp_spread(
+                        torch.cat([V1[idx], V2[idx]], 1),
+                        lambda vp: plain(vp[:, :, :n1], r1[idx, None],
+                                         vp[:, :, n1:], r2[idx, None]))
+                    moved = spread > tol_d * dscale
+                    rec["D_untied_rows_over_tol_plain_moves"] = int(moved.sum())
+                    ok = ok and bool(moved.all())
+            else:
+                ok = ok and rec["D_rel_err_untied_rows"] < tol_d
+            rec.update(tol=[tol_d, D_ALL_TOL], ok=ok)
+            emit(rec)
+            assert ok, f"{name} disagrees with its plain version"
+            route_err[name].append(rec)
+            if dname != "float32":
+                continue
+            # time and bound at the main path's shapes (one K4 launch's
+            # sets at n_sub 2); the generic route's depth cover counted on
+            # the rows that penetrate
+            n_pen = int((dp <= -(r1 + r2) + 1e-6).sum()) if not fw else 0
+            t = route_time.setdefault(name, {"ms": 0.0, "plain_ms": 0.0,
+                                             "bytes": 0, "flops": 0,
+                                             "shapes": []})
+            t["ms"] += time_ms(lambda: convex_route(world_att, V1, r1, V2,
+                                                    r2, fw))
+            t["plain_ms"] += time_ms(lambda: plain(V1, r1, V2, r2), reps=3)
+            t["bytes"] += es * (V1.numel() + V2.numel() + 3 * V1.shape[0])
+            t["flops"] += V1.shape[0] * convex_flops(n1, n2) \
+                + n_pen * COVER_V * (n1 + n2)
+            t["shapes"].append([V1.shape[0], n1, n2])
+    for name, t in route_time.items():
+        t_bytes = t["bytes"] / PEAK_BYTES * 1e3
+        t_ops = t["flops"] / PEAK_FLOPS["float32"] * 1e3
+        t.update(bound_ms=max(t_bytes, t_ops), library_ms=None,
+                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+        timing[name] = t
+        emit({"time": name, **t, "card": smi})
+
     # ------------------------------------------------------------------
     # phase 3: the collision-free slice, float32, 128 lanes, T = 30
     # ------------------------------------------------------------------
@@ -588,9 +782,225 @@ def main():
           "walls_s": walls_f, "gate_s": gate_s,
           "solves_per_s": n_ok / mean_wall, "launches": launches_f,
           "card": smi})
-    assert all(v > 0 for v in launches_f.values()), launches_f
+    assert all(launches_f[k] > 0 for k in PATH_KERNELS), launches_f
     assert finite, "non-finite lanes"
     assert n_ok >= 120, f"only {n_ok}/128 lanes pass the gate"
+
+    # ------------------------------------------------------------------
+    # phase 3c: pick-and-place, float32, 128 lanes, T = 12, both phases
+    # ------------------------------------------------------------------
+    def run_pnp():
+        out = solve_pick_and_place(lanes, pnp_T, torch.float32, params=params,
+                                   device=dev)
+        sync()
+        return out
+
+    def gates(resA, resB, scene):
+        XA = resA.x.reshape(lanes, pnp_T, D)
+        XB = resB.x.reshape(lanes, pnp_T, D)
+        return (trajectory_in_collision(scene["world_free"], XA),
+                trajectory_in_collision(scene["world_att"], XB))
+
+    t0 = time.perf_counter()
+    run_pnp()
+    cold_p = time.perf_counter() - t0
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    resA, resB, scene = run_pnp()
+    walls_p = [time.perf_counter() - t0]
+    gA, gB = gates(resA, resB, scene)
+    sync()
+    launches_p = dict(_native.LAUNCHES)
+    for _ in range(2):
+        t0 = time.perf_counter()
+        run_pnp()
+        walls_p.append(time.perf_counter() - t0)
+    # once more phase by phase: each phase's wall and launches (gate
+    # included)
+    phase_wall, phase_launches = {}, {}
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    specA, dataA, sc = make_pick_and_place(lanes, pnp_T, torch.float32,
+                                           device=dev)
+    rA = solve_batch_compact(specA, dataA, params, phase_qp_solves=8,
+                             device=dev)
+    trajectory_in_collision(sc["world_free"], rA.x.reshape(lanes, pnp_T, D))
+    sync()
+    phase_wall["approach"] = time.perf_counter() - t0
+    phase_launches["approach"] = dict(_native.LAUNCHES)
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    specB, dataB = chain_transfer(
+        sc, rA.x.reshape(lanes, pnp_T, D)[:, -1].cpu().numpy())
+    rB = solve_batch_compact(specB, dataB, params, phase_qp_solves=8,
+                             device=dev)
+    trajectory_in_collision(sc["world_att"], rB.x.reshape(lanes, pnp_T, D))
+    sync()
+    phase_wall["transfer"] = time.perf_counter() - t0
+    phase_launches["transfer"] = dict(_native.LAUNCHES)
+    XA = resA.x.reshape(lanes, pnp_T, D)
+    XB = resB.x.reshape(lanes, pnp_T, D)
+    chained = bool((XB[:, 0] == XA[:, -1]).all())
+    # the JAX package's counts on the CPU at this size (seed 0)
+    reference = {"approach": {"gated": 128, "mean_qp_solves": 6.0},
+                 "transfer": {"gated": 125, "mean_qp_solves": 15.52}}
+    pnp_rec = {"phase": "pick_and_place", "batch": lanes, "n_steps": pnp_T,
+               "dtype": "float32", "n_sub": 2, "gate_n_sub": 16,
+               "cold_s": cold_p, "walls_s": walls_p,
+               "wall_s": sum(walls_p) / len(walls_p),
+               "transfer_step0_is_approach_last": chained,
+               "launches": launches_p, "card": smi}
+    n_gated = {}
+    for ph, r, g in (("approach", resA, gA), ("transfer", resB, gB)):
+        st = r.status.cpu().numpy()
+        v = r.cnt_viols.max(dim=1).values.cpu().numpy()
+        gg = g.cpu().numpy()
+        n_gated[ph] = int(((st == CONVERGED) & (v < 1e-4) & (gg >= 0)).sum())
+        pnp_rec[ph] = {
+            "converged": int((st == CONVERGED).sum()), "gated": n_gated[ph],
+            "finite": bool(torch.isfinite(r.x).all()),
+            "mean_qp_solves": float(r.n_qp_solves.float().mean()),
+            "max_viol": float(v.max()), "min_swept_distance": float(gg.min()),
+            "wall_s_phase_by_phase": phase_wall[ph],
+            "launches_phase_by_phase": phase_launches[ph],
+            "jax_reference_cpu": reference[ph]}
+    pnp_rec["gated_solves_per_s"] = sum(n_gated.values()) / 2 \
+        / pnp_rec["wall_s"]
+    emit(pnp_rec)
+    tl = phase_launches["transfer"]
+    assert chained, "the transfer's step 0 is not the approach's last step"
+    assert all(pnp_rec[ph]["finite"] for ph in n_gated), "non-finite lanes"
+    assert all(n >= 120 for n in n_gated.values()), n_gated
+    assert all(tl[k] > 0 for k in PATH_KERNELS) and tl["convex_feature"] > 0 \
+        and tl["convex_fw"] > 0, tl
+    assert phase_launches["approach"]["convex_feature"] == 0
+
+    # ---- K4 / K4v / K5 on the transfer world against their plain versions
+    # (the straight-line init through the wall, plus seeded noise, and the
+    # solved trajectories); the CONVEX pairs apart ----
+    cvx_pair = torch.as_tensor([world_att.geoms[j].kind == 3
+                                for _, j in world_att.pairs], device=dev)
+    noise = torch.as_tensor(np.random.default_rng(5).normal(
+        0.0, 0.02, tuple(XB0.shape)), device=dev)
+    inputs = {"init": XB0, "init_noise": XB0 + noise.to(XB0.dtype),
+              "solved": XB.detach()}
+    P_att, gaps_p = world_att.n_pairs, pnp_T - 1
+    pre_t = CastDistancePre(world_att, pnp_T, n_sub=2)
+    pre_t1 = CastDistancePre(world_att, 2, n_sub=2)
+    transfer_err = {"cast_seg": [], "cast_seg_value": [], "cast_sweep": []}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol_d, tol_j = COLL_TOL[dname]
+        for label, Xin in inputs.items():
+            X = Xin.to(dtype).contiguous()
+            x = X.reshape(lanes, -1)
+
+            def gap_x(idx):
+                return torch.stack([X[idx[:, 0], idx[:, 1]],
+                                    X[idx[:, 0], idx[:, 1] + 1]], 1)
+
+            def seg_values(idx, xp):
+                n, draws = xp.shape[:2]
+                Dx = pre_t1.value(xp.reshape(n * draws, 2 * D),
+                                  kernels=False).reshape(n, draws, -1, P_att)
+                return Dx[torch.arange(n, device=dev)[:, None],
+                          torch.arange(draws, device=dev)[None],
+                          idx[:, 2:3], idx[:, 3:4]]
+
+            Dk, (Jak, Jbk) = pre_t.value_jac(x)
+            Dv = pre_t.value(x)
+            sync()
+            Dp, (Jap, Jbp) = pre_t.value_jac(x, kernels=False)
+            dscale = float(Dp.abs().max())
+            tie = world_att.cast_ties(X[:, :-1], X[:, 1:], 2,
+                                      *TIE_RULE[dname]).reshape(lanes,
+                                                                gaps_p, -1)
+            recs = {}
+            for name, Dout in (("cast_seg", Dk), ("cast_seg_value", Dv)):
+                err = (Dout - Dp).abs() / dscale
+                recs[name] = value_rows(f"{name}_transfer_{label}", dname,
+                                        err, gap_x, seg_values, dscale, tol_d,
+                                        tie.reshape(err.shape))
+                recs[name]["D_rel_err_convex_pairs"] = float(
+                    err[..., cvx_pair].max())
+            keep = ~tie
+            jscale = max(float(Jap.abs().max()), float(Jbp.abs().max()))
+            rowj = torch.maximum((Jak - Jap).abs().amax(-1),
+                                 (Jbk - Jbp).abs().amax(-1)) / jscale
+            capbox = torch.as_tensor(
+                [r == "sphere" and 2 in (world_att.geoms[i].kind,
+                                         world_att.geoms[j].kind)
+                 for (i, j), (r, _) in zip(world_att.pairs,
+                                           world_att.pair_routes())],
+                device=dev)
+            ej = float((rowj * (keep & ~capbox)).max())
+            ej_cvx = float((rowj * (keep & cvx_pair)).max())
+            ej_capbox = float((rowj * (keep & capbox)).max())
+            ok = ej < tol_j and ej_capbox < CAPBOX_JTOL[dname]
+            recs["cast_seg"].update(
+                J_rel_err_untied_rows=ej, J_rel_err_all_rows=float(rowj.max()),
+                J_rel_err_untied_convex_pairs=ej_cvx,
+                J_tie_rows_excluded=int(tie.sum()),
+                J_tie_rows_convex_pairs=int(tie[..., cvx_pair].sum()))
+            emit({"check": f"cast_seg_jacobian_transfer_{label}",
+                  "dtype": dname, "J_rel_err_untied_rows": ej,
+                  "J_rel_err_untied_convex_pairs": ej_cvx,
+                  "J_rel_err_all_rows": float(rowj.max()),
+                  "J_rel_err_sphere_box_untied_rows": ej_capbox,
+                  "J_rows_over_tol": int((rowj > tol_j).sum()),
+                  "rows": keep.numel(), "tie_rows_excluded": int(tie.sum()),
+                  "tie_rows_convex_pairs": int(tie[..., cvx_pair].sum()),
+                  "convex_pair_rows": int(cvx_pair.sum()) * lanes * gaps_p,
+                  "tol": [tol_j, CAPBOX_JTOL[dname]], "ok": ok})
+            assert ok, "cast_seg's Jacobian disagrees on the transfer world"
+            for name in recs:
+                transfer_err[name].append(dict(recs[name], dtype=dname,
+                                               input=label))
+            Ds = cast_sweep_distances(world_att, X, 16)
+            sync()
+            Dsp = cast_sweep_distances(world_att, X, 16, kernels=False)
+
+            def sweep_values(idx, xp):
+                d = world_att.cast_pair_distances(xp[:, :, 0], xp[:, :, 1],
+                                                  16)
+                return torch.gather(d, 2, idx[:, 2:3, None].expand(
+                    -1, d.shape[1], 1))[..., 0]
+
+            err = (Ds - Dsp).abs() / float(Dsp.abs().max())
+            # the gap's hull decisions are those of n_sub 2's one segment
+            rec = value_rows(f"cast_sweep_transfer_{label}", dname, err,
+                             gap_x, sweep_values, float(Dsp.abs().max()),
+                             tol_d, tie)
+            rec["D_rel_err_convex_pairs"] = float(err[..., cvx_pair].max())
+            transfer_err["cast_sweep"].append(dict(rec, dtype=dname,
+                                                   input=label))
+    # the CVX instantiations' times on the transfer world (float32, the
+    # noisy init)
+    xt = inputs["init_noise"].reshape(lanes, -1).contiguous()
+    Xt = inputs["init_noise"]
+    work_t = cast_work(world_att, pre_t.value(xt, kernels=False), lanes,
+                       gaps_p, 2, es, D)
+    work_t16 = cast_work(world_att, cast_sweep_distances(world_att, Xt, 16,
+                                                         False),
+                         lanes, gaps_p, 16, es, D)
+    timing_t = {}
+    for name, fn, plain, w in (
+            ("cast_seg", lambda: pre_t.value_jac(xt),
+             lambda: pre_t.value_jac(xt, kernels=False), work_t["jac"]),
+            ("cast_seg_value", lambda: pre_t.value(xt),
+             lambda: pre_t.value(xt, kernels=False), work_t["value"]),
+            ("cast_sweep", lambda: cast_sweep_distances(world_att, Xt, 16),
+             lambda: cast_sweep_distances(world_att, Xt, 16, False),
+             work_t16["sweep"])):
+        t_bytes = w[0] / PEAK_BYTES * 1e3
+        t_ops = w[1] / PEAK_FLOPS["float32"] * 1e3
+        timing_t[name] = dict(
+            ms=time_ms(fn, reps=20), plain_ms=time_ms(plain, reps=3),
+            bytes=w[0], flops=w[1], bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            shape="x (128, 84) -> D (128, 11, 34)"
+            + (", Ja/Jb (128, 11, 34, 7)" if name == "cast_seg" else ""))
+        emit({"time": f"{name}_transfer", **timing_t[name], "card": smi})
 
     # ------------------------------------------------------------------
     # phase 4: kernel path == plain path, float64, 16 lanes, on the card
@@ -656,8 +1066,55 @@ def main():
     assert same_status and same_nqp and dx < FLAGSHIP_DX_TOL \
         and dx <= float(du_lane.max()), "flagship kernel path != plain path"
 
+    # phase 4c: pick-and-place, 8 lanes of each phase, the same comparison;
+    # the transfer of both paths starts from the plain path's approach
+    def kernel_vs_plain(spec64, data64, label, dx_tol, ulp_bound):
+        rk = solve_batch_compact(spec64, data64, params, phase_qp_solves=8,
+                                 device=dev, kernels=True)
+        t0 = time.perf_counter()
+        rp = solve_batch_compact(spec64, data64, params, phase_qp_solves=8,
+                                 device=dev, kernels=False)
+        sync()
+        plain_s = time.perf_counter() - t0
+        u = torch.as_tensor(np.random.default_rng(6).integers(
+            -1, 2, tuple(data64.x0.shape)), device=dev).to(torch.float64)
+        ru = solve_batch_compact(
+            spec64, data64._replace(
+                x0=data64.x0 * (1 + u * torch.finfo(torch.float64).eps)),
+            params, phase_qp_solves=8, device=dev, kernels=False)
+        dx_lane = (rk.x - rp.x).abs().amax(-1)
+        du_lane = (ru.x - rp.x).abs().amax(-1)
+        rec = {"phase": f"f64_pick_and_place_{label}_kernel_vs_plain",
+               "lanes": rk.x.shape[0], "status": rk.status.tolist(),
+               "n_qp": rk.n_qp_solves.tolist(),
+               "same_status": bool((rk.status == rp.status).all()),
+               "same_n_qp": bool((rk.n_qp_solves == rp.n_qp_solves).all()),
+               "max_abs_dx": float(dx_lane.max()),
+               "dx_per_lane": dx_lane.tolist(),
+               "plain_x0_ulp_dx_per_lane": du_lane.tolist(),
+               "plain_x0_ulp_same_status": bool((ru.status == rp.status).all()),
+               "lanes_beyond_ulp_move": int((dx_lane > du_lane).sum()),
+               "tol": dx_tol, "plain_path_s": plain_s}
+        emit(rec)
+        # ulp_bound: no lane further than rounding alone moves the plain
+        # path (or than 1e-10 where that move is smaller)
+        assert rec["same_status"] and rec["same_n_qp"] \
+            and rec["max_abs_dx"] < dx_tol and (not ulp_bound or (
+                rec["max_abs_dx"] <= max(float(du_lane.max()), 1e-10))), \
+            f"pick-and-place {label}: kernel path != plain path"
+        return rp
+
+    specA8, dataA8, sc8 = make_pick_and_place(8, pnp_T, torch.float64,
+                                              device=dev)
+    rpA = kernel_vs_plain(specA8, dataA8, "approach", FLAGSHIP_DX_TOL, True)
+    kernel_vs_plain(*chain_transfer(
+        sc8, rpA.x.reshape(8, pnp_T, D)[:, -1].cpu().numpy()), "transfer",
+        TRANSFER_DX_TOL, False)
+
     # ------------------------------------------------------------------
-    # summary (launches: the full flagship's run, phase 3b)
+    # summary (launches: the full flagship's run, phase 3b, for K1-K5; the
+    # pick-and-place run, phase 3c, for the CONVEX routes; both paths'
+    # counts in launches_by_path)
     # ------------------------------------------------------------------
     replaces = {
         "bb_quad": "trajopt_tpu/ops/banded_rows.py:89",
@@ -666,10 +1123,17 @@ def main():
         "cast_seg": "trajopt_tpu/terms/collision.py:165",
         "cast_seg_value": "trajopt_tpu/terms/collision.py:159",
         "cast_sweep": "trajopt_tpu/terms/collision.py:548",
+        "convex_feature": "trajopt_tpu/collision/geometry.py:796",
+        "convex_fw": "trajopt_tpu/collision/geometry.py:211",
     }
     source = {k: f"trajopt_tpu_torch/csrc/{k}.cu" for k in replaces}
     for k in ("cast_seg", "cast_seg_value", "cast_sweep"):
         source[k] = "trajopt_tpu_torch/csrc/cast_seg.cu"
+    for k in ("convex_feature", "convex_fw"):
+        source[k] = "trajopt_tpu_torch/csrc/collision.cuh"
+    launches = {k: launches_f[k] for k in PATH_KERNELS}
+    launches.update(convex_feature=launches_p["convex_feature"],
+                    convex_fw=launches_p["convex_fw"])
     # errors: K1-K3 the largest relative error of every check and the
     # absolute one at the main path's shape; K4, K4v, K5 the values' error
     # on every row (D_*), K4 also the Jacobian's on the untied rows and on
@@ -686,9 +1150,36 @@ def main():
             errs[k].update({f: max(e[f] for e in v) for f in (
                 "J_rel_err_untied_rows", "J_rel_err_all_rows",
                 "J_tie_rows_excluded")})
+        # the transfer world (CVX instantiation): every input and dtype
+        tv = transfer_err[k]
+        errs[k]["transfer"] = {
+            "D_max_rel_err_all_rows": max(e["D_rel_err_all_rows"]
+                                          for e in tv),
+            "D_max_rel_err_convex_pairs": max(e["D_rel_err_convex_pairs"]
+                                              for e in tv),
+            "D_rows_over_tol": max(e["D_rows_over_tol"] for e in tv),
+            **timing_t[k]}
+        if k == "cast_seg":
+            errs[k]["transfer"].update({f: max(e[f] for e in tv) for f in (
+                "J_rel_err_untied_rows", "J_rel_err_untied_convex_pairs",
+                "J_tie_rows_excluded", "J_tie_rows_convex_pairs")})
+    # the routes: the probe's value error against the plain route, on the
+    # untied rows and on every row, worst over float32 and float64
+    for k, v in route_err.items():
+        errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
+                   "max_abs_err_of": "route value, all rows",
+                   "D_max_rel_err_untied_rows": max(
+                       e["D_rel_err_untied_rows"] for e in v),
+                   "D_max_rel_err_all_rows": max(e["D_rel_err_all_rows"]
+                                                 for e in v),
+                   "tie_rows": max(e["tie_rows"] for e in v),
+                   "launches_are": "K4 / K4v / K5 launches that ran it",
+                   "shapes_rows_n1_n2": timing[k]["shapes"]}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
-         "replaces": replaces[name], "launches": launches_f[name],
+         "replaces": replaces[name], "launches": launches[name],
+         "launches_by_path": {"flagship": launches_f[name],
+                              "pick_and_place": launches_p[name]},
          "ok": True, **errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],

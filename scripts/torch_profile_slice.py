@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile_slice.py [--scene free|full] [--batch 128]
-                                           [--steps 30]
+    python3 scripts/torch_profile_slice.py [--scene free|full|pnp]
+                                           [--batch 128] [--steps T]
 
-Runs the glass-upright flagship through ``solve_batch_compact`` (float32,
-``bench_params()``, ``phase_qp_solves=8``): ``--scene free`` is
-``make_glass_upright_free`` (no collision terms), ``--scene full`` the
-full ``make_glass_upright`` (cast collision, n_sub=2).  One warm-up run,
-one run timed without the profiler (with the wall of each compaction
-phase), then one run under ``torch.profiler`` with each layer of the path
-wrapped in a ``record_function`` range (convexify, QP assembly, the IPM,
-model values, evaluation; inside them the CUDA kernels).  Prints one JSON
-line: wall times, phases, device kernel time and busy share, CUDA kernel
-launches, host and device time per layer, and the top device kernels.
-The full ``key_averages`` table goes to
-``chiprun_out/torch_profile_slice_<scene>.txt``.
+Runs a scene through ``solve_batch_compact`` (float32, ``bench_params()``,
+``phase_qp_solves=8``): ``--scene free`` is ``make_glass_upright_free``
+(no collision terms), ``--scene full`` the full ``make_glass_upright``
+(cast collision, n_sub=2), both at T=30 by default; ``--scene pnp`` is
+pick-and-place at T=12 by default, its two chained problems measured one
+after the other (the approach from ``make_pick_and_place``, then the
+transfer from ``chain_transfer`` of the approach's solution).  For each
+problem: one warm-up run, one run timed without the profiler (with the
+wall of each compaction phase), then one run under ``torch.profiler`` with
+each layer of the path wrapped in a ``record_function`` range (convexify,
+QP assembly, the IPM, model values, evaluation; inside them the CUDA
+kernels).  Prints one JSON line per problem: wall times, phases, device
+kernel time and busy share, CUDA kernel launches, host and device time
+per layer, and the top device kernels.  The full ``key_averages`` tables
+go to one text file per problem in the repo's output directory.
 """
 
 import argparse
@@ -42,35 +45,56 @@ def _dev_time(evt, self_only=False):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("free", "full"), default="free")
+    ap.add_argument("--scene", choices=("free", "full", "pnp"),
+                    default="free")
     ap.add_argument("--batch", type=int, default=128)
-    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args()
+    steps = args.steps or (12 if args.scene == "pnp" else 30)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         sys.stderr.write("torch_profile_slice: CUDA is not available\n")
         sys.exit(2)
 
     from trajopt_tpu_torch import _native
-    from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
-                                              make_glass_upright_free)
-    from trajopt_tpu_torch.ops import ipm_qp
-    from trajopt_tpu_torch.solver import sqp
-    from trajopt_tpu_torch.terms.collision import CastDistancePre
+    from trajopt_tpu_torch.benchmarks import (bench_params, chain_transfer,
+                                              make_glass_upright,
+                                              make_glass_upright_free,
+                                              make_pick_and_place)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     _native.build_all()
     dev = torch.device("cuda")
+    params = bench_params()
+    if args.scene == "pnp":
+        spec, data, scene = make_pick_and_place(args.batch, steps,
+                                                torch.float32, device=dev)
+        res = measure(spec, data, params, dev, smi, args, steps, "approach")
+        spec, data = chain_transfer(scene, res.x.reshape(
+            args.batch, steps, -1)[:, -1].cpu().numpy())
+        measure(spec, data, params, dev, smi, args, steps, "transfer")
+        return
     make = make_glass_upright if args.scene == "full" \
         else make_glass_upright_free
-    spec, data = make(args.batch, n_steps=args.steps, dtype=torch.float32,
+    spec, data = make(args.batch, n_steps=steps, dtype=torch.float32,
                       device=dev)[:2]
-    params = bench_params()
+    measure(spec, data, params, dev, smi, args, steps, None)
+
+
+def measure(spec, data, params, dev, smi, args, steps, problem):
+    """Warm-up, unprofiled and profiled runs of one problem; prints its
+    JSON line and returns the unprofiled run's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.ops import ipm_qp
+    from trajopt_tpu_torch.solver import sqp
+    from trajopt_tpu_torch.terms.collision import CastDistancePre
 
     def run():
         res = sqp.solve_batch_compact(spec, data, params, phase_qp_solves=8,
@@ -158,8 +182,8 @@ def main():
     top = sorted(kernels, key=lambda e: -_dev_time(e, True))[:12]
     n_ipm = launches["btd_factor"]
     out = {
-        "card": smi, "scene": args.scene, "batch": args.batch,
-        "n_steps": args.steps, "phases": phases,
+        "card": smi, "scene": args.scene, "problem": problem,
+        "batch": args.batch, "n_steps": steps, "phases": phases,
         "converged": int((res.status == 1).sum()),
         "mean_qp_solves": float(res.n_qp_solves.float().mean()),
         "wall_s": wall, "profiled_wall_s": prof_wall,
@@ -176,12 +200,14 @@ def main():
                         for e in top],
     }
     os.makedirs(os.path.join(_ROOT, "chiprun_out"), exist_ok=True)
+    tag = args.scene + (f"_{problem}" if problem else "")
     with open(os.path.join(_ROOT, "chiprun_out",
-                           f"torch_profile_slice_{args.scene}.txt"), "w") as f:
+                           f"torch_profile_slice_{tag}.txt"), "w") as f:
         key = ("self_device_time_total" if hasattr(rows[0], "self_device_time_total")
                else "self_cuda_time_total")
         f.write(rows.table(sort_by=key, row_limit=60))
     print(json.dumps(out), flush=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -25,7 +25,7 @@ from trajopt_tpu_torch.terms import cartesian as tcart
 from trajopt_tpu_torch.terms import joint as tjoint
 
 TOL = 1e-12
-_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _t(a):
@@ -166,6 +166,7 @@ def test_import_loads_neither_jax_nor_reference():
             "trajopt_tpu_torch.solver.sqp, trajopt_tpu_torch.convert, "
             "trajopt_tpu_torch.collision.world, "
             "trajopt_tpu_torch.collision.geometry, "
+            "trajopt_tpu_torch.collision.decompose, "
             "trajopt_tpu_torch.terms.collision\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'trajopt_tpu' or m.startswith('trajopt_tpu.')]\n"
@@ -181,7 +182,9 @@ def test_import_loads_neither_jax_nor_reference():
 def test_entry_points_default_to_cuda():
     """Without CUDA, every entry point called without device= raises."""
     from trajopt_tpu_torch.benchmarks import (make_glass_upright,
-                                              make_glass_upright_free)
+                                              make_glass_upright_free,
+                                              make_pick_and_place,
+                                              solve_pick_and_place)
     from trajopt_tpu_torch.problem.trajectory import TrajProblemBuilder
     from trajopt_tpu_torch.solver.sqp import solve_batch_compact
     from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp
@@ -195,6 +198,10 @@ def test_entry_points_default_to_cuda():
         make_glass_upright_free(2, n_steps=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         make_glass_upright(2, n_steps=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_pick_and_place(2, n_steps=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        solve_pick_and_place(2, n_steps=4)
     spec, data, _ = make_glass_upright_free(2, n_steps=4, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         solve_batch_compact(spec, data)

@@ -6,11 +6,17 @@
   built here from the JAX package's own terms with the same random draws;
 - the full flagship (``make_glass_upright``, both cast-collision terms)
   at T=6, batch 2, through the port's ``solve_batch`` against the
-  reference's ``_solve`` under one ``jit(vmap(...))`` (one compile).
+  reference's ``_solve`` under one ``jit(vmap(...))`` (one compile);
+- pick-and-place (``solve_pick_and_place``: the approach, then the
+  transfer with the convex payload over the wall) at T=7, batch 2, against
+  the reference's ``make_pick_and_place`` / ``chain_transfer`` scenes
+  through ``_solve`` under one ``jit(vmap(...))`` per phase.
 
 Per-lane status, QP-solve count and SQP iterations must be equal and x
 agree to 1e-6 (the same float64 iterate sequence; sum orders differ inside
-the QP).
+the QP).  The pick-and-place transfer is more sensitive than that: the
+reference's own x moves by up to ~5e-6 when its x0 moves by one ulp, so
+its x is held within twice the largest such move (3 seeded draws).
 """
 
 import jax
@@ -20,6 +26,8 @@ import pytest
 import torch
 
 from trajopt_tpu.benchmarks import Q_GOAL, Q_START
+from trajopt_tpu.benchmarks import chain_transfer as j_chain_transfer
+from trajopt_tpu.benchmarks import make_pick_and_place as j_make_pnp
 from trajopt_tpu.benchmarks import make_glass_upright as j_make_full
 from trajopt_tpu.benchmarks import bench_params as j_bench_params
 from trajopt_tpu.models import arm7 as j_arm7
@@ -30,7 +38,8 @@ from trajopt_tpu.solver.sqp import solve_batch_compact as j_solve
 from trajopt_tpu.terms.cartesian import upright_term
 from trajopt_tpu.terms.joint import joint_pos_term, joint_vel_term
 from trajopt_tpu_torch.benchmarks import (bench_params, make_glass_upright,
-                                          make_glass_upright_free)
+                                          make_glass_upright_free,
+                                          solve_pick_and_place)
 from trajopt_tpu_torch.convert import problem_data_from_numpy
 from trajopt_tpu_torch.solver.sqp import solve_batch, solve_batch_compact
 from trajopt_tpu_torch.solver.types import CONVERGED
@@ -140,3 +149,46 @@ def test_full_flagship_matches_reference():
     gate0 = trajectory_in_collision(world, tdata.x0.reshape(2, T, 7))
     gate = trajectory_in_collision(world, tres.x.reshape(2, T, 7))
     assert (gate0 < 0).all() and (gate >= 0).all()
+
+
+def test_pick_and_place_matches_reference():
+    """Both chained phases lane for lane as the reference: equal statuses,
+    QP counts and SQP iterations, x as the module docstring says; the
+    transfer's step 0 is exactly the approach's last step, both phases
+    end collision-free in their own worlds, and the straight-line transfer
+    init passes through the wall (the solver had to plan over it)."""
+    TP, B = 7, 2
+    tA, tB, scene = solve_pick_and_place(B, n_steps=TP, dtype=torch.float64,
+                                         device="cpu")
+    params = j_bench_params()
+    sA, dA, jscene = j_make_pnp(B, n_steps=TP, dtype=jnp.float64)
+    jA = jax.jit(jax.vmap(lambda d: j_solve_lane(sA, params, d)))(dA)
+    sB, dB = j_chain_transfer(jscene, np.asarray(jA.x).reshape(B, TP, -1)[:, -1])
+    solve_b = jax.jit(jax.vmap(lambda d: j_solve_lane(sB, params, d)))
+    jB = solve_b(dB)
+    for t, j in ((tA, jA), (tB, jB)):
+        np.testing.assert_array_equal(t.status.numpy(), np.asarray(j.status))
+        np.testing.assert_array_equal(t.n_qp_solves.numpy(),
+                                      np.asarray(j.n_qp_solves))
+        np.testing.assert_array_equal(t.sqp_it.numpy(), np.asarray(j.sqp_it))
+        assert (t.status == CONVERGED).all()
+    np.testing.assert_allclose(tA.x.numpy(), np.asarray(jA.x), rtol=0,
+                               atol=X_TOL)
+    # the reference's own move under one ulp of change of the transfer's x0
+    eps = np.finfo(np.float64).eps
+    ulp = max(
+        float(np.abs(np.asarray(solve_b(dB._replace(x0=dB.x0 * (
+            1 + eps * np.random.default_rng(k).integers(-1, 2, dB.x0.shape)
+        ))).x) - np.asarray(jB.x)).max()) for k in range(3))
+    dx = float(np.abs(tB.x.numpy() - np.asarray(jB.x)).max())
+    print(f"pick-and-place transfer: |dx| {dx:.3e}, the reference's own "
+          f"one-ulp move {ulp:.3e}")
+    assert dx <= max(X_TOL, 2.0 * ulp), (dx, ulp)
+    XA, XB = tA.x.reshape(B, TP, 7), tB.x.reshape(B, TP, 7)
+    assert torch.equal(XB[:, 0], XA[:, -1])
+    assert (trajectory_in_collision(scene["world_free"], XA) >= 0).all()
+    assert (trajectory_in_collision(scene["world_att"], XB) >= 0).all()
+    a = torch.linspace(0.0, 1.0, TP, dtype=torch.float64)[:, None]
+    straight = (1 - a) * XA[:, -1:] + a * torch.as_tensor(
+        scene["places"])[:, None]
+    assert (trajectory_in_collision(scene["world_att"], straight) < 0).all()

@@ -34,6 +34,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
 _CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]
+_ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -45,15 +46,25 @@ _SIGNATURES = {
     "cast_seg": [(f"{k}_{s}", _CAST) for k in
                  ("cast_seg", "cast_seg_value", "cast_sweep")
                  for s in ("f32", "f64")],
+    "cast_cvx": [(f"{k}_cvx_{s}", _CAST) for k in
+                 ("cast_seg", "cast_seg_value", "cast_sweep")
+                 for s in ("f32", "f64")]
+    + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")],
 }
+SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # extra nvcc flags per source: the cast kernels keep every multiply and add
 # separate (no FMA contraction), as the plain PyTorch versions compute them,
 # so that their argmin decisions agree wherever there is no tie
-_EXTRA_FLAGS = {"cast_seg": ["-fmad=false"]}
+_EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"]}
 
-# kernel name -> launch count; the cast source holds three kernels
+# kernel name -> launch count; the cast sources hold three kernels
+# (``cast_cvx`` their CVX instantiations, with the CONVEX routes, and the
+# route probe ``convex_route``).  ``convex_feature`` / ``convex_fw`` count the launches
+# of K4, K4v and K5 that ran that CONVEX route (the generic feature
+# enumeration, Frank-Wolfe max separation)
 LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
-                          "cast_seg_value", "cast_sweep"], 0)
+                          "cast_seg_value", "cast_sweep", "convex_feature",
+                          "convex_fw", "convex_route"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -81,7 +92,8 @@ def _flags(name: str) -> list:
 # the host build keeps every multiply and add separate too; unoptimised,
 # as it only checks arithmetic at small sizes (it compiles in ~1 s)
 HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
-_HOST_SIGNATURES = {"cast_host": _SIGNATURES["cast_seg"]}
+_HOST_SIGNATURES = {"cast_host": _SIGNATURES["cast_seg"]
+                    + _SIGNATURES["cast_cvx"]}
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:

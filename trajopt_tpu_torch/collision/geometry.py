@@ -13,11 +13,11 @@ instance.  Forward-mode tangents follow the JAX package's exactly:
 - ``jnp.max`` over an axis splits ties evenly (``torch.amax`` does too);
 - ``stop_gradient`` becomes ``.detach()``.
 
-Ported: the closed forms, ``box_vertices`` with ``_PEN_DIRS``, and
-``make_feature_distance`` over ``small_hull_topology``.  Not ported yet
-(they raise ``NotImplementedError``): ``d_convex_convex`` / ``_fw_weights``,
-``d_box_box`` / ``d_swept_box_box``, ``generic_topology`` /
-``d_convex_auto``.
+Ported: the closed forms, ``box_vertices`` with ``_PEN_DIRS``,
+``make_feature_distance`` over ``small_hull_topology`` and
+``generic_topology``, the Frank-Wolfe max-separation ``d_convex_convex``
+with ``_fw_weights``, and ``d_convex_auto``.  Not ported yet (they raise
+``NotImplementedError``): ``d_box_box`` / ``d_swept_box_box``.
 """
 
 from __future__ import annotations
@@ -197,6 +197,18 @@ def small_hull_topology(n_verts: int):
     raise ValueError(f"no static topology for {n_verts} vertices")
 
 
+def generic_topology(n_verts: int):
+    """(edges, tris) of a point cloud whose hull topology is unknown: all
+    vertex pairs and all triples (``itertools.combinations`` order), a
+    sound superset of the hull's features; 1 and 2 vertices as
+    ``small_hull_topology``."""
+    if n_verts <= 2:
+        return small_hull_topology(n_verts)
+    E = np.array(list(itertools.combinations(range(n_verts), 2)), np.int32)
+    T = np.array(list(itertools.combinations(range(n_verts), 3)), np.int32)
+    return E, T
+
+
 def _bary_cascade(d1, d2, d3, d4, d5, d6):
     """The closest-point region cascade of a point to a triangle, carried
     as barycentric (v, w) (closest = a + v (b - a) + w (c - a))."""
@@ -306,13 +318,14 @@ def _pick_vertex(V, i):
 
 
 class _FeatureTables:
-    """Static candidate tables of ``make_feature_distance(n1, n2)``: flat
-    candidate order [edge-edge | v1-tri2 | v2-tri1]."""
+    """Static candidate tables of ``make_feature_distance(n1, n2,
+    topology)``: flat candidate order [edge-edge | v1-tri2 | v2-tri1]."""
 
-    def __init__(self, n1: int, n2: int):
+    def __init__(self, n1: int, n2: int, topology=None):
+        topo = topology or small_hull_topology
         self.n1, self.n2 = n1, n2
-        self.E1, self.T1 = small_hull_topology(n1)
-        self.E2, self.T2 = small_hull_topology(n2)
+        self.E1, self.T1 = topo(n1)
+        self.E2, self.T2 = topo(n2)
         ct, ia, ib = [], [], []
         for i in range(len(self.E1)):
             for j in range(len(self.E2)):
@@ -445,18 +458,17 @@ def _witness(tb: _FeatureTables, V1c, V2c, k=None, kd=None, margins=False):
 
 def make_feature_distance(n1: int, n2: int, topology=None):
     """The exact feature-enumeration signed distance between conv(V1)+r1
-    and conv(V2)+r2 for vertex-set sizes (n1, n2) in {1, 2, 4, 8}:
-    ``fn(V1 (..., n1, 3), r1, V2 (..., n2, 3), r2)``.
+    and conv(V2)+r2 for vertex-set sizes (n1, n2):
+    ``fn(V1 (..., n1, 3), r1, V2 (..., n2, 3), r2)``.  ``topology`` maps a
+    vertex count to (edges, tris): ``small_hull_topology`` (the default;
+    sizes 1, 2, 4, 8) or ``generic_topology`` (any point cloud).
 
     Every discrete decision (candidate argmin, closest-feature parameters,
     separation test, depth-cover winner) runs on detached vertices; the
     value is the frozen-witness linear form
     ``W2 . (V2 @ n) - W1 . (V1 @ n) - (r1 + r2)``, whose tangent is that
     of the feature-enumeration distance (envelope theorem)."""
-    if topology is not None and topology is not small_hull_topology:
-        raise NotImplementedError("only small_hull_topology is ported "
-                                  "(generic_topology comes later)")
-    tb = _FeatureTables(n1, n2)
+    tb = _FeatureTables(n1, n2, topology)
 
     def fn(V1, r1, V2, r2):
         W1f, W2f, nf = _witness(tb, V1.detach(), V2.detach())
@@ -469,24 +481,27 @@ def make_feature_distance(n1: int, n2: int, topology=None):
     return fn
 
 
-def feature_ties(n1: int, n2: int, depth: int = 8):
+def feature_ties(n1: int, n2: int, depth: int = 8, topology=None):
     """``ties(V1, V2, rel, wtol, band)`` -> (...,) bool: rows of
-    ``make_feature_distance(n1, n2)`` whose witness decision is a tie.  An
-    argmin (candidate, or depth-cover direction) is tied when one of its
-    ``depth`` best entries lies within ``rel`` (relative) of the best AND
-    gives another witness (W1, W2 or n differ by more than ``wtol``); a
+    ``make_feature_distance(n1, n2, topology)`` whose witness decision is
+    a tie.  An argmin (candidate, or depth-cover direction) is tied when
+    one of its ``depth`` best entries lies within ``rel`` (relative) of the
+    best plus a rounding floor (64 eps extent^2 for a squared distance, 64
+    eps extent for a depth; extent: the largest vertex norm) AND gives
+    another witness (W1, W2 or n differ by more than ``wtol``); a
     threshold test (the separation test, the support-vertex tie sets) is
     tied when its operand lies within ``band`` of the threshold.  Another
     implementation, or another rounding, may then pick another valid
     witness: the value moves by at most the decision's gap, the Jacobian
-    by O(1)."""
-    tb = _FeatureTables(n1, n2)
+    by O(1).  With ``rules`` the dict of each rule's rows (argmin,
+    cover_argmin, threshold) instead of their union."""
+    tb = _FeatureTables(n1, n2, topology)
 
     def differ(a, b, wtol):
         return torch.stack([torch.amax(torch.abs(x - y), dim=-1)
                             for x, y in zip(a, b)]).amax(0) > wtol
 
-    def ties(V1, V2, rel, wtol, band=0.0):
+    def ties(V1, V2, rel, wtol, band=0.0, rules=False):
         V1, V2 = V1.detach(), V2.detach()
         d2 = tb.candidate_d2(V1, V2)
         h = _depth_cover(V1, V2)[1]
@@ -495,17 +510,230 @@ def feature_ties(n1: int, n2: int, depth: int = 8):
         hv, hi = torch.topk(h, depth, dim=-1, largest=False)
         *best, tests = _witness(tb, V1, V2, ki[..., 0], hi[..., 0],
                                 margins=True)
-        out = torch.amin(tests, dim=-1) <= band
+        r = {"threshold": torch.amin(tests, dim=-1) <= band}
+        # the rounding floor: a d2 (depth) carries an absolute rounding
+        # error of ~eps extent^2 (eps extent), however small it is
+        ext = torch.amax(torch.cat([_safe_norm(V1), _safe_norm(V2)], -1), -1)
+        floor = 64 * torch.finfo(V1.dtype).eps * ext
         for vals, idx, is_k in ((kv, ki, True), (hv, hi, False)):
-            lim = rel * torch.clamp(torch.abs(vals[..., 0]), min=1e-30)
+            lim = rel * torch.clamp(torch.abs(vals[..., 0]), min=1e-30) \
+                + (floor * ext if is_k else floor)
+            out = torch.zeros_like(r["threshold"])
             for m in range(1, vals.shape[-1]):
                 near = vals[..., m] - vals[..., 0] <= lim
                 alt = _witness(tb, V1, V2, idx[..., m] if is_k else ki[..., 0],
                                hi[..., 0] if is_k else idx[..., m])
                 out = out | (near & differ(best, alt, wtol))
-        return out
+            r["argmin" if is_k else "cover_argmin"] = out
+        if rules:
+            return r
+        return r["threshold"] | r["argmin"] | r["cover_argmin"]
 
     return ties
+
+
+def _dotn(V, u):
+    """(..., n) support values V @ u of vertex sets (..., n, 3)."""
+    return torch.einsum("...nk,...k->...n", V, u)
+
+
+def _take_vertex(V, i):
+    """``V[..., i, :]`` for a batched index (a gather: exact)."""
+    return torch.gather(V, -2, i[..., None, None].expand(
+        i.shape + (1, V.shape[-1])))[..., 0, :]
+
+
+def _fw_weights(V1, V2, iters: int = 24):
+    """Frank-Wolfe witness weights (l1 (..., n1), l2 (..., n2)) of the
+    closest-point pair of conv(V1) and conv(V2), from vertex 0 of each.
+    Runs on detached vertices: the weights carry no tangent (the
+    reference's zero-tangent ``custom_jvp``), so ``jacfwd`` never traces
+    the ``iters`` steps."""
+    V1, V2 = V1.detach(), V2.detach()
+    l1 = _onehot(torch.zeros(V1.shape[:-2], dtype=torch.int64,
+                             device=V1.device), V1.shape[-2], V1.dtype)
+    l2 = _onehot(torch.zeros(V2.shape[:-2], dtype=torch.int64,
+                             device=V2.device), V2.shape[-2], V2.dtype)
+    for _ in range(iters):
+        p = (torch.einsum("...n,...nk->...k", l1, V1)
+             - torch.einsum("...n,...nk->...k", l2, V2))
+        i1 = torch.argmax(_dotn(V1, -p), dim=-1)
+        i2 = torch.argmax(_dotn(V2, p), dim=-1)
+        dvec = (_take_vertex(V1, i1) - _take_vertex(V2, i2)) - p
+        gamma = _clip(-_dot(p, dvec) / _max(_dot(dvec, dvec), _EPS), 0.0,
+                      1.0)[..., None]
+        l1 = (1 - gamma) * l1 + gamma * _onehot(i1, V1.shape[-2], V1.dtype)
+        l2 = (1 - gamma) * l2 + gamma * _onehot(i2, V2.shape[-2], V2.dtype)
+    return l1, l2
+
+
+# the direction polish's projected-ascent step sizes
+_POLISH_STEPS = (0.5, 0.25, 0.12, 0.06, 0.03, 0.015)
+
+
+def _near_runner_up(vals, items, lim, wtol, largest=True):
+    """(...,) bool: the runner-up of an argmax (argmin) over ``vals``
+    (..., k) lies within ``lim`` of the winner and its item (..., k, 3)
+    differs from the winner's by more than ``wtol``."""
+    if vals.shape[-1] < 2:
+        return torch.zeros(vals.shape[:-1], dtype=torch.bool,
+                           device=vals.device)
+    v, i = torch.topk(vals, 2, dim=-1, largest=largest)
+    far = torch.amax(torch.abs(_take_vertex(items, i[..., 0])
+                               - _take_vertex(items, i[..., 1])), -1) > wtol
+    return (torch.abs(v[..., 0] - v[..., 1]) <= lim) & far
+
+
+def _fw_witness(V1c, V2c, iters: int = 24, tie=None):
+    """Frozen witness (W1, W2, u*) of ``d_convex_convex`` from detached
+    vertex sets.  With ``tie = (rel, wtol, band)`` it also returns, per
+    tie rule of ``convex_convex_ties``, the (...,) rows whose witness that
+    rule finds tied."""
+    dt, dev = V1c.dtype, V1c.device
+    l1, l2 = _fw_weights(V1c, V2c, iters)
+    p = (torch.einsum("...n,...nk->...k", l1, V1c)
+         - torch.einsum("...n,...nk->...k", l2, V2c))
+    pn = _safe_norm(p)
+    pen = torch.as_tensor(_PEN_DIRS, dtype=dt, device=dev)
+    n = torch.where((pn > 1e-9)[..., None], p / _max(pn, _EPS)[..., None],
+                    pen[0])
+    U0 = torch.cat([pen.expand(p.shape[:-1] + pen.shape), n[..., None, :],
+                    -n[..., None, :]], dim=-2)
+    sep0 = (torch.amin(_mm(V2c, U0), dim=-2)
+            - torch.amax(_mm(V1c, U0), dim=-2))
+    k0 = torch.argmax(sep0, dim=-1)
+    u = _take_vertex(U0, k0)
+    best_u, best_sep = u, torch.amax(sep0, dim=-1)
+    if tie is not None:
+        rel, wtol, band = tie
+        ext = torch.amax(torch.cat([_safe_norm(V1c), _safe_norm(V2c)], -1), -1)
+        lim = rel * _max(ext, 1e-30)
+        r = {"cover_argmax": _near_runner_up(sep0, U0, lim, wtol)}
+        r["polish_pick"] = r["polish_better"] = torch.zeros_like(
+            r["cover_argmax"])
+        fw_dir = (k0 >= 26)
+    for t in _POLISH_STEPS:
+        s1u, s2u = _dotn(V1c, u), _dotn(V2c, u)
+        if tie is not None:
+            r["polish_pick"] = r["polish_pick"] \
+                | _near_runner_up(s1u, V1c, lim, wtol) \
+                | _near_runner_up(s2u, V2c, lim, wtol, largest=False)
+        g = (_take_vertex(V2c, torch.argmin(s2u, dim=-1))
+             - _take_vertex(V1c, torch.argmax(s1u, dim=-1)))
+        u = u + t * g / _max(_safe_norm(g), _EPS)[..., None]
+        u = u / _max(_safe_norm(u), _EPS)[..., None]
+        s = torch.amin(_dotn(V2c, u), dim=-1) - torch.amax(_dotn(V1c, u),
+                                                           dim=-1)
+        if tie is not None:
+            r["polish_better"] = r["polish_better"] \
+                | (torch.abs(s - best_sep) <= band + lim)
+        better = s > best_sep
+        best_u = torch.where(better[..., None], u, best_u)
+        best_sep = torch.where(better, s, best_sep)
+    U = torch.cat([U0, best_u[..., None, :]], dim=-2)
+    S1, S2 = _mm(V1c, U), _mm(V2c, U)
+    sep = torch.amin(S2, dim=-2) - torch.amax(S1, dim=-2)
+    ks = torch.argmax(sep, dim=-1)
+    us = _take_vertex(U, ks)
+    s1 = torch.gather(S1, -1, ks[..., None, None].expand(
+        S1.shape[:-1] + (1,)))[..., 0]
+    s2 = torch.gather(S2, -1, ks[..., None, None].expand(
+        S2.shape[:-1] + (1,)))[..., 0]
+    m1 = torch.amax(s1, dim=-1, keepdim=True)
+    m2 = torch.amin(s2, dim=-1, keepdim=True)
+    th1 = m1 - 1e-6 * (1.0 + torch.abs(m1))
+    th2 = m2 + 1e-6 * (1.0 + torch.abs(m2))
+    a1 = (s1 >= th1).to(dt)
+    a2 = (s2 <= th2).to(dt)
+    W1 = a1 / torch.sum(a1, dim=-1, keepdim=True)
+    W2 = a2 / torch.sum(a2, dim=-1, keepdim=True)
+    if tie is None:
+        return W1, W2, us
+    r["final_argmax"] = _near_runner_up(sep, U, lim, wtol)
+    # the Frank-Wolfe direction decides where it seeds the polish or wins:
+    # a tied support pick on the FW path then moves the witness
+    fw_dir = fw_dir | (ks == 26) | (ks == 27)
+    fw = torch.zeros_like(r["final_argmax"])
+    l1 = _onehot(torch.zeros_like(k0), V1c.shape[-2], dt)
+    l2 = _onehot(torch.zeros_like(k0), V2c.shape[-2], dt)
+    for _ in range(iters):
+        pp = (torch.einsum("...n,...nk->...k", l1, V1c)
+              - torch.einsum("...n,...nk->...k", l2, V2c))
+        v1, v2 = _dotn(V1c, -pp), _dotn(V2c, pp)
+        lp = rel * _max(ext * _safe_norm(pp), 1e-30)
+        fw = fw | _near_runner_up(v1, V1c, lp, wtol) \
+            | _near_runner_up(v2, V2c, lp, wtol)
+        i1, i2 = torch.argmax(v1, dim=-1), torch.argmax(v2, dim=-1)
+        dvec = (_take_vertex(V1c, i1) - _take_vertex(V2c, i2)) - pp
+        gamma = _clip(-_dot(pp, dvec) / _max(_dot(dvec, dvec), _EPS), 0.0,
+                      1.0)[..., None]
+        l1 = (1 - gamma) * l1 + gamma * _onehot(i1, V1c.shape[-2], dt)
+        l2 = (1 - gamma) * l2 + gamma * _onehot(i2, V2c.shape[-2], dt)
+    share = torch.cat([torch.abs(s1 - th1), torch.abs(s2 - th2)], -1)
+    r["fw_pick"] = fw & fw_dir
+    r["share"] = torch.amin(share, -1) <= band
+    return W1, W2, us, r
+
+
+def d_convex_convex(V1, r1, V2, r2, iters: int = 24):
+    """Signed distance between conv(V1)+r1 and conv(V2)+r2 as the max
+    separation over the 26 cover directions, the Frank-Wolfe closest-point
+    direction +n and -n, and that winner polished by six projected-ascent
+    steps (``_POLISH_STEPS``).  Every decision runs on detached vertices;
+    the value is the witness-linear form ``(W2 @ V2) . u* - (W1 @ V1) . u*
+    - (r1 + r2)``, near-tied support vertices (within 1e-6 (1 + |max|))
+    sharing W1 / W2 equally."""
+    W1, W2, us = _fw_witness(V1.detach(), V2.detach(), iters)
+    return (_dot(torch.einsum("...n,...nk->...k", W2, V2), us)
+            - _dot(torch.einsum("...n,...nk->...k", W1, V1), us)
+            - (r1 + r2))
+
+
+def convex_convex_ties(V1, V2, rel, wtol, band=0.0, iters: int = 24,
+                       rules: bool = False):
+    """(...,) bool: rows of ``d_convex_convex`` whose witness a tied
+    decision picks — the runner-up of the cover argmax, of a polish
+    support pick or of the final argmax over the 29 directions within
+    ``rel`` x the sets' extent (max vertex norm) with another direction
+    or vertex (differing by more than ``wtol``); a polish step's
+    ``better`` within ``band`` + that; a support value within ``band`` of
+    the 1e-6 (1 + |max|) sharing threshold; a tied support pick of the
+    Frank-Wolfe steps where the FW direction seeds the polish or wins.
+    Another rounding may there take another polish path: the value moves
+    by the lower bound's slack, the Jacobian by O(1).  ``rules``: the dict
+    of each rule's rows (cover_argmax, polish_pick, polish_better,
+    final_argmax, fw_pick, share) instead of their union."""
+    r = _fw_witness(V1.detach(), V2.detach(), iters, (rel, wtol, band))[3]
+    if rules:
+        return r
+    out = torch.zeros_like(r["share"])
+    for m in r.values():
+        out = out | m
+    return out
+
+
+# above this vertex count the all-pairs / all-triples enumeration gives way
+# to the Frank-Wolfe path
+GENERIC_FEATURE_MAX_VERTS = 12
+
+
+def d_convex_auto(V1, r1, V2, r2):
+    """The generic feature enumeration for small point clouds (both sets at
+    most ``GENERIC_FEATURE_MAX_VERTS``), ``d_convex_convex`` otherwise; the
+    vertex counts are static, so the choice is made here."""
+    n1, n2 = V1.shape[-2], V2.shape[-2]
+    if max(n1, n2) <= GENERIC_FEATURE_MAX_VERTS:
+        return make_feature_distance(n1, n2, generic_topology)(V1, r1, V2, r2)
+    return d_convex_convex(V1, r1, V2, r2)
+
+
+def convex_auto_ties(n1: int, n2: int):
+    """``ties(V1, V2, rel, wtol, band)`` of ``d_convex_auto`` at sizes
+    (n1, n2): ``feature_ties`` over the generic topology, or
+    ``convex_convex_ties``."""
+    if max(n1, n2) <= GENERIC_FEATURE_MAX_VERTS:
+        return feature_ties(n1, n2, topology=generic_topology)
+    return convex_convex_ties
 
 
 def _unported(name):
@@ -515,8 +743,5 @@ def _unported(name):
     return f
 
 
-d_convex_convex = _unported("d_convex_convex")
 d_box_box = _unported("d_box_box")
 d_swept_box_box = _unported("d_swept_box_box")
-generic_topology = _unported("generic_topology")
-d_convex_auto = _unported("d_convex_auto")

@@ -8,11 +8,14 @@ returns distances with the same leading dimensions.
 
 Swept ("cast") queries follow the reference: a moving sphere against
 static geometry is swept exactly (a capsule), every other pair with a
-moving side takes the min of the substate distance and the exact feature
-distance to the convex hull of its two poses.
+moving side takes the min of the substate distance and the distance to the
+convex hull of its two poses — the exact small-hull feature distance, or
+``geometry.d_convex_auto`` where a side is a CONVEX point cloud (the
+generic feature enumeration up to 12 vertices, Frank-Wolfe max separation
+beyond).
 
-Ported kinds: SPHERE, CAPSULE, BOX.  A CONVEX geometry, a box on a moving
-link, a box-box pair or a translating box-box sweep raises
+Ported kinds: SPHERE, CAPSULE, BOX, CONVEX (and attached geometry).  A box
+on a moving link, a box-box pair or a translating box-box sweep raises
 ``NotImplementedError`` when the world is built.
 
 ``kernel_tables`` packs the world's static tables (chain, geometry
@@ -35,10 +38,13 @@ from ..ops.lie import rpy_to_matrix
 from . import geometry as G
 
 SPHERE, CAPSULE, BOX, CONVEX = 0, 1, 2, 3
-# sweep routes of a pair (kernel tables and tests)
-ROUTE_NONE, ROUTE_SPHERE, ROUTE_HULL = 0, 1, 2
-# vertex count of a geometry's support set: static, and over two poses
+# sweep routes of a pair (kernel tables and tests): none, the exact sphere
+# sweep, the small-hull feature distance, d_convex_auto over the two poses
+ROUTE_NONE, ROUTE_SPHERE, ROUTE_HULL, ROUTE_CONVEX = 0, 1, 2, 3
+# vertex count of a geometry's support set (CONVEX: its vertex count)
 _SUPPORT_N = {SPHERE: 1, CAPSULE: 2, BOX: 8}
+# reals per link and per geometry in the kernel tables (csrc/collision.cuh)
+LINK_REALS, GEOM_REALS = 33, 16
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -50,7 +56,9 @@ class GeomSpec:
     radius: float
     half: np.ndarray  # (3,) box half extents; capsule: half[2] = half-length
     name: str = ""
-    verts: Optional[np.ndarray] = None  # CONVEX (not ported)
+    # CONVEX: local-frame vertices (V, 3), padded to the world's largest V
+    # by repeating vertex 0 (support-function neutral); radius: sweep radius
+    verts: Optional[np.ndarray] = None
 
 
 # pair kernels over canonical world-space forms:
@@ -64,11 +72,20 @@ _KERNELS = {
         A[0], A[1], A[2], B[0], B[1], B[2]),
     (CAPSULE, BOX): lambda A, B: G.d_capsule_box(
         A[0], A[1], A[2], B[0], B[1], B[2]),
+    # convex: (Vw, r); the other side becomes a (radius-inflated) vertex set
+    (SPHERE, CONVEX): lambda A, B: G.d_convex_auto(
+        A[0][..., None, :], A[1], B[0], B[1]),
+    (CAPSULE, CONVEX): lambda A, B: G.d_convex_auto(
+        torch.stack([A[0], A[1]], dim=-2), A[2], B[0], B[1]),
+    (BOX, CONVEX): lambda A, B: G.d_convex_auto(
+        G.box_vertices(A[0], A[1], A[2]), 0.0, B[0], B[1]),
+    (CONVEX, CONVEX): lambda A, B: G.d_convex_auto(A[0], A[1], B[0], B[1]),
 }
 
 # the number of trailing (per-geometry) axes of each world-array entry;
 # entries without a leading (..., k) position axis are constants
-_POSED = {SPHERE: (2, None), CAPSULE: (2, 2, None), BOX: (2, 3, None)}
+_POSED = {SPHERE: (2, None), CAPSULE: (2, 2, None), BOX: (2, 3, None),
+          CONVEX: (3, None)}
 
 
 def _take(wk, kind, sel):
@@ -118,16 +135,49 @@ class CollisionWorld:
 
     def pair_routes(self):
         """Per pair: ``("sphere", None)`` (exact sphere sweep, set),
-        ``("hull", (na, nb))`` (two-pose hull feature distance, min) or
-        ``("none", None)``."""
+        ``("hull", (na, nb))`` (two-pose hull feature distance, min),
+        ``("convex", (na, nb))`` (``d_convex_auto`` over the two-pose
+        sets, min) or ``("none", None)``."""
         out = [("none", None)] * self.n_pairs
         for pos, _, _ in self._sphere_routes.values():
             for k in pos:
                 out[k] = ("sphere", None)
-        for pos, _, _, na, nb in self._hull_routes.values():
+        for key, (pos, _, _, na, nb) in self._hull_routes.items():
             for k in pos:
-                out[k] = ("hull", (na, nb))
+                out[k] = ("convex" if CONVEX in key[:2] else "hull", (na, nb))
         return tuple(out)
+
+    def convex_sizes(self):
+        """The (n1, n2) vertex-set sizes at which this world's cast calls
+        ``d_convex_auto``: a pair with a CONVEX side at a substate (not
+        a sphere sweep), and the two-pose sets of its CONVEX hull routes."""
+        routes = self.pair_routes()
+        sizes = set()
+        for (ka, kb), ia, ib, pos in self._groups:
+            if kb != CONVEX:
+                continue
+            for k, gi in zip(pos, self._kind_idx[ka][ia]):
+                if routes[k][0] != "sphere":
+                    sizes.add((len(self.geoms[gi].verts) if ka == CONVEX
+                               else _SUPPORT_N[ka], self.n_convex_verts))
+        sizes.update(h for r, h in routes if r == "convex")
+        return sorted(sizes)
+
+    def kernel_routes(self):
+        """The CONVEX routes the cast kernels run on this world:
+        ``convex_feature`` (the generic feature enumeration) and / or
+        ``convex_fw`` (Frank-Wolfe max separation)."""
+        out = set()
+        for n1, n2 in self.convex_sizes():
+            out.add("convex_feature" if max(n1, n2) <= G.GENERIC_FEATURE_MAX_VERTS
+                    else "convex_fw")
+        return sorted(out)
+
+    @property
+    def n_convex_verts(self) -> int:
+        """The (padded) vertex count of the world's CONVEX geometry, or 0."""
+        return max((len(g.verts) for g in self.geoms if g.kind == CONVEX),
+                   default=0)
 
     # ---------------- world-space canonical geometry ----------------
 
@@ -167,11 +217,19 @@ class CollisionWorld:
                                  dt, dev)
                 axis = Rw[..., :, 2] * hl[:, None]
                 out[kind] = (c - axis, c + axis, r)
-            else:  # BOX
+            elif kind == BOX:
                 Rw = torch.einsum("...kij,kjl->...kil", Rl, offR)
                 h = self._const(("h", kind),
                                 lambda: np.stack([g.half for g in gs]), dt, dev)
                 out[kind] = (c, Rw, h)
+            else:  # CONVEX: world vertices (..., k, V, 3) and sweep radius
+                Rw = torch.einsum("...kij,kjl->...kil", Rl, offR)
+                Vl = self._const(("verts", kind),
+                                 lambda: np.stack([g.verts for g in gs]), dt,
+                                 dev)
+                Vw = torch.einsum("...kij,kvj->...kvi", Rw, Vl) \
+                    + c[..., None, :]
+                out[kind] = (Vw, r)
         return out
 
     # ---------------- queries ----------------
@@ -235,6 +293,8 @@ class CollisionWorld:
                 return A[0][..., None, :], A[1]
             if kind == CAPSULE:
                 return torch.stack([A[0], A[1]], dim=-2), A[2]
+            if kind == CONVEX:
+                return A[0], A[1]
             return G.box_vertices(A[0], A[1], A[2]), torch.zeros_like(
                 A[2][..., 0])
 
@@ -261,6 +321,9 @@ class CollisionWorld:
                 d = G.d_sphere_capsule(other[0], other[1], ca, cb, r)
             elif okind == CAPSULE:
                 d = G.d_capsule_capsule(ca, cb, r, *other)
+            elif okind == CONVEX:
+                d = G.d_convex_convex(torch.stack([ca, cb], dim=-2), r,
+                                      other[0], other[1])
             else:
                 d = G.d_capsule_box(ca, cb, r, *other)
             cols.append(d)
@@ -270,7 +333,10 @@ class CollisionWorld:
                 self._hull_routes.items():
             VA, rA = self._vert_sets(wa, ka, ai, wb if mov_a else None)
             VB, rB = self._vert_sets(wa, kb, bi, wb if mov_b else None)
-            d = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
+            if CONVEX in (ka, kb):  # no static topology: d_convex_auto
+                d = G.d_convex_auto(VA, rA, VB, rB)
+            else:
+                d = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
             pos_t = torch.as_tensor(pos, device=d_min.device)
             cols.append(torch.minimum(d_min.index_select(-1, pos_t), d))
             src[pos] = off + np.arange(len(pos))
@@ -282,10 +348,14 @@ class CollisionWorld:
                   wtol: float = 1e-9, band: float = 0.0):
         """(..., n_sub - 1, n_pairs) bool: the rows of
         ``cast_pair_distances_seg`` with a tied discrete decision — the
-        hull route's witness (``geometry.feature_ties``), or a min whose
-        two sides (two substates; substate and hull) lie within ``band``.
-        There another implementation, or another rounding, may return the
-        same distance with another valid Jacobian."""
+        witness of a hull route (``geometry.feature_ties``, or
+        ``geometry.convex_auto_ties`` for ``d_convex_auto``) or of a CONVEX
+        pair's generic feature distance at either substate, the
+        ``d_convex_convex`` sweep of a sphere against a CONVEX geometry
+        (``geometry.convex_convex_ties``), or a min whose two sides (two
+        substates; substate and hull) lie within ``band``.  There another
+        implementation, or another rounding, may return the same distance
+        with another valid Jacobian."""
         dt = qa.dtype
         ss = self._fractions(n_sub, dt, qa.device)
         qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
@@ -294,18 +364,67 @@ class CollisionWorld:
         sub_d = self._pair_distances_from_poses(Rs, ps, dt)
         d_min = torch.minimum(sub_d[..., :-1, :], sub_d[..., 1:, :])
         out = torch.abs(sub_d[..., :-1, :] - sub_d[..., 1:, :]) <= band
-        for pos, _, _ in self._sphere_routes.values():
-            out[..., torch.as_tensor(pos)] = False
+        for (ka, kb), ia, ib, pos in self._groups:
+            if kb != CONVEX:
+                continue
+            V1, _ = self._vert_sets(wks, ka, ia)
+            V2, _ = self._vert_sets(wks, kb, ib)
+            t = G.convex_auto_ties(V1.shape[-2], V2.shape[-2])(
+                V1, V2, rel, wtol, band)
+            out[..., torch.as_tensor(pos)] |= t[..., :-1, :] | t[..., 1:, :]
         wa = _narrow_sub(wks, 0, n_sub - 1)
         wb = _narrow_sub(wks, 1, n_sub - 1)
+        for okind, (pos, si, oi) in self._sphere_routes.items():
+            pos_t = torch.as_tensor(pos)
+            out[..., pos_t] = False
+            if okind == CONVEX:
+                V1 = torch.stack([_take(wa, SPHERE, si)[0],
+                                  _take(wb, SPHERE, si)[0]], dim=-2)
+                out[..., pos_t] = G.convex_convex_ties(
+                    V1, _take(wa, CONVEX, oi)[0], rel, wtol, band)
         for (ka, kb, mov_a, mov_b), (pos, ai, bi, na, nb) in \
                 self._hull_routes.items():
             VA, rA = self._vert_sets(wa, ka, ai, wb if mov_a else None)
             VB, rB = self._vert_sets(wa, kb, bi, wb if mov_b else None)
             pos_t = torch.as_tensor(pos)
-            dh = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
-            out[..., pos_t] |= G.feature_ties(na, nb)(VA, VB, rel, wtol, band) \
+            if CONVEX in (ka, kb):
+                dh = G.d_convex_auto(VA, rA, VB, rB)
+                ties = G.convex_auto_ties(na, nb)
+            else:
+                dh = G.make_feature_distance(na, nb)(VA, rA, VB, rB)
+                ties = G.feature_ties(na, nb)
+            out[..., pos_t] |= ties(VA, VB, rel, wtol, band) \
                 | (torch.abs(d_min[..., pos_t] - dh) <= band)
+        return out
+
+    def convex_route_sets(self, qa, qb, n_sub: int = 2):
+        """{(n1, n2): (V1 (rows, n1, 3), r1 (rows,), V2, r2)}: the vertex
+        sets at which ``cast_pair_distances_seg(qa, qb, n_sub)`` calls
+        ``d_convex_auto`` — each substate of a pair with a CONVEX side,
+        each segment's two-pose sets of a CONVEX hull route — as rows (the
+        inputs of the route probe ``terms.collision.convex_route``)."""
+        dt = qa.dtype
+        ss = self._fractions(n_sub, dt, qa.device)
+        qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
+        wks = self._world_kind_arrays(*self.chain.fk(qs), dt)
+        wa = _narrow_sub(wks, 0, n_sub - 1)
+        wb = _narrow_sub(wks, 1, n_sub - 1)
+        sets = [(self._vert_sets(wks, ka, ia), self._vert_sets(wks, kb, ib))
+                for (ka, kb), ia, ib, _ in self._groups if kb == CONVEX]
+        sets += [(self._vert_sets(wa, ka, ai, wb if ma else None),
+                  self._vert_sets(wa, kb, bi, wb if mb else None))
+                 for (ka, kb, ma, mb), (_, ai, bi, _, _) in
+                 self._hull_routes.items() if CONVEX in (ka, kb)]
+        out = {}
+        for (V1, r1), (V2, r2) in sets:
+            rows = [V1.reshape(-1, *V1.shape[-2:]),
+                    r1.expand(V1.shape[:-2]).reshape(-1),
+                    V2.reshape(-1, *V2.shape[-2:]),
+                    r2.expand(V2.shape[:-2]).reshape(-1)]
+            key = (V1.shape[-2], V2.shape[-2])
+            if key in out:
+                rows = [torch.cat([a, b]) for a, b in zip(out[key], rows)]
+            out[key] = tuple(rows)
         return out
 
     # ---------------- tables of the CUDA kernels ----------------
@@ -327,7 +446,17 @@ class CollisionWorld:
         ch = self.chain
         L, nd, NG, P = ch.n_links, ch.n_dof, len(self.geoms), self.n_pairs
         moving = ch.ancestor.any(axis=1)
-        topo_n = (1, 2, 4, 8)
+        nv = self.n_convex_verts
+        if nv > 8:
+            raise NotImplementedError(
+                f"the cast kernels take CONVEX geometry of at most 8 "
+                f"vertices, not {nv}")
+        if CONVEX in self._sphere_routes:
+            raise NotImplementedError(
+                "the sweep of a moving sphere against CONVEX geometry "
+                "(d_convex_convex over the swept capsule) has no kernel yet")
+        generic = sorted({n for ns in self.convex_sizes() for n in ns
+                          if max(ns) <= G.GENERIC_FEATURE_MAX_VERTS and n > 2})
         head = 16
         off_dof = head
         off_link = off_dof + nd
@@ -335,21 +464,32 @@ class CollisionWorld:
         off_pair = off_geom + 4 * NG
         off_topo = off_pair + 8 * P
         ints = [L, nd, NG, P, off_dof, off_link, off_geom, off_pair]
-        topo_blocks, o = [], off_topo
-        for n in topo_n:
-            E, T = G.small_hull_topology(n)
+        topo_blocks, o, at = [], off_topo, {}
+        for kind, n in [("small", n) for n in (1, 2, 4, 8)] + \
+                [("generic", n) for n in generic]:
+            E, T = (G.small_hull_topology if kind == "small"
+                    else G.generic_topology)(n)
             blk = [len(E), len(T)] + list(E.reshape(-1)) + list(T.reshape(-1))
-            ints.append(o)
+            at[(kind, n)] = o
             topo_blocks.append(blk)
             o += len(blk)
+        # the generic-topology directory (n = 0..12; 1 and 2 vertices are
+        # the small blocks)
+        directory = [at.get(("small" if n <= 2 else "generic", n), -1)
+                     for n in range(G.GENERIC_FEATURE_MAX_VERTS + 1)]
+        ints += [at[("small", n)] for n in (1, 2, 4, 8)] + [nv, o]
         ints += [0] * (head - len(ints))
         ints += list(ch.link_of_dof)
         for l in range(L):
             bits = sum(1 << d for d in range(nd) if ch.ancestor[l, d])
             ints += [int(ch.parent[l]), int(ch.jtype[l]),
                      int(ch.dof_of_link[l]), bits]
+        off_verts = LINK_REALS * L + GEOM_REALS * NG + G._PEN_DIRS.size
+        convex = [g for g in self.geoms if g.kind == CONVEX]
         for g in self.geoms:
-            ints += [g.link, g.kind, int(moving[g.link]), 0]
+            ints += [g.link, g.kind, int(moving[g.link]),
+                     off_verts + 3 * nv * convex.index(g)
+                     if g.kind == CONVEX else 0]
         rec = [[i, j, ROUTE_NONE, 0, 0, 0, 0, 0] for i, j in self.pairs]
         for k, ((i, j), (route, hull)) in enumerate(
                 zip(self.pairs, self.pair_routes())):
@@ -359,13 +499,14 @@ class CollisionWorld:
                     and not moving[gj.link]
                 rec[k][2] = ROUTE_SPHERE
                 rec[k][3], rec[k][4] = (i, j) if s_is_i else (j, i)
-            elif route == "hull":
-                rec[k][2] = ROUTE_HULL
+            elif route in ("hull", "convex"):
+                rec[k][2] = ROUTE_HULL if route == "hull" else ROUTE_CONVEX
                 rec[k][5], rec[k][6] = hull
         for r in rec:
             ints += r
         for blk in topo_blocks:
             ints += blk
+        ints += directory
         reals = []
         for l in range(L):
             ax = ch.axis[l] / max(np.linalg.norm(ch.axis[l]), 1e-12)
@@ -379,6 +520,8 @@ class CollisionWorld:
                 + list(np.asarray(g.off_p, np.float64)) + [g.radius] \
                 + list(np.asarray(g.half, np.float64))
         reals += list(G._PEN_DIRS.reshape(-1))
+        for g in convex:
+            reals += list(np.asarray(g.verts, np.float64).reshape(-1))
         return np.asarray(ints, np.int64), np.asarray(reals, np.float64)
 
 
@@ -400,8 +543,12 @@ def _spec_from_urdf_geom(li: int, g, name: str) -> Optional[GeomSpec]:
         return GeomSpec(li, BOX, offR, g.xyz, 0.0,
                         np.asarray(g.size) / 2.0, name)
     if g.kind in ("convex", "mesh") and getattr(g, "verts", None) is not None:
-        raise NotImplementedError(
-            f"{name}: CONVEX collision geometry is not ported yet")
+        # a convex hull's vertex set; ``size[0]``, where given, is the
+        # hull's sweep radius
+        r = float(g.size[0]) if np.ndim(g.size) and len(
+            np.atleast_1d(g.size)) else 0.0
+        return GeomSpec(li, CONVEX, offR, g.xyz, r, np.zeros(3), name,
+                        verts=np.asarray(g.verts, np.float64))
     # raw meshes without vertices need an offline convex decomposition
     return None
 
@@ -432,6 +579,12 @@ def build_collision_world(model: RobotModel, chain: Chain,
                                  f"{lname}/attached{ai}")
         if s is not None:
             specs.append(s)
+    # pad the convex vertex sets to one V (repeat vertex 0)
+    vmax = max((len(s.verts) for s in specs if s.verts is not None),
+               default=0)
+    specs = [dataclasses.replace(s, verts=np.concatenate(
+        [s.verts, np.repeat(s.verts[:1], vmax - len(s.verts), axis=0)]))
+        if s.verts is not None and len(s.verts) < vmax else s for s in specs]
     disabled = set(model.disabled_pairs) | (extra_disabled or set())
     moving = chain.ancestor.any(axis=1)
     parent = chain.parent
@@ -484,11 +637,15 @@ def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
     def arrays(cases):
         return tuple(np.array([c[m] for c in cases]) for m in range(3))
 
+    def support_n(g):
+        return len(g.verts) if g.kind == CONVEX else _SUPPORT_N[g.kind]
+
     sphere = {ok: arrays(c) for ok, c in sphere_cases.items()}
     hull = {}
     for (ka, kb, ma, mb), cases in hull_cases.items():
-        na = _SUPPORT_N[ka] * (2 if ma else 1)
-        nb = _SUPPORT_N[kb] * (2 if mb else 1)
+        i, j = pairs[cases[0][0]]
+        na = support_n(specs[i]) * (2 if ma else 1)
+        nb = support_n(specs[j]) * (2 if mb else 1)
         hull[(ka, kb, ma, mb)] = arrays(cases) + (na, nb)
     return sphere, hull
 
@@ -496,10 +653,6 @@ def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
 def _make_world(chain: Chain, specs: list, raw_pairs: list) -> CollisionWorld:
     """Group candidate pairs by (kind, kind) and build the world."""
     moving = chain.ancestor.any(axis=1)
-    for s in specs:
-        if s.kind == CONVEX:
-            raise NotImplementedError(
-                f"{s.name}: CONVEX collision geometry is not ported yet")
     for i, j in raw_pairs:
         for s in (specs[i], specs[j]):
             if s.kind == BOX and moving[s.link]:

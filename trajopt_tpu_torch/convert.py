@@ -56,14 +56,17 @@ def world_from_numpy(chain: Chain, geoms, pairs) -> CollisionWorld:
     """A port ``CollisionWorld`` from the reference world's static tables:
     ``chain`` (a port ``Chain``, e.g. from :func:`chain_from_numpy`),
     ``geoms`` (one dict per geometry with the ``GeomSpec`` fields link,
-    kind, off_R, off_p, radius, half, name) and ``pairs`` ((gi, gj) in the
-    reference's order).  Groups and sweep routes are derived again from
-    these tables."""
+    kind, off_R, off_p, radius, half, name, and for a CONVEX geometry its
+    padded local vertices ``verts``; ``radius`` is then its sweep radius)
+    and ``pairs`` ((gi, gj) in the reference's order).  Groups and sweep
+    routes are derived again from these tables."""
     specs = [GeomSpec(link=int(g["link"]), kind=int(g["kind"]),
                       off_R=np.array(g["off_R"], np.float64),
                       off_p=np.array(g["off_p"], np.float64),
                       radius=float(g["radius"]),
                       half=np.array(g["half"], np.float64),
-                      name=str(g["name"]))
+                      name=str(g["name"]),
+                      verts=None if g.get("verts") is None
+                      else np.array(g["verts"], np.float64))
              for g in geoms]
     return _make_world(chain, specs, [(int(i), int(j)) for i, j in pairs])

@@ -11,7 +11,9 @@ world share one distance pass and one Jacobian pass per linearization.
 On a CUDA tensor the pipeline runs as hand-written kernels
 (``csrc/cast_seg.cu``): K4 ``cast_seg`` (distances + Jacobian), K4v
 ``cast_seg_value`` (distances) and K5 ``cast_sweep`` (the n_sub gate of
-``trajectory_in_collision``).  On a CPU tensor — or with
+``trajectory_in_collision``); a world with CONVEX geometry takes their
+CVX instantiations (``csrc/cast_cvx.cu``), which add the CONVEX routes
+(``convex_route`` runs one route alone, as a probe).  On a CPU tensor — or with
 ``kernels=False`` — the plain PyTorch versions run: ``value_jac`` is
 ``torch.func.vmap(torch.func.jacfwd(...))`` over the plain world, the
 mirror of the reference's ``jax.vmap(jax.jacfwd(...))``.
@@ -30,6 +32,7 @@ from typing import Optional
 import torch
 
 from .. import _native
+from ..collision import geometry as G
 from ..collision.world import CollisionWorld
 from ..utils.lanes import lane_broadcast
 from .base import Term, hinge_cost, ineq_constraint
@@ -82,8 +85,9 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
         Ja = torch.empty((lanes, n_gaps, n_seg * P, nc), dtype=x.dtype,
                          device=x.device)
         Jb = torch.empty_like(Ja)
-    sfx = "f32" if x.dtype == torch.float32 else "f64"
-    code = getattr(lib, f"{kind}_{sfx}")(
+    sfx = ("_cvx_" if world.n_convex_verts else "_") + (
+        "f32" if x.dtype == torch.float32 else "f64")
+    code = getattr(lib, f"{kind}{sfx}")(
         ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
         first, n_gaps, ss.data_ptr(), n_sub, D.data_ptr(),
         0 if Ja is None else Ja.data_ptr(),
@@ -97,9 +101,12 @@ def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
     :func:`_cast_call`)."""
     if not x.is_cuda:
         raise ValueError(f"{kind}: tensors must be on a CUDA device")
-    out = _cast_call(_native.library("cast_seg"), kind, world, x, *args,
+    lib = _native.library("cast_cvx" if world.n_convex_verts else "cast_seg")
+    out = _cast_call(lib, kind, world, x, *args,
                      stream=torch.cuda.current_stream(x.device).cuda_stream)
     _native.LAUNCHES[kind] += 1
+    for route in world.kernel_routes():
+        _native.LAUNCHES[route] += 1
     return out
 
 
@@ -111,6 +118,55 @@ def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
         raise ValueError(f"{kind}: the host build takes CPU tensors")
     return _cast_call(_native.host_library("cast_host"), kind, world, x,
                       *args)
+
+
+def _route_call(lib, world: CollisionWorld, V1, r1, V2, r2, fw: bool,
+                stream=None):
+    """The route probe ``convex_route`` of a cast library on rows of
+    vertex sets V1 (rows, n1, 3), V2 (rows, n2, 3) and radii (rows,)."""
+    dt = V1.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"convex_route: dtype {dt} is not float32/float64")
+    V1, V2 = V1.contiguous(), V2.contiguous()
+    r1, r2 = r1.to(dt).contiguous(), r2.to(dt).contiguous()
+    rows = V1.shape[0]
+    if V2.shape[0] != rows or r1.shape != (rows,) or r2.shape != (rows,):
+        raise ValueError("convex_route: V1, V2, r1, r2 need one row each")
+    ints, reals = world.kernel_tables(dt, V1.device)
+    D = torch.empty((rows,), dtype=dt, device=V1.device)
+    sfx = "f32" if dt == torch.float32 else "f64"
+    code = getattr(lib, f"convex_route_{sfx}")(
+        ints.data_ptr(), reals.data_ptr(), V1.data_ptr(), V1.shape[1],
+        V2.data_ptr(), V2.shape[1], r1.data_ptr(), r2.data_ptr(), rows,
+        int(fw), D.data_ptr(), stream)
+    _native.check("convex_route", code)
+    return D
+
+
+def convex_route(world: CollisionWorld, V1, r1, V2, r2, fw: bool):
+    """One CONVEX route alone, a row per thread: the generic feature
+    enumeration (``fw=False``, ``make_feature_distance(n1, n2,
+    generic_topology)``) or the Frank-Wolfe max separation (``fw=True``,
+    ``d_convex_convex``) between conv(V1)+r1 and conv(V2)+r2.  The kernel
+    on a CUDA tensor (the world's tables give it the topologies and cover
+    directions), the plain version on a CPU tensor."""
+    if not V1.is_cuda:
+        if fw:
+            return G.d_convex_convex(V1, r1, V2, r2)
+        return G.make_feature_distance(V1.shape[1], V2.shape[1],
+                                       G.generic_topology)(V1, r1, V2, r2)
+    out = _route_call(_native.library("cast_cvx"), world, V1, r1, V2, r2, fw,
+                      torch.cuda.current_stream(V1.device).cuda_stream)
+    _native.LAUNCHES["convex_route"] += 1
+    return out
+
+
+def convex_route_host(world: CollisionWorld, V1, r1, V2, r2, fw: bool):
+    """The route probe's device code built for the host, on CPU tensors."""
+    if V1.is_cuda:
+        raise ValueError("convex_route: the host build takes CPU tensors")
+    return _route_call(_native.host_library("cast_host"), world, V1, r1, V2,
+                       r2, fw)
 
 
 class CastDistancePre:
