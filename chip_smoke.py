@@ -26,18 +26,32 @@ Every line printed is one JSON object.  Phases, in order:
    the route probe ``convex_route`` on the vertex sets of the
    pick-and-place transfer world at 128 lanes x 11 gaps (n_sub 2) against
    its plain version, and timed;
+2d. K6 ipm_banded against the plain IPM loop (``kernels=False``) on QPs
+   captured from real solves: the full flagship's first QP and its second
+   (the last with hinge rows active at the solution on many lanes), and
+   the pick-and-place transfer's first, 128 lanes
+   each, in float32 and float64 (the float32 capture cast up).  Per lane:
+   status, iteration count and dx.  float64: equal statuses, and dx within
+   K6_DX_TOL of the lane's largest |dx| on every lane whose iteration count
+   is equal; a lane whose runs end apart must be a termination-threshold
+   case (the run that stopped first did so with its ratio max(rp, rd)
+   within K6_RATIO_BAND of 1).  float32: each lane's composite objective
+   within the IPM's gap tolerance of the plain loop's and its status
+   usable alike (K6 constants below); then K6's time per call, the plain
+   loop's, and K6's bound;
 3. the collision-free slice: ``make_glass_upright_free(batch=128, T=30,
    float32)`` through ``solve_batch_compact(bench_params(),
-   phase_qp_solves=8)`` with every launch counter set to 0 just before and
-   read just after; K1-K3 must have launched, no lane may be non-finite,
-   and at least 120 of 128 lanes must be CONVERGED with max violation
-   < 1e-4;
+   phase_qp_solves=8)`` with every launch counter and the count of batched
+   QP solves set to 0 just before and read just after; K6 must have
+   launched once per batched QP solve and K1-K3 never (their math runs
+   inside K6), no lane may be non-finite, and at least 120 of 128 lanes
+   must be CONVERGED with max violation < 1e-4;
 3b. the full flagship: ``make_glass_upright(batch=128, T=30, float32)``
    through the same solve (one cold run, three warm runs, counters reset
    before the first warm run), then the K5 gate (n_sub 16) on every lane;
-   K1-K5 must have launched, no lane may be non-finite, and at least 120
-   of 128 lanes must be CONVERGED with max violation < 1e-4 and min swept
-   distance >= 0 (the bench's gate);
+   K6 once per batched QP solve, K1-K3 never, K4, K4v and K5 launched, no
+   lane non-finite, and at least 120 of 128 lanes CONVERGED with max
+   violation < 1e-4 and min swept distance >= 0 (the bench's gate);
 3c. pick-and-place (BASELINE config 4): ``solve_pick_and_place(batch=128,
    T=12, float32)`` (one cold run, three warm runs, counters reset before
    the first warm run and read after it and both phases' gates), then one
@@ -45,7 +59,8 @@ Every line printed is one JSON object.  Phases, in order:
    gate at least 120 of 128 lanes (CONVERGED, max violation < 1e-4, the
    K5 gate at n_sub 16 >= 0 in the phase's own world), the transfer's
    step 0 must equal the approach's last step exactly, and the transfer
-   must run K4, K4v, K5 and both CONVEX routes; then K4, K4v and K5 on the
+   must run K4, K4v, K5 and both CONVEX routes, each phase K6 once per
+   batched QP solve and K1-K3 never; then K4, K4v and K5 on the
    transfer world (its straight-line init through the wall, that init
    plus seeded noise, and the solved trajectories) against their plain
    versions as in phase 2, the CONVEX pairs reported apart;
@@ -108,10 +123,28 @@ FLAGSHIP_DX_TOL = 3e-5
 # is held to the SQP's own step floor, SQPParams.min_trust_box_size
 # (measurements: PERF.md section 6)
 TRANSFER_DX_TOL = 1e-4
-# the kernels the flagship's path launches; pick-and-place's transfer also
-# runs the two CONVEX routes inside K4, K4v and K5
-PATH_KERNELS = ("bb_quad", "btd_factor", "btd_solve", "cast_seg",
-                "cast_seg_value", "cast_sweep")
+# the kernels the flagship's path launches (K6 once per batched QP solve);
+# pick-and-place's transfer also runs the two CONVEX routes inside K4, K4v
+# and K5.  K1-K3 are held against their plain versions in phase 2 and run
+# on no path: their math is K6's (csrc/banded.cuh)
+PATH_KERNELS = ("ipm_banded", "cast_seg", "cast_seg_value", "cast_sweep")
+QP_KERNELS = ("bb_quad", "btd_factor", "btd_solve")
+# K6 vs the plain loop, float64: dx relative to the lane's largest |dx| on
+# lanes with equal iteration counts (the same Newton sequence in another
+# sum order: ~1e-15 per step, amplified by the late barrier stages'
+# conditioning); a lane whose runs stop at different iterations must have
+# stopped first with max(rp, rd) within K6_RATIO_BAND of 1 (an iterate
+# moved by rounding moves the ratio by ~|K| |delta dx| / eps ~ 1e-8)
+K6_DX_TOL = 1e-9
+K6_RATIO_BAND = {"float64": 1e-6, "float32": 1e-2}
+# float32: each lane's composite objective at K6's dx within the IPM's own
+# gap tolerance eps_g = eps_abs (max(|f|, |f(0)|) + 1) of the plain loop's
+# (the termination test cannot tell such answers apart), and the SQP's
+# verdict on the status alike (usable: 1 or 2).  In float32 the Newton
+# steps of two sum orders drift apart over the late barrier stages (D up
+# to 1e10), so a run may end at another iteration, on the threshold or on
+# the NaN guard (a non-finite step; the incumbent is returned): dx,
+# iterations and statuses are reported, not held
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; non-tensor-core
 # float32 67 TFLOP/s, float64 34 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -236,6 +269,27 @@ def cast_work(world, D, lanes, n_gaps, n_sub, es, nd):
     return out
 
 
+def k6_work(qp, b, iters, es):
+    """(bytes, flops) of one K6 ipm_banded launch on these inputs, counted
+    from csrc/ipm.cuh: each input read once (P's scaled and raw blocks, six
+    n-vectors, the scaled and raw rows, four per-row vectors, the row
+    tables) and each output written once; per lane and IPM iteration this
+    run took (``iters``): per row ~52 b + 9 b^2 flops (ten passes over its
+    2b window, the assembly's three b x b blocks), per block ~3.7 b^3 (the
+    Cholesky) + 54 b^2 (four block solves, five P products), ~100 per
+    column; plus the initial point."""
+    lanes, n = qp.q.shape
+    mh, ma = qp.e_h.shape[1], qp.e_a.shape[1]
+    m, nb = mh + ma, n // b
+    per_it = m * (52 * b + 9 * b * b) + nb * (3.67 * b ** 3 + 54 * b * b) \
+        + 100 * n
+    flops = float(iters.double().sum()) * per_it + lanes * (m * 4 * b + 10 * n)
+    ins = 2 * (2 * nb - 1) * b * b + 6 * n + 2 + 2 * m * 2 * b + 4 * m
+    outs = 4 * n + 2 * mh + 3 * ma + 3
+    nbytes = lanes * (es * (ins + outs) + 4 * 2) + 4 * (m + 8)
+    return nbytes, flops
+
+
 def max0(t):
     """The largest entry of t, 0 when t is empty (no such rows)."""
     return float(t.max()) if t.numel() else 0.0
@@ -263,6 +317,8 @@ def main():
     from trajopt_tpu_torch.collision import geometry as geom
     from trajopt_tpu_torch.ops import banded_rows as br
     from trajopt_tpu_torch.ops import btridiag as bt
+    from trajopt_tpu_torch.ops import ipm_qp
+    from trajopt_tpu_torch.solver import sqp as sqp_mod
     from trajopt_tpu_torch.solver.sqp import solve_batch_compact
     from trajopt_tpu_torch.solver.types import CONVERGED
     from trajopt_tpu_torch.terms.collision import (CastDistancePre,
@@ -692,10 +748,180 @@ def main():
         timing[name] = t
         emit({"time": name, **t, "card": smi})
 
+    # ---- 2d: K6 ipm_banded against the plain loop, on QPs of real solves
+    params = bench_params()
+
+    def capture(fn, keep):
+        """Run fn() recording the SQP's batched QP solves number ``keep``:
+        {index: (QP data, settings)}."""
+        got, seen = {}, [0]
+        orig = sqp_mod.solve_ipm_qp
+
+        def rec(qd, st, **kw):
+            if seen[0] in keep:
+                got[seen[0]] = (qd, st)
+            seen[0] += 1
+            return orig(qd, st, **kw)
+        sqp_mod.solve_ipm_qp = rec
+        try:
+            fn()
+        finally:
+            sqp_mod.solve_ipm_qp = orig
+        return got
+
+    spec_f, data_f, _, world_f = make_glass_upright(batch=lanes, n_steps=30,
+                                                    dtype=torch.float32,
+                                                    device=dev)
+    got = capture(lambda: solve_batch_compact(
+        spec_f, data_f, params, phase_qp_solves=8, device=dev), {0, 1})
+    qps = {"flagship_qp1": got[0], "flagship_qp2": got[1]}
+    specA2, dataA2, sc2 = make_pick_and_place(lanes, pnp_T, torch.float32,
+                                              device=dev)
+    rA2 = solve_batch_compact(specA2, dataA2, params, phase_qp_solves=8,
+                              device=dev)
+    specB2, dataB2 = chain_transfer(
+        sc2, rA2.x.reshape(lanes, pnp_T, D)[:, -1].cpu().numpy())
+    qps["transfer_qp1"] = capture(lambda: solve_batch_compact(
+        specB2, dataB2, params, phase_qp_solves=8, device=dev), {0})[0]
+
+    def qp_as(qd, dtype):
+        return qd._replace(
+            **{k: getattr(qd, k).to(dtype)
+               for k in ("P", "q", "e_h", "w_h", "e_a", "w_a", "lb", "ub")},
+            Bh=tuple(B.to(dtype) for B in qd.Bh),
+            Ba=tuple(B.to(dtype) for B in qd.Ba))
+
+    k6_recs = []
+    for qname, (qd0, qset) in qps.items():
+        b_k = qset.kkt_block
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            qd = qp_as(qd0, dtype)
+            rk = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=True)
+            rpl = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=False)
+            sync()
+            same_it = rk.iters == rpl.iters
+            same_st = rk.status == rpl.status
+            dx_abs = (rk.x - rpl.x).abs().amax(-1)
+            dx_rel = dx_abs / rpl.x.abs().amax(-1).clamp(min=1e-30)
+            # runs that end apart: the run that stopped first converged
+            # with its ratio at the threshold (iterations apart), or, at
+            # equal iterations, one converged just under 1 and the other
+            # ended just over it
+            band = K6_RATIO_BAND[dname]
+            rk_r = torch.maximum(rk.prim_res, rk.dual_res)
+            rp_r = torch.maximum(rpl.prim_res, rpl.dual_res)
+            k_first = rk.iters < rpl.iters
+            first_r = torch.where(k_first, rk_r, rp_r)
+            first_st = torch.where(k_first, rk.status, rpl.status)
+            under = (first_st == 1) & (first_r >= 1 - band) & (first_r <= 1)
+            conv_r = torch.where(rk.status == 1, rk_r, rp_r)
+            other_r = torch.where(rk.status == 1, rp_r, rk_r)
+            tie_eq = ((rk.status == 1) | (rpl.status == 1)) \
+                & (conv_r >= 1 - band) & (other_r > 1) \
+                & (other_r <= 1 + band)
+            apart = ~(same_it & same_st)
+            threshold = torch.where(same_it, tie_eq, under)
+            # or one run stopped early on the NaN guard (a non-finite
+            # Newton step; the incumbent is returned)
+            first_it = torch.minimum(rk.iters, rpl.iters)
+            guard = ~same_it & (first_it < qset.max_ipm_iter) \
+                & (first_st != 1)
+            usable_k = (rk.status == 1) | (rk.status == 2)
+            usable_p = (rpl.status == 1) | (rpl.status == 2)
+            # the composite objective at each answer, and the IPM's own gap
+            # tolerance there
+            fk = ipm_qp.composite_objective(qd, rk.x, b_k)
+            fp = ipm_qp.composite_objective(qd, rpl.x, b_k)
+            f0 = ipm_qp.composite_objective(qd, torch.zeros_like(qd.q), b_k)
+            eps_g = qset.eps_abs * (torch.maximum(fp.abs(), f0.abs()) + 1)
+            f_gap = ((fk - fp).abs() / eps_g)
+            eq = same_it & same_st
+            active = (qd.e_h + br.bb_mv(qd.Bh, qd.Gh, rpl.x, b_k) > 0).sum(-1)
+            violated0 = (qd.e_h > 0).sum(-1)
+            rec = {"check": "ipm_banded", "qp": qname, "dtype": dname,
+                   "lanes": lanes, "b": b_k, "n": qd.q.shape[1],
+                   "m_h": qd.e_h.shape[1], "m_a": qd.e_a.shape[1],
+                   "active_hinge_rows_per_lane_mean":
+                   float(active.double().mean()),
+                   "lanes_with_active_hinge_rows": int((active > 0).sum()),
+                   "hinge_rows_violated_at_dx0_per_lane_mean":
+                   float(violated0.double().mean()),
+                   "status_plain": torch.bincount(rpl.status,
+                                                  minlength=4).tolist(),
+                   "iters_plain_mean": float(rpl.iters.double().mean()),
+                   "iters_plain_max": int(rpl.iters.max()),
+                   "lanes_same_status": int(same_st.sum()),
+                   "lanes_same_iters": int(same_it.sum()),
+                   "dx_rel_err_equal_lanes": max0(dx_rel[eq]),
+                   "dx_abs_err_equal_lanes": max0(dx_abs[eq]),
+                   "dx_rel_err_all_lanes": float(dx_rel.max()),
+                   "lanes_apart": int(apart.sum()),
+                   "apart_lanes": torch.nonzero(apart)[:, 0].tolist(),
+                   "apart_ratio_kernel": rk_r[apart].tolist(),
+                   "apart_ratio_plain": rp_r[apart].tolist(),
+                   "apart_iters": [rk.iters[apart].tolist(),
+                                   rpl.iters[apart].tolist()],
+                   "apart_threshold_cases": int((apart & threshold).sum()),
+                   "apart_nan_guard_cases": int((apart & guard).sum()),
+                   "lanes_same_usable": int((usable_k == usable_p).sum()),
+                   "objective_gap_over_eps_g_max": float(f_gap.max()),
+                   "ratio_band": band}
+            if dname == "float64":
+                ok = bool(same_st.all()) and rec["dx_rel_err_equal_lanes"] \
+                    <= K6_DX_TOL and bool((threshold | ~apart).all())
+                rec["tol"] = K6_DX_TOL
+            else:
+                ok = bool((f_gap <= 1).all()) \
+                    and bool((usable_k == usable_p).all())
+                rec["tol"] = "objective within eps_g; usable (status 1 " \
+                    "or 2) alike"
+            rec["ok"] = ok
+            emit(rec)
+            k6_recs.append(rec)
+            assert ok, f"K6 ipm_banded disagrees with the plain loop ({qname}, {dname})"
+    # K6's time at the main path's shape (float32, the flagship's first QP)
+    qd, qset = qps["flagship_qp1"]
+    su = ipm_qp._setup(qd, qset)
+    it_k = ipm_qp.ipm_banded_cuda(su).it
+    k6_bytes, k6_flops = k6_work(qd, qset.kkt_block, it_k, es)
+    t_bytes = k6_bytes / PEAK_BYTES * 1e3
+    t_ops = k6_flops / PEAK_FLOPS["float32"] * 1e3
+    timing["ipm_banded"] = dict(
+        ms=time_ms(lambda: ipm_qp.ipm_banded_cuda(su), reps=10),
+        plain_ms=time_ms(lambda: ipm_qp._loop_plain(su), reps=2),
+        call_ms=time_ms(lambda: ipm_qp.solve_ipm_qp(qd, qset, device=dev),
+                        reps=10),
+        library_ms=None, bytes=k6_bytes, flops=k6_flops,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        iters_mean=float(it_k.double().mean()), iters_max=int(it_k.max()),
+        shape=f"one batched QP: 128 lanes, n {qd.q.shape[1]}, b "
+        f"{qset.kkt_block}, m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
+    emit({"time": "ipm_banded", **timing["ipm_banded"], "card": smi})
+
+    # the SQP's batched QP solves (its calls of solve_ipm_qp), counted from
+    # here on beside the launch counters
+    qp_calls = [0]
+    solve_qp = sqp_mod.solve_ipm_qp
+
+    def counted_qp(*a, **k):
+        qp_calls[0] += 1
+        return solve_qp(*a, **k)
+    sqp_mod.solve_ipm_qp = counted_qp
+
+    def reset_counts():
+        _native.reset_launches()
+        qp_calls[0] = 0
+
+    def path_ok(launches, n_qp):
+        """K6 once per batched QP solve; K1-K3 never."""
+        return launches["ipm_banded"] == n_qp > 0 \
+            and all(launches[k] == 0 for k in QP_KERNELS)
+
     # ------------------------------------------------------------------
     # phase 3: the collision-free slice, float32, 128 lanes, T = 30
     # ------------------------------------------------------------------
-    params = bench_params()
     spec, data, _ = make_glass_upright_free(batch=lanes, n_steps=30,
                                             dtype=torch.float32, device=dev)
 
@@ -708,11 +934,12 @@ def main():
     t0 = time.perf_counter()
     run()  # first call: allocator and library warm-up
     cold_s = time.perf_counter() - t0
-    _native.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res = run()
     wall_s = time.perf_counter() - t0
-    launches = dict(_native.LAUNCHES)
+    launches_s = dict(_native.LAUNCHES)
+    qp_s = qp_calls[0]
     walls = [wall_s]
     for _ in range(2):
         t0 = time.perf_counter()
@@ -729,20 +956,15 @@ def main():
           "mean_qp_solves": float(res.n_qp_solves.float().mean()),
           "max_viol": float(viol.max()), "cold_s": cold_s,
           "wall_s": mean_wall, "walls_s": walls,
-          "solves_per_s": n_ok / mean_wall, "launches": launches,
-          "card": smi})
-    assert all(launches[k] > 0 for k in ("bb_quad", "btd_factor",
-                                         "btd_solve")), launches
+          "solves_per_s": n_ok / mean_wall, "launches": launches_s,
+          "batched_qp_solves": qp_s, "card": smi})
+    assert path_ok(launches_s, qp_s), (launches_s, qp_s)
     assert finite, "non-finite lanes"
     assert n_ok >= 120, f"only {n_ok}/128 lanes converged"
 
     # ------------------------------------------------------------------
     # phase 3b: the full flagship, float32, 128 lanes, T = 30, and its gate
     # ------------------------------------------------------------------
-    spec_f, data_f, _, world_f = make_glass_upright(batch=lanes, n_steps=30,
-                                                    dtype=torch.float32,
-                                                    device=dev)
-
     def run_full():
         res = solve_batch_compact(spec_f, data_f, params, phase_qp_solves=8,
                                   device=dev)
@@ -752,7 +974,7 @@ def main():
     t0 = time.perf_counter()
     run_full()
     cold_f = time.perf_counter() - t0
-    _native.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     res_f = run_full()
     walls_f = [time.perf_counter() - t0]
@@ -761,6 +983,7 @@ def main():
     sync()
     gate_s = time.perf_counter() - t0
     launches_f = dict(_native.LAUNCHES)
+    qp_f = qp_calls[0]
     for _ in range(2):
         t0 = time.perf_counter()
         run_full()
@@ -781,8 +1004,9 @@ def main():
           float(gate_np.min()), "cold_s": cold_f, "wall_s": mean_wall,
           "walls_s": walls_f, "gate_s": gate_s,
           "solves_per_s": n_ok / mean_wall, "launches": launches_f,
-          "card": smi})
+          "batched_qp_solves": qp_f, "card": smi})
     assert all(launches_f[k] > 0 for k in PATH_KERNELS), launches_f
+    assert path_ok(launches_f, qp_f), (launches_f, qp_f)
     assert finite, "non-finite lanes"
     assert n_ok >= 120, f"only {n_ok}/128 lanes pass the gate"
 
@@ -804,21 +1028,22 @@ def main():
     t0 = time.perf_counter()
     run_pnp()
     cold_p = time.perf_counter() - t0
-    _native.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     resA, resB, scene = run_pnp()
     walls_p = [time.perf_counter() - t0]
     gA, gB = gates(resA, resB, scene)
     sync()
     launches_p = dict(_native.LAUNCHES)
+    qp_p = qp_calls[0]
     for _ in range(2):
         t0 = time.perf_counter()
         run_pnp()
         walls_p.append(time.perf_counter() - t0)
     # once more phase by phase: each phase's wall and launches (gate
     # included)
-    phase_wall, phase_launches = {}, {}
-    _native.reset_launches()
+    phase_wall, phase_launches, phase_qp = {}, {}, {}
+    reset_counts()
     t0 = time.perf_counter()
     specA, dataA, sc = make_pick_and_place(lanes, pnp_T, torch.float32,
                                            device=dev)
@@ -828,7 +1053,8 @@ def main():
     sync()
     phase_wall["approach"] = time.perf_counter() - t0
     phase_launches["approach"] = dict(_native.LAUNCHES)
-    _native.reset_launches()
+    phase_qp["approach"] = qp_calls[0]
+    reset_counts()
     t0 = time.perf_counter()
     specB, dataB = chain_transfer(
         sc, rA.x.reshape(lanes, pnp_T, D)[:, -1].cpu().numpy())
@@ -838,6 +1064,7 @@ def main():
     sync()
     phase_wall["transfer"] = time.perf_counter() - t0
     phase_launches["transfer"] = dict(_native.LAUNCHES)
+    phase_qp["transfer"] = qp_calls[0]
     XA = resA.x.reshape(lanes, pnp_T, D)
     XB = resB.x.reshape(lanes, pnp_T, D)
     chained = bool((XB[:, 0] == XA[:, -1]).all())
@@ -849,7 +1076,8 @@ def main():
                "cold_s": cold_p, "walls_s": walls_p,
                "wall_s": sum(walls_p) / len(walls_p),
                "transfer_step0_is_approach_last": chained,
-               "launches": launches_p, "card": smi}
+               "launches": launches_p, "batched_qp_solves": qp_p,
+               "card": smi}
     n_gated = {}
     for ph, r, g in (("approach", resA, gA), ("transfer", resB, gB)):
         st = r.status.cpu().numpy()
@@ -863,6 +1091,7 @@ def main():
             "max_viol": float(v.max()), "min_swept_distance": float(gg.min()),
             "wall_s_phase_by_phase": phase_wall[ph],
             "launches_phase_by_phase": phase_launches[ph],
+            "batched_qp_solves_phase_by_phase": phase_qp[ph],
             "jax_reference_cpu": reference[ph]}
     pnp_rec["gated_solves_per_s"] = sum(n_gated.values()) / 2 \
         / pnp_rec["wall_s"]
@@ -874,6 +1103,9 @@ def main():
     assert all(tl[k] > 0 for k in PATH_KERNELS) and tl["convex_feature"] > 0 \
         and tl["convex_fw"] > 0, tl
     assert phase_launches["approach"]["convex_feature"] == 0
+    assert path_ok(launches_p, qp_p), (launches_p, qp_p)
+    assert all(path_ok(phase_launches[ph], phase_qp[ph])
+               for ph in phase_qp), (phase_launches, phase_qp)
 
     # ---- K4 / K4v / K5 on the transfer world against their plain versions
     # (the straight-line init through the wall, plus seeded noise, and the
@@ -1112,11 +1344,13 @@ def main():
         TRANSFER_DX_TOL, False)
 
     # ------------------------------------------------------------------
-    # summary (launches: the full flagship's run, phase 3b, for K1-K5; the
-    # pick-and-place run, phase 3c, for the CONVEX routes; both paths'
-    # counts in launches_by_path)
+    # summary (launches: the full flagship's run, phase 3b, for K1-K6; the
+    # pick-and-place run, phase 3c, for the CONVEX routes; every path's
+    # counts in launches_by_path; K1-K3 run on no path, their math inside
+    # K6)
     # ------------------------------------------------------------------
     replaces = {
+        "ipm_banded": "trajopt_tpu/ops/ipm_qp.py:92",
         "bb_quad": "trajopt_tpu/ops/banded_rows.py:89",
         "btd_factor": "trajopt_tpu/ops/btridiag.py:208",
         "btd_solve": "trajopt_tpu/ops/btridiag.py:234",
@@ -1131,7 +1365,7 @@ def main():
         source[k] = "trajopt_tpu_torch/csrc/cast_seg.cu"
     for k in ("convex_feature", "convex_fw"):
         source[k] = "trajopt_tpu_torch/csrc/collision.cuh"
-    launches = {k: launches_f[k] for k in PATH_KERNELS}
+    launches = {k: launches_f[k] for k in PATH_KERNELS + QP_KERNELS}
     launches.update(convex_feature=launches_p["convex_feature"],
                     convex_fw=launches_p["convex_fw"])
     # errors: K1-K3 the largest relative error of every check and the
@@ -1140,6 +1374,26 @@ def main():
     # all rows (J_*), each the worst over float32 and float64
     errs = {k: {"max_rel_err": max(checks[k]), "max_abs_err": slice_err[k]}
             for k in checks}
+    # K6: dx against the plain loop on the captured QPs, on the lanes whose
+    # runs end alike (float32 at the main path's QP for max_abs_err)
+    k6_main = [r for r in k6_recs if r["qp"] == "flagship_qp1"
+               and r["dtype"] == "float32"][0]
+    errs["ipm_banded"] = {
+        "max_abs_err": k6_main["dx_abs_err_equal_lanes"],
+        "max_abs_err_of": "dx, float32, the flagship's first QP, lanes "
+        "whose runs end alike",
+        "dx_max_rel_err_equal_lanes": {
+            d: max(r["dx_rel_err_equal_lanes"] for r in k6_recs
+                   if r["dtype"] == d) for d in ("float32", "float64")},
+        "lanes_apart": {f"{r['qp']}_{r['dtype']}": r["lanes_apart"]
+                        for r in k6_recs},
+        "objective_gap_over_eps_g_max": max(
+            r["objective_gap_over_eps_g_max"] for r in k6_recs),
+        "launches_are": "one per batched QP solve",
+        "batched_qp_solves_by_path": {"free_slice": qp_s, "flagship": qp_f,
+                                      "pick_and_place": qp_p},
+        "call_ms": timing["ipm_banded"]["call_ms"],
+        "library_ms_null_because": "no one PyTorch call solves this QP"}
     for k, v in coll_err.items():
         errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
                    "max_abs_err_of": "D, all rows",
@@ -1178,7 +1432,8 @@ def main():
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],
-         "launches_by_path": {"flagship": launches_f[name],
+         "launches_by_path": {"free_slice": launches_s[name],
+                              "flagship": launches_f[name],
                               "pick_and_place": launches_p[name]},
          "ok": True, **errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],

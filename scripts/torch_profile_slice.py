@@ -16,9 +16,12 @@ wall of each compaction phase), then one run under ``torch.profiler`` with
 each layer of the path wrapped in a ``record_function`` range (convexify,
 QP assembly, the IPM, model values, evaluation; inside them the CUDA
 kernels).  Prints one JSON line per problem: wall times, phases, device
-kernel time and busy share, CUDA kernel launches, host and device time
-per layer, and the top device kernels.  The full ``key_averages`` tables
-go to one text file per problem in the repo's output directory.
+kernel time and busy share, CUDA kernel launches, the batched QP solves
+and batched IPM iterations (a batched QP solve runs as many IPM iterations
+as its slowest lane) with the launches per each, K6 ``ipm_banded``'s device
+time, host and device time per layer with the IPM layer's share of the
+wall, and the top device kernels.  The full ``key_averages`` tables go
+to one text file per problem in the repo's output directory.
 """
 
 import argparse
@@ -96,6 +99,18 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
     from trajopt_tpu_torch.solver import sqp
     from trajopt_tpu_torch.terms.collision import CastDistancePre
 
+    # the SQP's batched QP solves: each call's per-lane IPM iterations
+    # (read after the run, so the count adds no sync to it)
+    qp_iters = []
+    solve_qp = sqp.solve_ipm_qp
+
+    def counted_qp(d, s, device, kernels):
+        sol = solve_qp(d, s, device=device, kernels=kernels)
+        qp_iters.append(sol.iters)
+        return sol
+
+    sqp.solve_ipm_qp = counted_qp
+
     def run():
         res = sqp.solve_batch_compact(spec, data, params, phase_qp_solves=8,
                                       device=dev)
@@ -103,6 +118,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
         return res
 
     run()
+    qp_iters.clear()
     # the wall of each compaction phase (one _solve call each)
     phases = []
     solve_fn = sqp._solve
@@ -125,6 +141,9 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
     finally:
         sqp._solve = solve_fn
     launches = dict(_native.LAUNCHES)
+    n_qp = len(qp_iters)
+    n_ipm = sum(int(it.max()) for it in qp_iters)
+    lane_ipm = sum(int(it.sum()) for it in qp_iters)
 
     # layer ranges: wrap the module-level names the solver calls
     layers = {
@@ -134,9 +153,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
         (sqp, "solve_ipm_qp"): "L:ipm_qp",
         (sqp, "_model_values"): "L:model_values",
         (sqp, "_evaluate"): "L:evaluate",
-        (ipm_qp, "bb_quad"): "K:bb_quad",
-        (ipm_qp, "btd_factor"): "K:btd_factor",
-        (ipm_qp, "btd_solve"): "K:btd_solve",
+        (ipm_qp, "ipm_banded_cuda"): "K:ipm_banded",
         (CastDistancePre, "value_jac"): "K:cast_seg",
         (CastDistancePre, "value"): "K:cast_seg_value",
     }
@@ -158,6 +175,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
     finally:
         for (mod, name), fn in saved.items():
             setattr(mod, name, fn)
+        sqp.solve_ipm_qp = solve_qp
 
     rows = prof.key_averages()
 
@@ -180,7 +198,9 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
                           "device_ms": _dev_time(e) / 1e3}
                   for e in rows if is_range(e) and not on_cuda(e)}
     top = sorted(kernels, key=lambda e: -_dev_time(e, True))[:12]
-    n_ipm = launches["btd_factor"]
+    k6_ms = sum(_dev_time(e, True) for e in kernels
+                if "ipm_banded" in e.key) / 1e3
+    ipm_host_ms = layer_rows.get("L:ipm_qp", {}).get("host_ms", 0.0)
     out = {
         "card": smi, "scene": args.scene, "problem": problem,
         "batch": args.batch, "n_steps": steps, "phases": phases,
@@ -191,8 +211,13 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
         "device_busy_share": dev_us / 1e6 / prof_wall,
         "device_kernel_share_of_unprofiled_wall": dev_us / 1e6 / wall,
         "cuda_kernel_launches": n_launch,
+        "batched_qp_solves": n_qp,
         "ipm_iterations": n_ipm,
+        "lane_ipm_iterations": lane_ipm,
+        "launches_per_batched_qp_solve": n_launch / max(n_qp, 1),
         "launches_per_ipm_iteration": n_launch / max(n_ipm, 1),
+        "k6_device_ms": k6_ms,
+        "ipm_layer_share_of_profiled_wall": ipm_host_ms / 1e3 / prof_wall,
         "hand_kernel_launches": launches,
         "layers": layer_rows,
         "top_kernels": [{"name": e.key[:80], "count": e.count,

@@ -20,6 +20,9 @@ from trajopt_tpu.ops import banded_rows as jbr
 from trajopt_tpu.ops import btridiag as jbt
 from trajopt_tpu_torch.ops import banded_rows as tbr
 from trajopt_tpu_torch.ops import btridiag as tbt
+from trajopt_tpu_torch.ops import ipm_qp as tipm
+from trajopt_tpu_torch.ops.prox_qp import ProxQPData
+from trajopt_tpu_torch.ops.qp import QPSettings
 
 RTOL = 1e-10
 
@@ -167,3 +170,14 @@ def test_cuda_wrappers_reject_cpu_tensors():
         tbr.bb_quad_group_cuda(torch.zeros((1, 2, 1, 14), dtype=torch.float64),
                                torch.zeros(2, dtype=torch.int32),
                                torch.zeros((1, 2), dtype=torch.float64), D, O)
+    # K6 ipm_banded, on the set-up of a small box-only QP
+    n = 14
+    z = torch.zeros((1, 0), dtype=torch.float64)
+    data = ProxQPData(P=torch.eye(n, dtype=torch.float64)[None],
+                      q=torch.ones((1, n), dtype=torch.float64), A_h=None,
+                      e_h=z, w_h=z, A_a=None, e_a=z, w_a=z,
+                      lb=-torch.ones((1, n), dtype=torch.float64),
+                      ub=torch.ones((1, n), dtype=torch.float64))
+    su = tipm._setup(data, QPSettings(solver="ipm", kkt_block=7))
+    with pytest.raises(ValueError, match="CUDA"):
+        tipm.ipm_banded_cuda(su)

@@ -7,6 +7,14 @@ trust box and a pinned first step — solved lane by lane by the reference
 and as one batch by the port.  Status and iteration count must be equal
 and dx agree to 1e-8 (both run the same float64 Newton sequence; only sum
 orders differ).
+
+K6 ``ipm_banded``'s device code runs here through its host build
+(``solve_ipm_qp_host``, csrc/ipm_host.cpp): against the plain loop it must
+give equal statuses and iteration counts and dx within 1e-10 of the
+largest |dx| (the same float64 Newton sequence, other sum orders), and
+against JAX the reference tolerance above; at block size 7 and at 14 (the
+fixture's rows regrouped to 2-step superblocks; against JAX with the hinge
+rows), and end to end through the SQP.
 """
 
 import jax.numpy as jnp
@@ -17,17 +25,19 @@ import torch
 from trajopt_tpu.ops.ipm_qp import solve_ipm_qp as j_solve
 from trajopt_tpu.ops.prox_qp import ProxQPData as JData
 from trajopt_tpu.ops.qp import QPSettings as JSettings
-from trajopt_tpu_torch.ops.banded_rows import step_window
+from trajopt_tpu_torch.ops.banded_rows import regroup, step_window
+from trajopt_tpu_torch.ops.ipm_qp import check_p_band, solve_ipm_qp_host
 from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp as t_solve
 from trajopt_tpu_torch.ops.prox_qp import ProxQPData as TData
 from trajopt_tpu_torch.ops.qp import QPSettings as TSettings
 
 TOL = 1e-8
+HOST_TOL = 1e-10  # K6 host build vs the plain loop, relative to max |dx|
 B_SZ, NB = 7, 5
 
 
-def _problem(rng, lanes, with_hinge=True):
-    b, nb = B_SZ, NB
+def _problem(rng, lanes, with_hinge=True, nb=NB):
+    b = B_SZ
     n = b * nb
     S = np.zeros(((nb - 1) * b, n))  # joint-velocity stencil
     for t in range(nb - 1):
@@ -55,6 +65,44 @@ def _problem(rng, lanes, with_hinge=True):
                   e_a=rng.normal(size=(lanes, ma)),
                   w_a=rng.uniform(1, 20, (lanes, ma)), lb=lb, ub=ub)
     return arrays, Bh, Gh, Ba, Ga
+
+
+def _settings(tight, b=B_SZ, **over):
+    kw = dict(eps_abs=1e-8, eps_rel=1e-10, max_ipm_iter=40) if tight \
+        else dict(eps_abs=1e-4, eps_rel=1e-6, max_ipm_iter=16)
+    kw.update(solver="ipm", kkt_block=b, **over)
+    return kw
+
+
+def _tdata(arrays, Bh, Gh, Ba, Ga):
+    return TData(**{k: torch.as_tensor(v) for k, v in arrays.items()},
+                 A_h=None, A_a=None,
+                 Bh=tuple(torch.as_tensor(B) for B in Bh),
+                 Gh=tuple(torch.as_tensor(np.array(G)) for G in Gh),
+                 Ba=tuple(torch.as_tensor(B) for B in Ba),
+                 Ga=tuple(torch.as_tensor(np.array(G)) for G in Ga))
+
+
+def _regrouped(rng, lanes, with_hinge):
+    """The fixture on 6 steps with its rows regrouped to superblocks of two
+    steps (block size 14)."""
+    arrays, Bh, Gh, Ba, Ga = _problem(rng, lanes, with_hinge, nb=6)
+
+    def rg(Bs, Gs):
+        out = [regroup(torch.as_tensor(B), G, B_SZ, 2, 3)
+               for B, G in zip(Bs, Gs)]
+        return (tuple(B.numpy() for B, _ in out),
+                tuple(G.numpy() for _, G in out))
+    return (arrays, *rg(Bh, Gh), *rg(Ba, Ga))
+
+
+def _assert_same_run(got, ref, tol):
+    """Equal statuses and iteration counts; x within tol of max |x|."""
+    np.testing.assert_array_equal(got.status.numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(got.iters.numpy(), ref.iters.numpy())
+    scale = float(ref.x.abs().max())
+    np.testing.assert_allclose(got.x.numpy(), ref.x.numpy(), rtol=0,
+                               atol=tol * scale)
 
 
 @pytest.mark.parametrize("with_hinge", [True, False])
@@ -92,3 +140,84 @@ def test_ipm_matches_reference(with_hinge, tight):
         np.testing.assert_array_equal(sol.x[z, :B_SZ].numpy(),
                                       arrays["lb"][z, :B_SZ])
     assert (sol.status >= 1).all()
+
+
+@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ])
+@pytest.mark.parametrize("with_hinge", [True, False])
+@pytest.mark.parametrize("tight", [False, True])
+def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
+    """K6's device code (host build) against the plain loop and JAX."""
+    lanes = 4
+    rng = np.random.default_rng(7 + 2 * tight + with_hinge)
+    arrays, Bh, Gh, Ba, Ga = (_problem(rng, lanes, with_hinge) if b == B_SZ
+                              else _regrouped(rng, lanes, with_hinge))
+    kw = _settings(tight, b)
+    tdata = _tdata(arrays, Bh, Gh, Ba, Ga)
+    sol = solve_ipm_qp_host(tdata, TSettings(**kw))
+    _assert_same_run(sol, t_solve(tdata, TSettings(**kw), device="cpu"),
+                     HOST_TOL)
+    if b != B_SZ and not with_hinge:
+        return  # JAX compiles b=14 for ~25 s: the hinge fixtures hold it
+    for z in range(lanes):
+        jd = JData(**{k: jnp.asarray(v[z]) for k, v in arrays.items()},
+                   A_h=None, A_a=None,
+                   Bh=tuple(jnp.asarray(B[z]) for B in Bh),
+                   Gh=tuple(jnp.asarray(G) for G in Gh),
+                   Ba=tuple(jnp.asarray(B[z]) for B in Ba),
+                   Ga=tuple(jnp.asarray(G) for G in Ga))
+        ref = j_solve(jd, JSettings(**kw))
+        assert int(sol.status[z]) == int(ref.status), z
+        assert int(sol.iters[z]) == int(ref.iters), z
+        np.testing.assert_allclose(sol.x[z].numpy(), np.asarray(ref.x),
+                                   rtol=0, atol=TOL)
+        np.testing.assert_allclose(sol.u[z].numpy(), np.asarray(ref.u),
+                                   rtol=0, atol=TOL)
+
+
+def test_k6_host_lanes_stop_apart():
+    """Lanes that converge early stop while the others run to the cap:
+    with max_ipm_iter 12, two lanes of the tight fixture converge (11
+    iterations) and two stop at the cap unsolved."""
+    rng = np.random.default_rng(9)
+    tdata = _tdata(*_problem(rng, 4, True))
+    st = TSettings(**_settings(True, max_ipm_iter=12))
+    sol = solve_ipm_qp_host(tdata, st)
+    ref = t_solve(tdata, st, device="cpu")
+    _assert_same_run(sol, ref, HOST_TOL)
+    it = sol.iters.numpy()
+    assert (it < 12).any() and (it == 12).any(), it
+    assert (sol.status.numpy()[it < 12] == 1).all()
+
+
+def test_k6_host_through_the_sqp(monkeypatch):
+    """The free flagship slice end to end with the IPM run by K6's host
+    build: equal statuses and QP counts, x within 1e-9."""
+    from trajopt_tpu_torch.benchmarks import (bench_params,
+                                              make_glass_upright_free)
+    from trajopt_tpu_torch.solver import sqp
+
+    spec, data, _ = make_glass_upright_free(3, n_steps=6,
+                                            dtype=torch.float64, device="cpu")
+    params = bench_params()
+    ref = sqp.solve_batch_compact(spec, data, params, device="cpu")
+    monkeypatch.setattr(sqp, "solve_ipm_qp",
+                        lambda d, s, device, kernels: solve_ipm_qp_host(d, s))
+    got = sqp.solve_batch_compact(spec, data, params, device="cpu")
+    np.testing.assert_array_equal(got.status.numpy(), ref.status.numpy())
+    np.testing.assert_array_equal(got.n_qp_solves.numpy(),
+                                  ref.n_qp_solves.numpy())
+    np.testing.assert_allclose(got.x.numpy(), ref.x.numpy(), rtol=0,
+                               atol=1e-9)
+
+
+def test_p_band_check():
+    """K6 forms P v from P's block-tridiagonal blocks: a P with an entry
+    two blocks off the diagonal is refused."""
+    rng = np.random.default_rng(3)
+    arrays = _problem(rng, 2, True)[0]
+    P = torch.as_tensor(arrays["P"])
+    check_p_band(P, B_SZ)
+    P[1, 0, 2 * B_SZ] = P[1, 2 * B_SZ, 0] = 0.5
+    with pytest.raises(ValueError, match="block tridiagonal"):
+        check_p_band(P, B_SZ)
+    check_p_band(P, 3 * B_SZ)  # a coarser block holds it

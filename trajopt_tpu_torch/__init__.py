@@ -3,10 +3,11 @@
 The package mirrors the JAX package's module tree (each module's
 counterpart sits at the same path) and imports neither ``jax`` nor
 ``trajopt_tpu``.  Batching is an explicit leading lane axis where the JAX
-package used ``vmap``.  The KKT assembly, block-tridiagonal factorization
-and solve of the banded interior-point QP run as hand-written CUDA kernels
-(``csrc/``) on the card; every kernel has a plain PyTorch version in the
-same module, which a CPU tensor takes.
+package used ``vmap``.  On the card the banded interior-point QP runs as
+one hand-written CUDA kernel per solve (K6, with the KKT assembly and the
+block-tridiagonal factorization and solves as its device functions), and
+the cast-collision distances as others (``csrc/``); every kernel has a
+plain PyTorch version in the same module, which a CPU tensor takes.
 
 Entry points default to ``device="cuda"`` and raise when CUDA is absent,
 unless the caller passes ``device="cpu"``.

@@ -10,9 +10,10 @@ parallel.  Nothing here runs at import time.
 launches its kernel, and nowhere else.  A source's library is named by a
 hash of the source, the headers of ``csrc/`` and its flags.
 
-``host_library`` builds ``csrc/cast_host.cpp`` — the cast kernels' device
-code compiled for the CPU — with the host's C++ compiler, for checking
-that code against the plain PyTorch version without a card.
+``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' device
+code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's) for the CPU with the
+host's C++ compiler, for checking that code against the plain PyTorch
+version without a card.
 """
 
 from __future__ import annotations
@@ -50,12 +51,15 @@ _SIGNATURES = {
                  ("cast_seg", "cast_seg_value", "cast_sweep")
                  for s in ("f32", "f64")]
     + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")],
+    "ipm_banded": [(f"ipm_banded_{s}", [_P, _P]) for s in ("f32", "f64")],
 }
 SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # extra nvcc flags per source: the cast kernels keep every multiply and add
 # separate (no FMA contraction), as the plain PyTorch versions compute them,
-# so that their argmin decisions agree wherever there is no tie
-_EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"]}
+# so that their argmin decisions agree wherever there is no tie; so does
+# K6 ipm_banded, whose float64 iterates are held to the plain loop's
+_EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
+                "ipm_banded": ["-fmad=false"]}
 
 # kernel name -> launch count; the cast sources hold three kernels
 # (``cast_cvx`` their CVX instantiations, with the CONVEX routes, and the
@@ -64,7 +68,7 @@ _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"]}
 # enumeration, Frank-Wolfe max separation)
 LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
                           "cast_seg_value", "cast_sweep", "convex_feature",
-                          "convex_fw", "convex_route"], 0)
+                          "convex_fw", "convex_route", "ipm_banded"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -93,7 +97,8 @@ def _flags(name: str) -> list:
 # as it only checks arithmetic at small sizes (it compiles in ~1 s)
 HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
 _HOST_SIGNATURES = {"cast_host": _SIGNATURES["cast_seg"]
-                    + _SIGNATURES["cast_cvx"]}
+                    + _SIGNATURES["cast_cvx"],
+                    "ipm_host": _SIGNATURES["ipm_banded"]}
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:
@@ -181,6 +186,7 @@ def check(name: str, code: int) -> None:
     is not instantiated for)."""
     if code == -1:
         raise ValueError(f"{name}: size not instantiated (block size 7, 14 "
-                         "or 21; n_dof 7 for cast_seg)")
+                         "or 21; n_dof 7 for cast_seg; ipm_banded within "
+                         "the shared-memory limit)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

@@ -13,7 +13,8 @@
 //
 // Design: one thread block per lane.  Each thread OWNS output entries of
 // D and O and loops over the groups in row order, adding each group's
-// sum over its r rows — no atomics, and the order of every sum is fixed,
+// sum over its r rows (banded::bb_quad_entry in banded.cuh, which K6
+// ipm_banded also runs) — no atomics, and the order of every sum is fixed,
 // so results repeat bitwise from run to run.  A group with window start
 // G touches D[G] (window block 0), D[G+1] (window block 1) and O[G]; the
 // last trajectory step's rows sit in window nb-2 (step_window), so two
@@ -25,7 +26,7 @@
 // that is ~3.2 MB (mostly D and O) and ~1 MFLOP: about 1 us at 3.35 TB/s,
 // so the bound is bytes; a kernel this small runs near launch latency.
 
-#include <cuda_runtime.h>
+#include "banded.cuh"
 
 template <typename T>
 __global__ void bb_quad_kernel(const T* __restrict__ Bw,
@@ -34,8 +35,7 @@ __global__ void bb_quad_kernel(const T* __restrict__ Bw,
                                T* __restrict__ D, T* __restrict__ O,
                                int ng, int r, int b, int nb) {
   const int lane = blockIdx.x;
-  const int w = 2 * b;
-  const T* Bl = Bw + (long)lane * ng * r * w;
+  const T* Bl = Bw + (long)lane * ng * r * 2 * b;
   const T* dl = d + (long)lane * d_stride;
   const int bb = b * b;
   const int nD = nb * bb;
@@ -45,38 +45,9 @@ __global__ void bb_quad_kernel(const T* __restrict__ Bw,
   for (int e = threadIdx.x; e < nD + nO; e += blockDim.x) {
     const bool isD = e < nD;
     const int ee = isD ? e : e - nD;
-    const int t = ee / bb;
-    const int i = (ee % bb) / b;
-    const int j = ee % b;
-    T acc = isD ? Dl[ee] : Ol[ee];
-    for (int g = 0; g < ng; ++g) {
-      const int Gg = G[g];
-      int wi, wj;
-      if (isD) {
-        if (Gg == t) {
-          wi = i;
-          wj = j;
-        } else if (Gg + 1 == t) {
-          wi = b + i;
-          wj = b + j;
-        } else {
-          continue;
-        }
-      } else {
-        if (Gg != t) continue;
-        wi = b + i;  // O[t] = K[block t+1, block t] = W[b:, :b]
-        wj = j;
-      }
-      const T* Bg = Bl + (long)g * r * w;
-      const T* dg = dl + (long)g * r;
-      T s = T(0);
-      for (int k = 0; k < r; ++k) s += Bg[k * w + wi] * dg[k] * Bg[k * w + wj];
-      acc += s;
-    }
-    if (isD)
-      Dl[ee] = acc;
-    else
-      Ol[ee] = acc;
+    T* out = isD ? Dl + ee : Ol + ee;
+    *out = banded::bb_quad_entry<T>(Bl, G, dl, ng, r, b, isD, ee / bb,
+                                    (ee % bb) / b, ee % b, *out);
   }
 }
 

@@ -19,6 +19,8 @@
 // loop inside the block.  Thread i owns row i of the current b x b blocks
 // (b <= 21 < 32), which sit in shared memory.  The column loop of each
 // Cholesky is warp-synchronous; every sum runs in the JAX routine's order.
+// The block steps are banded.cuh's (chol_block, offdiag_solve,
+// schur_update), which K6 ipm_banded runs in place.
 //
 // Bound on the H100: it reads D and O once and writes LD and LM once
 // (at b=7, T=30, 128 lanes, float32: ~3 MB, about 1 us at 3.35 TB/s) and
@@ -26,42 +28,13 @@
 // 67 TFLOP/s).  The real limit is the dependency chain: T sequential
 // block steps, each a chain of b dependent pivots.
 
-#include <cuda_runtime.h>
-
-template <typename T>
-__device__ __forceinline__ T dsqrt(T v);
-template <>
-__device__ __forceinline__ float dsqrt<float>(float v) { return sqrtf(v); }
-template <>
-__device__ __forceinline__ double dsqrt<double>(double v) { return sqrt(v); }
-
-// In-place lower Cholesky of the BS x BS block A (shared) into L (shared).
-// Thread i (< BS) owns row i.
-template <typename T, int BS>
-__device__ void chol_block(const T* A, T* L, T tiny) {
-  const int i = threadIdx.x;
-  for (int j = 0; j < BS; ++j) {
-    if (i == j) {
-      T s = A[j * BS + j];
-      for (int k = 0; k < j; ++k) s -= L[j * BS + k] * L[j * BS + k];
-      L[j * BS + j] = dsqrt<T>(s > tiny ? s : tiny);
-    }
-    __syncwarp();
-    if (i > j && i < BS) {
-      const T inv = T(1) / L[j * BS + j];
-      T r = A[i * BS + j];
-      for (int k = 0; k < j; ++k) r -= L[i * BS + k] * L[j * BS + k];
-      L[i * BS + j] = r * inv;
-    }
-    if (i < j && j < BS) L[i * BS + j] = T(0);  // upper triangle
-    __syncwarp();
-  }
-}
+#include "banded.cuh"
 
 template <typename T, int BS>
 __global__ void __launch_bounds__(32)
 btd_factor_kernel(const T* __restrict__ D, const T* __restrict__ O,
                   T* __restrict__ LD, T* __restrict__ LM, int nT, T tiny) {
+  using namespace banded;
   constexpr int BB = BS * BS;
   __shared__ T A[BB];   // block being factored
   __shared__ T Lp[BB];  // factor of the previous (then current) block
@@ -75,34 +48,18 @@ btd_factor_kernel(const T* __restrict__ D, const T* __restrict__ O,
 
   for (int e = i; e < BB; e += 32) A[e] = Dl[e];
   __syncwarp();
-  chol_block<T, BS>(A, Lp, tiny);
+  chol_block<T, BS, 32>(A, Lp, tiny, i);
   for (int e = i; e < BB; e += 32) LDl[e] = Lp[e];
 
   for (int t = 1; t < nT; ++t) {
-    const T* Ot = Ol + (long)(t - 1) * BB;
-    const T* Dt = Dl + (long)t * BB;
-    for (int e = i; e < BB; e += 32) M[e] = Ot[e];
+    for (int e = i; e < BB; e += 32) M[e] = Ol[(long)(t - 1) * BB + e];
     __syncwarp();
-    // M = O L^{-T}: row i solves L y = O[i, :] by forward substitution
-    if (i < BS) {
-      for (int j = 0; j < BS; ++j) {
-        T s = M[i * BS + j];
-        for (int k = 0; k < j; ++k) s -= Lp[j * BS + k] * M[i * BS + k];
-        M[i * BS + j] = s / Lp[j * BS + j];
-      }
-    }
+    offdiag_solve<T, BS, 32>(Lp, M, i);
     __syncwarp();
-    // S = D_t - M M^T (the sum is taken first, as in the JAX routine)
-    if (i < BS) {
-      for (int j = 0; j < BS; ++j) {
-        T acc = T(0);
-        for (int k = 0; k < BS; ++k) acc += M[i * BS + k] * M[j * BS + k];
-        A[i * BS + j] = Dt[i * BS + j] - acc;
-      }
-    }
+    schur_update<T, BS, 32>(Dl + (long)t * BB, M, A, i);
     for (int e = i; e < BB; e += 32) LMl[(long)(t - 1) * BB + e] = M[e];
     __syncwarp();
-    chol_block<T, BS>(A, Lp, tiny);
+    chol_block<T, BS, 32>(A, Lp, tiny, i);
     for (int e = i; e < BB; e += 32) LDl[(long)t * BB + e] = Lp[e];
     __syncwarp();
   }

@@ -16,7 +16,8 @@
 // Design: one warp per lane, the chain over T a loop inside it.  Thread i
 // owns entry i of the current block vector; the triangular solves are
 // column-oriented, the solved entry broadcast with a warp shuffle, so no
-// shared-memory barrier sits inside a b-step chain.  The coupling
+// shared-memory barrier sits inside a b-step chain (banded.cuh's fwd_step
+// and bwd_step, which K6 ipm_banded also runs).  The coupling
 // matvecs sum in the JAX routine's order; the backward substitution
 // subtracts its terms in the reverse order.
 //
@@ -24,14 +25,13 @@
 // T=30, 128 lanes, float32: ~3 MB, about 1 us at 3.35 TB/s) for ~4 T b^2
 // flops per lane.  The real limit is the chain of 2 T b dependent steps.
 
-#include <cuda_runtime.h>
+#include "banded.cuh"
 
 template <typename T, int BS>
 __global__ void __launch_bounds__(32)
 btd_solve_kernel(const T* __restrict__ LD, const T* __restrict__ LM,
                  const T* __restrict__ r, T* __restrict__ x, int nT) {
   constexpr int BB = BS * BS;
-  constexpr unsigned FULL = 0xffffffffu;
   __shared__ T Ls[BB];
   __shared__ T Ms[BB];
   __shared__ T vprev[32];
@@ -48,29 +48,9 @@ btd_solve_kernel(const T* __restrict__ LD, const T* __restrict__ LM,
     if (t > 0)
       for (int e = i; e < BB; e += 32) Ms[e] = LMl[(long)(t - 1) * BB + e];
     __syncwarp();
-    T s = T(0);
-    if (i < BS) {
-      s = rl[t * BS + i];
-      if (t > 0) {
-        T acc = T(0);
-        for (int k = 0; k < BS; ++k) acc += Ms[i * BS + k] * vprev[k];
-        s = s - acc;
-      }
-    }
-    T yi = T(0);
-#pragma unroll
-    for (int j = 0; j < BS; ++j) {
-      const T v = (i == j) ? s / Ls[j * BS + j] : T(0);
-      const T xj = __shfl_sync(FULL, v, j);
-      if (i == j) yi = xj;
-      if (i > j && i < BS) s -= Ls[i * BS + j] * xj;
-    }
-    __syncwarp();
-    if (i < BS) {
-      vprev[i] = yi;
-      xl[t * BS + i] = yi;
-    }
-    __syncwarp();
+    banded::fwd_step<T, BS, 32>(Ls, t > 0 ? Ms : nullptr, rl + t * BS, vprev,
+                                vprev, i);
+    if (i < BS) xl[t * BS + i] = vprev[i];
   }
 
   // ---- backward: L^T x = y ----
@@ -79,29 +59,10 @@ btd_solve_kernel(const T* __restrict__ LD, const T* __restrict__ LM,
     if (t < nT - 1)
       for (int e = i; e < BB; e += 32) Ms[e] = LMl[(long)t * BB + e];
     __syncwarp();
-    T s = T(0);
-    if (i < BS) {
-      s = xl[t * BS + i];  // y_t, written by this thread in the forward pass
-      if (t < nT - 1) {
-        T acc = T(0);
-        for (int k = 0; k < BS; ++k) acc += Ms[k * BS + i] * vprev[k];
-        s = s - acc;
-      }
-    }
-    T xi = T(0);
-#pragma unroll
-    for (int j = BS - 1; j >= 0; --j) {
-      const T v = (i == j) ? s / Ls[j * BS + j] : T(0);
-      const T xj = __shfl_sync(FULL, v, j);
-      if (i == j) xi = xj;
-      if (i < j) s -= Ls[j * BS + i] * xj;
-    }
-    __syncwarp();
-    if (i < BS) {
-      vprev[i] = xi;
-      xl[t * BS + i] = xi;
-    }
-    __syncwarp();
+    // y_t was written by this thread in the forward pass
+    banded::bwd_step<T, BS, 32>(Ls, t < nT - 1 ? Ms : nullptr, xl + t * BS,
+                                vprev, vprev, i);
+    if (i < BS) xl[t * BS + i] = vprev[i];
   }
 }
 

@@ -1,0 +1,42 @@
+// Host build of K6 ipm_banded's device code (ipm.cuh, banded.cuh), for
+// checking its arithmetic on a CPU against the plain PyTorch loop and the
+// JAX reference without a card.
+//
+// The same entry points as ipm_banded.cu (same arguments, same outputs),
+// run serially: each lane's whole IPM loop by a team of one thread, with
+// an empty barrier, one lane after another.  Compiled with a C++ compiler
+// by _native.host_library; it is not on any path that solves a problem.
+
+#include <vector>
+
+#include "ipm.cuh"
+
+template <typename T, int BS>
+static int run(const ipm::Args* a) {
+  std::vector<T> smem(ipm::smem_elems(a->n, BS, a->nb));
+  for (int lane = 0; lane < a->lanes; ++lane)
+    ipm::ipm_lane<T, BS, 1>(*a, lane, smem.data(), 0, 1);
+  return 0;
+}
+
+template <typename T>
+static int dispatch(const ipm::Args* a) {
+  switch (a->b) {
+    case 7:
+      return run<T, 7>(a);
+    case 14:
+      return run<T, 14>(a);
+    case 21:
+      return run<T, 21>(a);
+    default:
+      return -1;
+  }
+}
+
+extern "C" int ipm_banded_f32(const ipm::Args* a, void*) {
+  return dispatch<float>(a);
+}
+
+extern "C" int ipm_banded_f64(const ipm::Args* a, void*) {
+  return dispatch<double>(a);
+}

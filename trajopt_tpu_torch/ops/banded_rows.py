@@ -13,9 +13,11 @@ columns ``[G*b, (G+2)*b)``).  A full row set is a tuple of such groups (one
 per term), concatenated in row order; flat row vectors are ``(lanes, m)``.
 
 ``bb_quad`` — the block-tridiagonal assembly of A' diag(d) A inside every
-IPM iteration — runs as the CUDA kernel ``csrc/bb_quad.cu`` on a CUDA
+IPM iteration — runs as the CUDA kernel K1 ``csrc/bb_quad.cu`` on a CUDA
 tensor and as its plain PyTorch version (``bb_quad_group_plain``) on a CPU
-tensor.
+tensor.  On the card the IPM runs K1's body as a device function of K6
+``ipm_banded`` (``csrc/banded.cuh``); the plain IPM loop takes the plain
+version.
 """
 
 from __future__ import annotations

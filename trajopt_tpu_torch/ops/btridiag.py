@@ -16,7 +16,9 @@ the explicit pair ``(LD (lanes, T, b, b), LM (lanes, T-1, b, b))``.
 ``btd_factor`` (K2, ``csrc/btd_factor.cu``) and ``btd_solve`` (K3,
 ``csrc/btd_solve.cu``) launch their CUDA kernels on CUDA tensors and run
 their plain PyTorch versions (``btd_factor_plain``, ``btd_solve_plain``)
-on CPU tensors.
+on CPU tensors.  On the card the IPM runs their block steps as device
+functions of K6 ``ipm_banded`` (``csrc/banded.cuh``); the plain IPM loop
+takes the plain versions.
 """
 
 from __future__ import annotations

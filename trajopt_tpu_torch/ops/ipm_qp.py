@@ -10,31 +10,46 @@
 A Mehrotra predictor-corrector on the condensed Newton matrix
 K = P + Jh' D_h Jh + Ja' D_a Ja + D_box.  The rows are BANDED
 (ops.banded_rows windows), so K is assembled directly in
-block-tridiagonal form and factored by the block Cholesky (ops.btridiag):
-per iteration one K1 ``bb_quad`` launch per row group, one K2
-``btd_factor`` and four K3 ``btd_solve`` (predictor, corrector, one
-refinement step each).
+block-tridiagonal form and factored by the block Cholesky (ops.btridiag).
+
+The loop runs in one of two ways, between a shared set-up (pinned
+coordinates, scaling, P's blocks, f(0): ``_setup``) and teardown
+(``_finish``):
+
+* on a CUDA tensor (``kernels=True``), as ONE launch of the hand-written
+  kernel K6 ``ipm_banded`` (``csrc/ipm_banded.cu``): one CTA per lane runs
+  that lane's whole loop, with K1-K3's math as device functions;
+* otherwise, as the plain PyTorch loop ``_loop_plain`` (K6's oracle, and
+  the path of a CPU tensor or of ``kernels=False``), with the plain
+  versions of K1 ``bb_quad``, K2 ``btd_factor`` and K3 ``btd_solve``.
+
+``solve_ipm_qp_host`` runs K6's device code built for the CPU
+(``csrc/ipm_host.cpp``), for checking it without a card.
 
 Lanes: every tensor has a leading lane axis and every reduction runs over
-the non-lane axes, as ``vmap`` made them per lane.  The loop runs while
-any lane is unsolved; a lane that has stopped keeps its state bitwise
-(``torch.where``), as a vmapped ``while_loop`` keeps it.
+the non-lane axes, as ``vmap`` made them per lane.  The plain loop runs
+while any lane is unsolved; a lane that has stopped keeps its state
+bitwise (``torch.where``), as a vmapped ``while_loop`` keeps it.
 
 Robustness contract (what the trust-region SQP relies on): the returned
 step never increases the composite objective (best-iterate tracking with
 dx = 0 as the starting incumbent); every iterate update is NaN-guarded;
 pinned coordinates (lb == ub) are eliminated exactly by masking.
 
+K6 forms P dx from P's block-tridiagonal blocks: P must have nothing
+outside them (``check_p_band``; the SQP checks it once per solve).
+
 The dense-row path (``data.A_h`` set) is not ported yet.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
-from .. import resolve_device
+from .. import _native, resolve_device
 from ..utils.lanes import lane_max, lane_min, lane_select
 from .banded_rows import (
     bb_mv,
@@ -44,7 +59,7 @@ from .banded_rows import (
     bb_scale_cols,
     bb_scale_rows,
 )
-from .btridiag import blocks_from_dense, btd_factor, btd_solve
+from .btridiag import KERNEL_BLOCKS, blocks_from_dense, btd_factor, btd_solve
 from .prox_qp import ProxQPData
 from .qp import (
     QPSettings,
@@ -64,6 +79,10 @@ def _dot(a, b):
     return torch.sum(a * b, dim=-1)
 
 
+def _bmv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
 class _St(NamedTuple):
     dx: torch.Tensor
     h: torch.Tensor
@@ -81,52 +100,103 @@ class _St(NamedTuple):
     dx_best: torch.Tensor
 
 
-def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
-                 u0: Optional[torch.Tensor] = None,
-                 y0: Optional[torch.Tensor] = None,
-                 device="cuda", kernels: bool = True) -> StructQPSolution:
-    """Solve a batch of composite-form QPs (every tensor (lanes, ...)).
+class _Setup(NamedTuple):
+    """The scaled problem the loop solves, and what the teardown needs."""
 
-    (u0, y0) are accepted for interface parity; the IPM re-initializes
-    from a well-centered point.  ``device`` is where the data must lie
-    (raises if CUDA is asked for and absent); ``kernels=False`` runs the
-    plain PyTorch versions of K1-K3 on a CUDA device as well.
-    """
-    dev = resolve_device(device)
-    if data.q.device.type != dev.type:
-        raise ValueError(f"solve_ipm_qp: data on {data.q.device}, "
-                         f"device={dev}")
-    s = settings
+    data: ProxQPData
+    s: QPSettings
+    lanes: int
+    n: int
+    mh: int
+    ma: int
+    bsz: int
+    nb: int
+    tiny: float
+    dcap: float
+    lb: torch.Tensor  # IPM bounds: pinned coordinates at (-1, 1)
+    ub: torch.Tensor
+    BhS: tuple  # row-scaled, pinned columns masked
+    BaS: tuple
+    eh: torch.Tensor
+    ea: torch.Tensor
+    c: torch.Tensor  # (lanes,) cost scale
+    P: torch.Tensor
+    q: torch.Tensor
+    wh: torch.Tensor
+    wa: torch.Tensor
+    P_D: torch.Tensor
+    P_O: torch.Tensor
+    f_zero: torch.Tensor
+    n_pairs: int
+
+    def zeros_rows(self):
+        return self.q.new_zeros((self.lanes, 0))
+
+    def jh_mv(self, v):
+        return bb_mv(self.BhS, self.data.Gh, v, self.bsz)
+
+    def jh_rmv(self, w):
+        return bb_rmv(self.BhS, self.data.Gh, w, self.n, self.bsz)
+
+    def ja_mv(self, v):
+        return bb_mv(self.BaS, self.data.Ga, v, self.bsz)
+
+    def ja_rmv(self, w):
+        return bb_rmv(self.BaS, self.data.Ga, w, self.n, self.bsz)
+
+    def composite(self, dx):
+        """Exact composite objective of the ORIGINAL problem at clip(dx)."""
+        return composite_objective(self.data, dx, self.bsz)
+
+
+def composite_objective(data: ProxQPData, dx, bsz):
+    """The composite objective of ``data`` (the original, unscaled problem)
+    at clip(dx, lb, ub), per lane."""
+    d = torch.clamp(dx, min=data.lb, max=data.ub)
+    f = 0.5 * _dot(d, _bmv(data.P, d)) + _dot(data.q, d)
+    if data.e_h.shape[1]:
+        f = f + torch.sum(data.w_h * torch.clamp(
+            data.e_h + bb_mv(data.Bh, data.Gh, d, bsz), min=0.0), dim=-1)
+    if data.e_a.shape[1]:
+        f = f + torch.sum(data.w_a * torch.abs(
+            data.e_a + bb_mv(data.Ba, data.Ga, d, bsz)), dim=-1)
+    return f
+
+
+def check_p_band(P: torch.Tensor, b: int) -> None:
+    """Raise unless P (lanes, n, n) is block-tridiagonal at block size b:
+    K6 forms P v from the diagonal and sub-diagonal blocks alone."""
+    n = P.shape[-1]
+    blk = torch.arange(n, device=P.device) // b
+    off = (blk[:, None] - blk[None, :]).abs() > 1
+    if bool((P[:, off] != 0).any()):
+        raise ValueError(
+            f"solve_ipm_qp: P has entries outside the block tridiagonal at "
+            f"block size {b}; the banded IPM needs every cost row to couple "
+            "at most adjacent blocks (raise qp.kkt_block)")
+
+
+def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
     lanes, n = data.q.shape
     mh = data.e_h.shape[1]
     ma = data.e_a.shape[1]
     dt = data.q.dtype
     f64 = dt == torch.float64
-    tiny = 1e-30 if f64 else 1e-25
-
-    banded = data.A_h is None
     bsz = s.kkt_block
-    use_btd = bsz > 0 and n % bsz == 0 and n >= 2 * bsz
-    if not banded:
+    if data.A_h is not None:
         raise NotImplementedError(
             "solve_ipm_qp: the dense-row path is not ported yet; pass rows "
             "in the ops.banded_rows format (A_h = A_a = None)")
-    if not use_btd:
+    if not (bsz > 0 and n % bsz == 0 and n >= 2 * bsz):
         raise ValueError("banded rows require kkt_block to be set")
     nb = n // bsz
-
-    def zeros_rows():
-        return data.q.new_zeros((lanes, 0))
-
-    def bmv(M, v):
-        return (M @ v[..., None])[..., 0]
 
     # ---- exact elimination of pinned coordinates (lb == ub) ----
     width0 = data.ub - data.lb
     free = (width0 >= 1e-9).to(dt)  # 1 = optimized, 0 = pinned
     pin_val = torch.where(free > 0, torch.zeros_like(free),
                           0.5 * (data.lb + data.ub))
-    q0 = free * (data.q + bmv(data.P, pin_val))
+    q0 = free * (data.q + _bmv(data.P, pin_val))
     P0 = free[:, :, None] * data.P * free[:, None, :] \
         + torch.diag_embed(1.0 - free)
     lb = torch.where(free > 0, data.lb, torch.full_like(data.lb, -1.0))
@@ -143,19 +213,6 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         else data.q.new_ones((lanes, 0))
     BhS = bb_scale_rows(Bh0, 1.0 / rh) if mh else ()
     BaS = bb_scale_rows(Ba0, 1.0 / ra) if ma else ()
-
-    def jh_mv(v):
-        return bb_mv(BhS, data.Gh, v, bsz)
-
-    def jh_rmv(w):
-        return bb_rmv(BhS, data.Gh, w, n, bsz)
-
-    def ja_mv(v):
-        return bb_mv(BaS, data.Ga, v, bsz)
-
-    def ja_rmv(w):
-        return bb_rmv(BaS, data.Ga, w, n, bsz)
-
     eh = eh0 / rh if mh else eh0
     ea = ea0 / ra if ma else ea0
     # per-lane cost scale
@@ -167,26 +224,36 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
     q = q0 * c[:, None]
     wh = torch.clamp(data.w_h * rh * c[:, None], min=_WMIN)
     wa = torch.clamp(data.w_a * ra * c[:, None], min=_WMIN)
-
     P_D, P_O = blocks_from_dense(P, nb, bsz)
-    eye_b = torch.eye(bsz, dtype=dt, device=data.q.device)
+    return _Setup(
+        data=data, s=s, lanes=lanes, n=n, mh=mh, ma=ma, bsz=bsz, nb=nb,
+        tiny=1e-30 if f64 else 1e-25,
+        # barrier-diagonal cap (bounds the f32 Newton system's conditioning)
+        dcap=1e14 if f64 else 1e10,
+        lb=lb, ub=ub, BhS=BhS, BaS=BaS, eh=eh, ea=ea, c=c, P=P, q=q,
+        wh=wh, wa=wa, P_D=P_D, P_O=P_O,
+        f_zero=composite_objective(data, torch.zeros_like(data.q), bsz),
+        n_pairs=mh + mh + ma + ma + n + n)
 
-    def composite_unscaled(dx):
-        """Exact composite objective of the ORIGINAL problem at clip(dx)."""
-        d = torch.clamp(dx, min=data.lb, max=data.ub)
-        f = 0.5 * _dot(d, bmv(data.P, d)) + _dot(data.q, d)
-        if mh:
-            f = f + torch.sum(data.w_h * torch.clamp(
-                data.e_h + bb_mv(data.Bh, data.Gh, d, bsz), min=0.0), dim=-1)
-        if ma:
-            f = f + torch.sum(data.w_a * torch.abs(
-                data.e_a + bb_mv(data.Ba, data.Ga, d, bsz)), dim=-1)
-        return f
 
-    f_zero = composite_unscaled(torch.zeros_like(data.q))
+# --------------------------------------------------------------------------
+# the plain PyTorch loop (K6's oracle; the CPU path and kernels=False)
+# --------------------------------------------------------------------------
+
+
+def _loop_plain(su: _Setup) -> _St:
+    s, lanes, n, mh, ma = su.s, su.lanes, su.n, su.mh, su.ma
+    bsz, nb, tiny, dcap = su.bsz, su.nb, su.tiny, su.dcap
+    lb, ub, eh, ea, c = su.lb, su.ub, su.eh, su.ea, su.c
+    P, q, wh, wa = su.P, su.q, su.wh, su.wa
+    jh_mv, jh_rmv, ja_mv, ja_rmv = su.jh_mv, su.jh_rmv, su.ja_mv, su.ja_rmv
+    zeros_rows = su.zeros_rows
+    f64 = q.dtype == torch.float64
+    n_pairs = su.n_pairs
+    eye_b = torch.eye(bsz, dtype=q.dtype, device=q.device)
 
     # ---- initial interior point ----
-    dx = torch.clamp(torch.zeros_like(data.q), min=lb + 0.01 * (ub - lb),
+    dx = torch.clamp(torch.zeros_like(q), min=lb + 0.01 * (ub - lb),
                      max=ub - 0.01 * (ub - lb))
     g = jh_mv(dx) + eh if mh else zeros_rows()
     h = torch.clamp(g, min=0.0) + 1.0
@@ -194,11 +261,9 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
     p = torch.clamp(r0, min=0.0) + 1.0
     nn = p - r0  # >= 1, makes the equality exact at the start
     z1 = 0.5 * wh
-    y = data.q.new_zeros((lanes, ma))
-    z5 = torch.ones_like(data.q)
-    z6 = torch.ones_like(data.q)
-
-    n_pairs = mh + mh + ma + ma + n + n
+    y = q.new_zeros((lanes, ma))
+    z5 = torch.ones_like(q)
+    z6 = torch.ones_like(q)
 
     def mu_of(z1, s1, h, p, nn, y, dx, z5, z6):
         z2 = wh - z1
@@ -210,13 +275,10 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         return tot / n_pairs
 
     def residuals(dx, h, p, nn, z1, y, z5, z6):
-        rdx = bmv(P, dx) + q + (jh_rmv(z1) if mh else 0.0) \
+        rdx = _bmv(P, dx) + q + (jh_rmv(z1) if mh else 0.0) \
             + (ja_rmv(y) if ma else 0.0) - z5 + z6
         re = (ja_mv(dx) - p + nn + ea) if ma else zeros_rows()
         return rdx, re
-
-    # barrier-diagonal cap (bounds the f32 Newton system's conditioning)
-    dcap = 1e14 if f64 else 1e10
 
     def kkt_diags(st):
         z2 = wh - st.z1
@@ -250,7 +312,7 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         dh_diag = torch.clamp(st.z1 * z2 / denom_h, max=dcap) if mh else denom_h
         dbox = torch.clamp(st.z5 / (st.dx - lb) + st.z6 / (ub - st.dx),
                            max=dcap)
-        K_mv = (bmv(P, ddx) + (jh_rmv(dh_diag * jh_mv(ddx)) if mh else 0.0)
+        K_mv = (_bmv(P, ddx) + (jh_rmv(dh_diag * jh_mv(ddx)) if mh else 0.0)
                 + (ja_rmv(da * ja_mv(ddx)) if ma else 0.0) + dbox * ddx)
         ddx = ddx + kkt_solve(rhs - K_mv)
 
@@ -274,21 +336,21 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
 
     def make_kkt_solve(dh_d, da_d, dbox):
         """Factorize K = P + Jh' Dh Jh + Ja' Da Ja + Dbox; return solver."""
-        D = P_D + torch.diag_embed(dbox.reshape(lanes, nb, bsz))
-        O = P_O.clone()  # bb_quad accumulates in place
+        D = su.P_D + torch.diag_embed(dbox.reshape(lanes, nb, bsz))
+        O = su.P_O.clone()  # bb_quad accumulates in place
         if mh:
-            bb_quad(BhS, data.Gh, dh_d, D, O, kernels=kernels)
+            bb_quad(su.BhS, su.data.Gh, dh_d, D, O, kernels=False)
         if ma:
-            bb_quad(BaS, data.Ga, da_d, D, O, kernels=kernels)
+            bb_quad(su.BaS, su.data.Ga, da_d, D, O, kernels=False)
         # relative regularization, per lane
         diag_max = torch.amax(torch.diagonal(D, dim1=-2, dim2=-1), dim=(1, 2))
         reg = (1e-12 * diag_max + 1e-11) if f64 else (1e-7 * diag_max + 1e-8)
         LD, LM = btd_factor(D + reg[:, None, None, None] * eye_b, O,
-                            kernels=kernels)
+                            kernels=False)
 
         def kkt_solve(r):
             return btd_solve(LD, LM, r.reshape(lanes, nb, bsz),
-                             kernels=kernels).reshape(lanes, n)
+                             kernels=False).reshape(lanes, n)
 
         return kkt_solve
 
@@ -375,7 +437,7 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         z6_1 = lane_select(finite, z6_1, st.z6)
 
         # ---- best-iterate tracking by exact composite objective ----
-        f1 = composite_unscaled(dx1)
+        f1 = su.composite(dx1)
         better = finite & (f1 < st.f_best)
         f_best = torch.where(better, f1, st.f_best)
         dx_best = lane_select(better, dx1, st.dx_best)
@@ -387,7 +449,7 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         rp_u = lane_max(torch.abs(re1), 0.0)
         rd_u = torch.amax(torch.abs(rdx1), dim=-1) / c
         gap_u = (n_pairs * mu1) / c
-        d_scale = torch.maximum(torch.amax(torch.abs(bmv(P, dx1)), dim=-1),
+        d_scale = torch.maximum(torch.amax(torch.abs(_bmv(P, dx1)), dim=-1),
                                 torch.amax(torch.abs(q), dim=-1))
         if mh:
             d_scale = torch.maximum(
@@ -399,14 +461,14 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
         p_scale = (torch.maximum(torch.amax(torch.abs(ja_mv(dx1)), dim=-1),
                                  torch.amax(torch.abs(ea), dim=-1))
                    if ma else torch.zeros_like(c))
-        f_scale = torch.maximum(torch.abs(f1), torch.abs(f_zero)) + 1.0
+        f_scale = torch.maximum(torch.abs(f1), torch.abs(su.f_zero)) + 1.0
         eps_p = s.eps_abs + s.eps_rel * p_scale
         eps_d = s.eps_abs + s.eps_rel * d_scale
         eps_g = s.eps_abs * f_scale
         rp_r = rp_u / eps_p
         rd_r = torch.maximum(rd_u / eps_d, gap_u / eps_g)
         conv = finite & (rp_r <= 1.0) & (rd_r <= 1.0)
-        broke = torch.where(f_best < f_zero, QP_SOLVED_INACCURATE,
+        broke = torch.where(f_best < su.f_zero, QP_SOLVED_INACCURATE,
                             QP_MAX_ITER).to(torch.int32)
         status = torch.where(conv, torch.full_like(st.status, QP_SOLVED),
                              torch.where(finite, st.status, broke))
@@ -416,45 +478,197 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
     def running(st: _St):
         return (st.status == QP_UNSOLVED) & (st.it < s.max_ipm_iter)
 
-    big = torch.full((lanes,), float("inf"), dtype=dt, device=data.q.device)
+    big = torch.full((lanes,), float("inf"), dtype=q.dtype, device=q.device)
     st = _St(dx, h, p, nn, z1, y, z5, z6,
-             torch.zeros((lanes,), dtype=torch.int32, device=data.q.device),
+             torch.zeros((lanes,), dtype=torch.int32, device=q.device),
              torch.full((lanes,), QP_UNSOLVED, dtype=torch.int32,
-                        device=data.q.device),
-             big, big.clone(), f_zero, torch.zeros_like(data.q))
+                        device=q.device),
+             big, big.clone(), su.f_zero, torch.zeros_like(q))
     act = running(st)
     while bool(act.any()):
         new = body(st)
         st = _St(*[lane_select(act, a, b) for a, b in zip(new, st)])
         act = running(st)
-    fin_st = st
+    return st
 
+
+# --------------------------------------------------------------------------
+# K6 ipm_banded: the whole loop as one launch (csrc/ipm_banded.cu)
+# --------------------------------------------------------------------------
+
+_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "ngr_h", "ngr_a", "max_iter",
+         "pad")
+_PTRS = ("PD", "PO", "RD", "RO", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
+         "Sh", "Rh", "eh", "wh", "ehr", "whr",
+         "Sa", "Ra", "ea", "wa", "ear", "war",
+         "rowGh", "gtabh", "Gh", "rowGa", "gtaba", "Ga",
+         "dx", "z5", "z6", "dxb", "h", "z1", "p", "nn", "y", "rp", "rd", "fb",
+         "scr", "it", "status")
+
+
+class _K6Args(ctypes.Structure):
+    """ctypes mirror of ``ipm::Args`` (csrc/ipm.cuh)."""
+
+    _fields_ = ([(k, ctypes.c_int) for k in _INTS]
+                + [("eps_abs", ctypes.c_double), ("eps_rel", ctypes.c_double)]
+                + [(k, ctypes.c_void_p) for k in _PTRS])
+
+
+K6_SMEM_VECS, K6_SCRATCH_VECS, K6_RED = 17, 12, 14  # as csrc/ipm.cuh
+K6_MAX_SMEM = 232448  # bytes of shared memory a CTA can use on the H100
+
+
+def k6_smem_bytes(n: int, b: int, dtype) -> int:
+    """K6's shared memory per CTA: D, O and the n-vectors (ipm.cuh)."""
+    es = torch.finfo(dtype).bits // 8
+    nb = n // b
+    return es * ((2 * nb - 1) * b * b + K6_SMEM_VECS * n + K6_RED * 32)
+
+
+def _k6_rows(Bs, Gs, lanes, b, like):
+    """One row kind packed for K6: rows (lanes, m, 2b), each row's window
+    start (m,), the group table (ngr, 4) [first row, n_g, r, offset in G]
+    and the groups' window starts concatenated."""
+    dev = like.device
+    if not Bs:
+        z = torch.zeros(1, dtype=torch.int32, device=dev)
+        return like.new_zeros((lanes, 0, 2 * b)), z, z, z, 0
+    rows = torch.cat([B.reshape(lanes, -1, 2 * b) for B in Bs],
+                     1).contiguous()
+    tab, row0, g0 = [], 0, 0
+    for B in Bs:
+        ng, r = B.shape[1], B.shape[2]
+        tab.append([row0, ng, r, g0])
+        row0 += ng * r
+        g0 += ng
+    G = torch.cat([torch.as_tensor(g, device=dev).to(torch.int32)
+                   for g in Gs]).contiguous()
+    rowG = torch.repeat_interleave(
+        G, torch.as_tensor([t[2] for t in tab for _ in range(t[1])],
+                           device=dev)).to(torch.int32).contiguous()
+    return (rows, rowG, torch.as_tensor(tab, dtype=torch.int32, device=dev),
+            G, len(Bs))
+
+
+def _k6_call(su: _Setup, fn) -> _St:
+    """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
+    host build) and return its final state."""
+    d, lanes, n, b, mh, ma = su.data, su.lanes, su.n, su.bsz, su.mh, su.ma
+    dt = su.q.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"ipm_banded: dtype {dt} is not float32/float64")
+    if b not in KERNEL_BLOCKS:
+        raise ValueError(f"ipm_banded: block size {b} not in {KERNEL_BLOCKS} "
+                         "(the sizes K6 is instantiated for)")
+    need = k6_smem_bytes(n, b, dt)
+    if need > K6_MAX_SMEM:
+        raise ValueError(f"ipm_banded: n={n}, b={b} in {dt} needs {need} "
+                         f"bytes of shared memory per CTA (> {K6_MAX_SMEM})")
+    RD, RO = blocks_from_dense(d.P, su.nb, b)
+    Sh, rowGh, gtabh, Gh, ngr_h = _k6_rows(su.BhS, d.Gh, lanes, b, su.q)
+    Rh = _k6_rows(d.Bh, d.Gh, lanes, b, su.q)[0]
+    Sa, rowGa, gtaba, Ga, ngr_a = _k6_rows(su.BaS, d.Ga, lanes, b, su.q)
+    Ra = _k6_rows(d.Ba, d.Ga, lanes, b, su.q)[0]
+
+    def cont(t):
+        return t.to(dt).contiguous()
+
+    def empty(*shape):
+        return su.q.new_empty((lanes,) + shape)
+
+    out = dict(dx=empty(n), z5=empty(n), z6=empty(n), dxb=empty(n),
+               h=empty(mh), z1=empty(mh), p=empty(ma), nn=empty(ma),
+               y=empty(ma), rp=empty(), rd=empty(), fb=empty(),
+               scr=empty(K6_SCRATCH_VECS * (mh + ma)),
+               it=torch.empty((lanes,), dtype=torch.int32, device=su.q.device),
+               status=torch.empty((lanes,), dtype=torch.int32,
+                                  device=su.q.device))
+    tensors = dict(
+        PD=cont(su.P_D), PO=cont(su.P_O), RD=cont(RD), RO=cont(RO), q=cont(su.q),
+        qr=cont(d.q), lb=cont(su.lb), ub=cont(su.ub), lbr=cont(d.lb), ubr=cont(d.ub),
+        cf=cont(torch.stack([su.c, su.f_zero], -1)),
+        Sh=cont(Sh), Rh=cont(Rh), eh=cont(su.eh), wh=cont(su.wh), ehr=cont(d.e_h),
+        whr=cont(d.w_h), Sa=cont(Sa), Ra=cont(Ra), ea=cont(su.ea), wa=cont(su.wa),
+        ear=cont(d.e_a), war=cont(d.w_a), rowGh=rowGh, gtabh=gtabh, Gh=Gh,
+        rowGa=rowGa, gtaba=gtaba, Ga=Ga, **out)
+    for k, t in tensors.items():
+        if t.device != su.q.device:
+            raise TypeError(f"ipm_banded: {k} is on {t.device}, not "
+                            f"{su.q.device}")
+    args = _K6Args(lanes=lanes, n=n, b=b, nb=su.nb, mh=mh, ma=ma,
+                   ngr_h=ngr_h, ngr_a=ngr_a, max_iter=su.s.max_ipm_iter,
+                   pad=0, eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
+                   **{k: t.data_ptr() for k, t in tensors.items()})
+    fn(args)
+    return _St(out["dx"], out["h"], out["p"], out["nn"], out["z1"], out["y"],
+               out["z5"], out["z6"], out["it"], out["status"], out["rp"],
+               out["rd"], out["fb"], out["dxb"])
+
+
+def ipm_banded_cuda(su: _Setup) -> _St:
+    """K6 on the card: one launch runs every lane's whole loop."""
+    if not su.q.is_cuda:
+        raise ValueError("ipm_banded_cuda: tensors must be on a CUDA device")
+
+    def launch(args):
+        lib = _native.library("ipm_banded")
+        fn = lib.ipm_banded_f32 if su.q.dtype == torch.float32 \
+            else lib.ipm_banded_f64
+        stream = torch.cuda.current_stream(su.q.device).cuda_stream
+        _native.check("ipm_banded", fn(ctypes.byref(args), stream))
+        _native.LAUNCHES["ipm_banded"] += 1
+
+    return _k6_call(su, launch)
+
+
+def ipm_banded_host(su: _Setup) -> _St:
+    """K6's device code built for the CPU (``csrc/ipm_host.cpp``), on CPU
+    tensors: for checking it without a card."""
+    if su.q.is_cuda:
+        raise ValueError("ipm_banded_host: tensors must be on the CPU")
+
+    def launch(args):
+        lib = _native.host_library("ipm_host")
+        fn = lib.ipm_banded_f32 if su.q.dtype == torch.float32 \
+            else lib.ipm_banded_f64
+        _native.check("ipm_banded", fn(ctypes.byref(args), None))
+
+    return _k6_call(su, launch)
+
+
+# --------------------------------------------------------------------------
+# entry points
+# --------------------------------------------------------------------------
+
+
+def _finish(su: _Setup, fin_st: _St) -> StructQPSolution:
+    data, c = su.data, su.c
     # iteration cap without residual convergence: the incumbent is still a
     # descent (or zero) step; label it by whether it made progress
     status = torch.where(
         fin_st.status == QP_UNSOLVED,
-        torch.where(fin_st.f_best < f_zero, QP_SOLVED_INACCURATE,
+        torch.where(fin_st.f_best < su.f_zero, QP_SOLVED_INACCURATE,
                     QP_MAX_ITER).to(torch.int32),
         fin_st.status)
     # a converged final iterate may still be (marginally) worse than the
     # incumbent in composite value — return the best
-    f_fin = composite_unscaled(fin_st.dx)
+    f_fin = su.composite(fin_st.dx)
     use_fin = (status == QP_SOLVED) & (f_fin <= fin_st.f_best)
     dx_out = torch.clamp(lane_select(use_fin, fin_st.dx, fin_st.dx_best),
                          min=data.lb, max=data.ub)
 
     # warm-start slacks recomputed from dx_out (one consistent iterate)
-    g_out = jh_mv(dx_out) + eh if mh else fin_st.h
+    g_out = su.jh_mv(dx_out) + su.eh if su.mh else fin_st.h
     h_out = torch.clamp(g_out, min=0.0)
-    r_out = ja_mv(dx_out) + ea if ma else zeros_rows()
+    r_out = su.ja_mv(dx_out) + su.ea if su.ma else su.zeros_rows()
     p_out = torch.clamp(r_out, min=0.0)
     nn_out = torch.clamp(-r_out, min=0.0)
     u_out = torch.cat([dx_out, h_out, p_out, nn_out], dim=-1)
     # duals in the ADMM row layout (hinge, abs, box, slack bounds)
     cc = c[:, None]
-    z2f = wh - fin_st.z1
-    z3f = wa - fin_st.y
-    z4f = wa + fin_st.y
+    z2f = su.wh - fin_st.z1
+    z3f = su.wa - fin_st.y
+    z4f = su.wa + fin_st.y
     y_out = torch.cat([
         fin_st.z1 / cc,
         fin_st.y / cc,
@@ -465,3 +679,31 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
     ], dim=-1)
     return StructQPSolution(dx_out, u_out, y_out, status, fin_st.it,
                             fin_st.rp, fin_st.rd)
+
+
+def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
+                 u0: Optional[torch.Tensor] = None,
+                 y0: Optional[torch.Tensor] = None,
+                 device="cuda", kernels: bool = True) -> StructQPSolution:
+    """Solve a batch of composite-form QPs (every tensor (lanes, ...)).
+
+    (u0, y0) are accepted for interface parity; the IPM re-initializes
+    from a well-centered point.  ``device`` is where the data must lie
+    (raises if CUDA is asked for and absent).  On a CUDA device the loop is
+    one K6 launch; ``kernels=False`` runs the plain PyTorch loop there.
+    """
+    dev = resolve_device(device)
+    if data.q.device.type != dev.type:
+        raise ValueError(f"solve_ipm_qp: data on {data.q.device}, "
+                         f"device={dev}")
+    su = _setup(data, settings)
+    run = ipm_banded_cuda if (data.q.is_cuda and kernels) else _loop_plain
+    return _finish(su, run(su))
+
+
+def solve_ipm_qp_host(data: ProxQPData,
+                      settings: QPSettings = QPSettings()) -> StructQPSolution:
+    """``solve_ipm_qp`` with the loop run by K6's host build, on CPU
+    tensors (the set-up and teardown are the same)."""
+    su = _setup(data, settings)
+    return _finish(su, ipm_banded_host(su))
