@@ -104,8 +104,8 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
     qp_iters = []
     solve_qp = sqp.solve_ipm_qp
 
-    def counted_qp(d, s, device, kernels):
-        sol = solve_qp(d, s, device=device, kernels=kernels)
+    def counted_qp(*a, **k):
+        sol = solve_qp(*a, **k)
         qp_iters.append(sol.iters)
         return sol
 

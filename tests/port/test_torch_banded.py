@@ -180,4 +180,4 @@ def test_cuda_wrappers_reject_cpu_tensors():
                       ub=torch.ones((1, n), dtype=torch.float64))
     su = tipm._setup(data, QPSettings(solver="ipm", kkt_block=7))
     with pytest.raises(ValueError, match="CUDA"):
-        tipm.ipm_banded_cuda(su)
+        tipm.ipm_banded_cuda(su, tipm.band_plan(data, 7))

@@ -26,7 +26,8 @@ from trajopt_tpu.ops.ipm_qp import solve_ipm_qp as j_solve
 from trajopt_tpu.ops.prox_qp import ProxQPData as JData
 from trajopt_tpu.ops.qp import QPSettings as JSettings
 from trajopt_tpu_torch.ops.banded_rows import regroup, step_window
-from trajopt_tpu_torch.ops.ipm_qp import check_p_band, solve_ipm_qp_host
+from trajopt_tpu_torch.ops.ipm_qp import (band_plan, check_p_band,
+                                          solve_ipm_qp_host)
 from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp as t_solve
 from trajopt_tpu_torch.ops.prox_qp import ProxQPData as TData
 from trajopt_tpu_torch.ops.qp import QPSettings as TSettings
@@ -200,8 +201,9 @@ def test_k6_host_through_the_sqp(monkeypatch):
                                             dtype=torch.float64, device="cpu")
     params = bench_params()
     ref = sqp.solve_batch_compact(spec, data, params, device="cpu")
-    monkeypatch.setattr(sqp, "solve_ipm_qp",
-                        lambda d, s, device, kernels: solve_ipm_qp_host(d, s))
+    monkeypatch.setattr(
+        sqp, "solve_ipm_qp",
+        lambda d, s, device, kernels, plan: solve_ipm_qp_host(d, s, plan))
     got = sqp.solve_batch_compact(spec, data, params, device="cpu")
     np.testing.assert_array_equal(got.status.numpy(), ref.status.numpy())
     np.testing.assert_array_equal(got.n_qp_solves.numpy(),
@@ -221,3 +223,23 @@ def test_p_band_check():
     with pytest.raises(ValueError, match="block tridiagonal"):
         check_p_band(P, B_SZ)
     check_p_band(P, 3 * B_SZ)  # a coarser block holds it
+
+
+def test_k6_plan_checks_the_band_and_fits_its_qps():
+    """K6's entry point checks P's band itself when given no plan; a plan
+    built once serves every QP of the same structure (the SQP's use) and
+    refuses one of another structure."""
+    rng = np.random.default_rng(5)
+    arrays, Bh, Gh, Ba, Ga = _problem(rng, 2, True)
+    st = TSettings(**_settings(False))
+    plan = band_plan(_tdata(arrays, Bh, Gh, Ba, Ga), B_SZ)
+    arrays2 = dict(arrays, q=rng.normal(size=arrays["q"].shape))
+    tdata2 = _tdata(arrays2, Bh, Gh, Ba, Ga)
+    _assert_same_run(solve_ipm_qp_host(tdata2, st, plan),
+                     solve_ipm_qp_host(tdata2, st), 0.0)
+    off = dict(arrays, P=arrays["P"].copy())
+    off["P"][0, 0, 2 * B_SZ] = off["P"][0, 2 * B_SZ, 0] = 0.5
+    with pytest.raises(ValueError, match="block tridiagonal"):
+        solve_ipm_qp_host(_tdata(off, Bh, Gh, Ba, Ga), st)
+    with pytest.raises(ValueError, match="plan was built"):
+        solve_ipm_qp_host(_tdata(*_problem(rng, 2, False)), st, plan)

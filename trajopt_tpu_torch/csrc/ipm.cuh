@@ -32,7 +32,7 @@
 // tree), no atomics; min, max and clamp propagate NaN as torch does.
 //
 // Memory per lane: D, O (factored in place) and the n-vectors in shared
-// memory (ipm_smem_elems); the rows (scaled for the Newton system, raw for
+// memory (smem_elems); the rows (scaled for the Newton system, raw for
 // the composite objective) and the m-vectors in device memory (the
 // scratch holds 12 vectors per row kind).
 #pragma once

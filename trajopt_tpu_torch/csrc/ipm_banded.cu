@@ -20,13 +20,14 @@
 // rows in float32, held in the 50 MB L2).  Built with -fmad=false, as the
 // plain version computes every multiply and add apart.
 //
-// Bound on the H100: per IPM iteration and lane it reads the rows ~10
-// times (the matvecs of kkt_diags, the residuals, two Newton solves with
-// refinement, the termination test) and does ~2 flops per row entry per
-// read, plus the O(T b^3) factor; that is bytes from L2 or HBM, not
-// flops.  The real limit is the chain: per iteration, the factor and four
-// solves are sequential over T block steps of b dependent pivots each, on
-// one warp.
+// Bound on the H100 (chip_smoke's k6_work): the bytes the function must
+// move, each input read once (~0.26 MB per lane at the flagship's shape in
+// float32), take less time than its least arithmetic (~1.1e6 flops per IPM
+// iteration and lane, mostly the rows' passes and their share of the
+// symmetric assembly), so operations bound it.  The kernel's own limit is
+// neither: it re-reads the rows from L2 ~10 times per iteration, and per
+// iteration the factor and four solves are sequential over T block steps
+// of b dependent pivots each, on one warp.
 
 #include <cuda_runtime.h>
 

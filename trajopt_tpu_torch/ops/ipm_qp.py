@@ -37,7 +37,9 @@ dx = 0 as the starting incumbent); every iterate update is NaN-guarded;
 pinned coordinates (lb == ub) are eliminated exactly by masking.
 
 K6 forms P dx from P's block-tridiagonal blocks: P must have nothing
-outside them (``check_p_band``; the SQP checks it once per solve).
+outside them.  ``band_plan`` checks that and builds K6's row tables; the
+SQP builds one plan per solve and hands it to every QP, a direct caller
+that passes none gets one built (and P checked) per call.
 
 The dense-row path (``data.A_h`` set) is not ported yet.
 """
@@ -514,43 +516,62 @@ class _K6Args(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _PTRS])
 
 
-K6_SMEM_VECS, K6_SCRATCH_VECS, K6_RED = 17, 12, 14  # as csrc/ipm.cuh
-K6_MAX_SMEM = 232448  # bytes of shared memory a CTA can use on the H100
+K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
 
 
-def k6_smem_bytes(n: int, b: int, dtype) -> int:
-    """K6's shared memory per CTA: D, O and the n-vectors (ipm.cuh)."""
-    es = torch.finfo(dtype).bits // 8
-    nb = n // b
-    return es * ((2 * nb - 1) * b * b + K6_SMEM_VECS * n + K6_RED * 32)
+class _RowTables(NamedTuple):
+    """One row kind's int tables for K6, shared by the lanes."""
+
+    shapes: tuple  # (n_g, r) of each row group
+    rowG: torch.Tensor  # (m,) window start block of each row
+    gtab: torch.Tensor  # (ngr, 4): first row, n_g, r, offset in G
+    G: torch.Tensor  # the groups' window starts, concatenated
 
 
-def _k6_rows(Bs, Gs, lanes, b, like):
-    """One row kind packed for K6: rows (lanes, m, 2b), each row's window
-    start (m,), the group table (ngr, 4) [first row, n_g, r, offset in G]
-    and the groups' window starts concatenated."""
-    dev = like.device
+class BandPlan(NamedTuple):
+    """What K6 needs of the problem's structure, fixed across the QPs of
+    one SQP solve: the block size, at which P was checked block-tridiagonal
+    (the cost rows' step coupling), and each row kind's tables (the window
+    starts are the terms' stencils)."""
+
+    b: int
+    h: _RowTables
+    a: _RowTables
+
+
+def _group_shapes(Bs) -> tuple:
+    return tuple((B.shape[1], B.shape[2]) for B in Bs)
+
+
+def _row_tables(Bs, Gs, dev) -> _RowTables:
+    shapes = _group_shapes(Bs)
     if not Bs:
         z = torch.zeros(1, dtype=torch.int32, device=dev)
-        return like.new_zeros((lanes, 0, 2 * b)), z, z, z, 0
-    rows = torch.cat([B.reshape(lanes, -1, 2 * b) for B in Bs],
-                     1).contiguous()
+        return _RowTables(shapes, z, z, z)
     tab, row0, g0 = [], 0, 0
-    for B in Bs:
-        ng, r = B.shape[1], B.shape[2]
+    for ng, r in shapes:
         tab.append([row0, ng, r, g0])
         row0 += ng * r
         g0 += ng
-    G = torch.cat([torch.as_tensor(g, device=dev).to(torch.int32)
-                   for g in Gs]).contiguous()
-    rowG = torch.repeat_interleave(
-        G, torch.as_tensor([t[2] for t in tab for _ in range(t[1])],
-                           device=dev)).to(torch.int32).contiguous()
-    return (rows, rowG, torch.as_tensor(tab, dtype=torch.int32, device=dev),
-            G, len(Bs))
+    Gs = [torch.as_tensor(g, device=dev).to(torch.int32) for g in Gs]
+    rowG = torch.cat([g[:, None].expand(-1, r).reshape(-1)
+                      for g, (_, r) in zip(Gs, shapes)])
+    return _RowTables(shapes, rowG.contiguous(),
+                      torch.tensor(tab, dtype=torch.int32, device=dev),
+                      torch.cat(Gs).contiguous())
 
 
-def _k6_call(su: _Setup, fn) -> _St:
+def band_plan(data: ProxQPData, b: int) -> BandPlan:
+    """K6's plan for QPs shaped as ``data``: raises unless P is
+    block-tridiagonal at block size b (``check_p_band``), and builds the
+    row tables once."""
+    check_p_band(data.P, b)
+    dev = data.q.device
+    return BandPlan(b, _row_tables(data.Bh, data.Gh, dev),
+                    _row_tables(data.Ba, data.Ga, dev))
+
+
+def _k6_call(su: _Setup, plan: BandPlan, fn) -> _St:
     """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
     host build) and return its final state."""
     d, lanes, n, b, mh, ma = su.data, su.lanes, su.n, su.bsz, su.mh, su.ma
@@ -560,15 +581,17 @@ def _k6_call(su: _Setup, fn) -> _St:
     if b not in KERNEL_BLOCKS:
         raise ValueError(f"ipm_banded: block size {b} not in {KERNEL_BLOCKS} "
                          "(the sizes K6 is instantiated for)")
-    need = k6_smem_bytes(n, b, dt)
-    if need > K6_MAX_SMEM:
-        raise ValueError(f"ipm_banded: n={n}, b={b} in {dt} needs {need} "
-                         f"bytes of shared memory per CTA (> {K6_MAX_SMEM})")
+    if (plan.b, plan.h.shapes, plan.a.shapes) \
+            != (b, _group_shapes(d.Bh), _group_shapes(d.Ba)):
+        raise ValueError("ipm_banded: the plan was built for another block "
+                         "size or other row groups")
     RD, RO = blocks_from_dense(d.P, su.nb, b)
-    Sh, rowGh, gtabh, Gh, ngr_h = _k6_rows(su.BhS, d.Gh, lanes, b, su.q)
-    Rh = _k6_rows(d.Bh, d.Gh, lanes, b, su.q)[0]
-    Sa, rowGa, gtaba, Ga, ngr_a = _k6_rows(su.BaS, d.Ga, lanes, b, su.q)
-    Ra = _k6_rows(d.Ba, d.Ga, lanes, b, su.q)[0]
+
+    def rows(Bs):
+        """A kind's row groups packed as (lanes, m, 2b)."""
+        if not Bs:
+            return su.q.new_zeros((lanes, 0, 2 * b))
+        return torch.cat([B.reshape(lanes, -1, 2 * b) for B in Bs], 1)
 
     def cont(t):
         return t.to(dt).contiguous()
@@ -587,17 +610,20 @@ def _k6_call(su: _Setup, fn) -> _St:
         PD=cont(su.P_D), PO=cont(su.P_O), RD=cont(RD), RO=cont(RO), q=cont(su.q),
         qr=cont(d.q), lb=cont(su.lb), ub=cont(su.ub), lbr=cont(d.lb), ubr=cont(d.ub),
         cf=cont(torch.stack([su.c, su.f_zero], -1)),
-        Sh=cont(Sh), Rh=cont(Rh), eh=cont(su.eh), wh=cont(su.wh), ehr=cont(d.e_h),
-        whr=cont(d.w_h), Sa=cont(Sa), Ra=cont(Ra), ea=cont(su.ea), wa=cont(su.wa),
-        ear=cont(d.e_a), war=cont(d.w_a), rowGh=rowGh, gtabh=gtabh, Gh=Gh,
-        rowGa=rowGa, gtaba=gtaba, Ga=Ga, **out)
+        Sh=cont(rows(su.BhS)), Rh=cont(rows(d.Bh)), eh=cont(su.eh),
+        wh=cont(su.wh), ehr=cont(d.e_h), whr=cont(d.w_h),
+        Sa=cont(rows(su.BaS)), Ra=cont(rows(d.Ba)), ea=cont(su.ea),
+        wa=cont(su.wa), ear=cont(d.e_a), war=cont(d.w_a),
+        rowGh=plan.h.rowG, gtabh=plan.h.gtab, Gh=plan.h.G,
+        rowGa=plan.a.rowG, gtaba=plan.a.gtab, Ga=plan.a.G, **out)
     for k, t in tensors.items():
         if t.device != su.q.device:
             raise TypeError(f"ipm_banded: {k} is on {t.device}, not "
                             f"{su.q.device}")
     args = _K6Args(lanes=lanes, n=n, b=b, nb=su.nb, mh=mh, ma=ma,
-                   ngr_h=ngr_h, ngr_a=ngr_a, max_iter=su.s.max_ipm_iter,
-                   pad=0, eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
+                   ngr_h=len(plan.h.shapes), ngr_a=len(plan.a.shapes),
+                   max_iter=su.s.max_ipm_iter, pad=0,
+                   eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
                    **{k: t.data_ptr() for k, t in tensors.items()})
     fn(args)
     return _St(out["dx"], out["h"], out["p"], out["nn"], out["z1"], out["y"],
@@ -605,7 +631,7 @@ def _k6_call(su: _Setup, fn) -> _St:
                out["rd"], out["fb"], out["dxb"])
 
 
-def ipm_banded_cuda(su: _Setup) -> _St:
+def ipm_banded_cuda(su: _Setup, plan: BandPlan) -> _St:
     """K6 on the card: one launch runs every lane's whole loop."""
     if not su.q.is_cuda:
         raise ValueError("ipm_banded_cuda: tensors must be on a CUDA device")
@@ -615,13 +641,19 @@ def ipm_banded_cuda(su: _Setup) -> _St:
         fn = lib.ipm_banded_f32 if su.q.dtype == torch.float32 \
             else lib.ipm_banded_f64
         stream = torch.cuda.current_stream(su.q.device).cuda_stream
-        _native.check("ipm_banded", fn(ctypes.byref(args), stream))
+        code = fn(ctypes.byref(args), stream)
+        if code == -1:  # the block size is checked: shared memory
+            raise ValueError(
+                f"ipm_banded: n={su.n}, b={su.bsz} in {su.q.dtype} needs "
+                "more shared memory per CTA than the card offers "
+                "(ipm::smem_elems in csrc/ipm.cuh)")
+        _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
 
-    return _k6_call(su, launch)
+    return _k6_call(su, plan, launch)
 
 
-def ipm_banded_host(su: _Setup) -> _St:
+def ipm_banded_host(su: _Setup, plan: BandPlan) -> _St:
     """K6's device code built for the CPU (``csrc/ipm_host.cpp``), on CPU
     tensors: for checking it without a card."""
     if su.q.is_cuda:
@@ -633,7 +665,7 @@ def ipm_banded_host(su: _Setup) -> _St:
             else lib.ipm_banded_f64
         _native.check("ipm_banded", fn(ctypes.byref(args), None))
 
-    return _k6_call(su, launch)
+    return _k6_call(su, plan, launch)
 
 
 # --------------------------------------------------------------------------
@@ -684,26 +716,34 @@ def _finish(su: _Setup, fin_st: _St) -> StructQPSolution:
 def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
                  u0: Optional[torch.Tensor] = None,
                  y0: Optional[torch.Tensor] = None,
-                 device="cuda", kernels: bool = True) -> StructQPSolution:
+                 device="cuda", kernels: bool = True,
+                 plan: Optional[BandPlan] = None) -> StructQPSolution:
     """Solve a batch of composite-form QPs (every tensor (lanes, ...)).
 
     (u0, y0) are accepted for interface parity; the IPM re-initializes
     from a well-centered point.  ``device`` is where the data must lie
     (raises if CUDA is asked for and absent).  On a CUDA device the loop is
     one K6 launch; ``kernels=False`` runs the plain PyTorch loop there.
+    ``plan`` is K6's ``band_plan`` for QPs of this structure (built, and P's
+    band checked, here when None).
     """
     dev = resolve_device(device)
     if data.q.device.type != dev.type:
         raise ValueError(f"solve_ipm_qp: data on {data.q.device}, "
                          f"device={dev}")
     su = _setup(data, settings)
-    run = ipm_banded_cuda if (data.q.is_cuda and kernels) else _loop_plain
-    return _finish(su, run(su))
+    if not (data.q.is_cuda and kernels):
+        return _finish(su, _loop_plain(su))
+    if plan is None:
+        plan = band_plan(data, su.bsz)
+    return _finish(su, ipm_banded_cuda(su, plan))
 
 
-def solve_ipm_qp_host(data: ProxQPData,
-                      settings: QPSettings = QPSettings()) -> StructQPSolution:
+def solve_ipm_qp_host(data: ProxQPData, settings: QPSettings = QPSettings(),
+                      plan: Optional[BandPlan] = None) -> StructQPSolution:
     """``solve_ipm_qp`` with the loop run by K6's host build, on CPU
     tensors (the set-up and teardown are the same)."""
     su = _setup(data, settings)
-    return _finish(su, ipm_banded_host(su))
+    if plan is None:
+        plan = band_plan(data, su.bsz)
+    return _finish(su, ipm_banded_host(su, plan))

@@ -27,7 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..ops.banded_rows import bb_mv, regroup
-from ..ops.ipm_qp import check_p_band, solve_ipm_qp
+from ..ops.ipm_qp import band_plan, solve_ipm_qp
 from ..ops.prox_qp import ProxQPData
 from ..ops.qp import resolve_solver
 from ..terms.base import TermKind
@@ -444,22 +444,22 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
     def cond(st: _State):
         return (st.status == RUNNING) & (st.n_qp < p.max_total_qp_solves)
 
-    p_band_checked = False
+    qp_plan = None
 
     def body(st: _State) -> _State:
-        nonlocal p_band_checked
+        nonlocal qp_plan
         cvx = _convexify(plan, data, st.x, banded_rows=banded_rows,
                          band_c=band_c, kernels=kernels)
         w_h, w_a = _merit_row_weights(plan, cvx, st.merit)
         qp_data = _assemble_qp(plan, cvx, w_h, w_a, st.x, st.box,
                                data.lb, data.ub)
-        if not p_band_checked:
-            # the IPM forms P dx from P's block-tridiagonal blocks; the
-            # cost rows' step coupling is the same at every QP
-            check_p_band(qp_data.P, p.qp.kkt_block)
-            p_band_checked = True
+        if qp_plan is None:
+            # K6's plan (P's band checked, the row tables) holds for every
+            # QP of the solve: the rows' step coupling and windows are the
+            # terms' own
+            qp_plan = band_plan(qp_data, p.qp.kkt_block)
         sol = solve_ipm_qp(qp_data, p.qp, device=st.x.device,
-                           kernels=kernels)
+                           kernels=kernels, plan=qp_plan)
         dx = sol.x
 
         new_x = st.x + dx
