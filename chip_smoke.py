@@ -7,7 +7,10 @@ Every line printed is one JSON object.  Phases, in order:
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every kernel of ``trajopt_tpu_torch/csrc``
-   (one nvcc per source, all at once);
+   (one nvcc per source, all at once); the registers and local memory of
+   every K4, K4v and K5 instantiation (``cudaFuncGetAttributes``), which
+   the kernel summary repeats; the float32 K4 and K4v without the CONVEX
+   routes must use no local memory;
 2. each kernel held against its plain PyTorch version on the same inputs
    (tolerances below), in float32 and float64, then its time, its plain
    version's time, one PyTorch library call's time where one computes the
@@ -338,6 +341,7 @@ def main():
     from trajopt_tpu_torch.terms.collision import (CastDistancePre,
                                                    cast_sweep_distances,
                                                    convex_route,
+                                                   kernel_attributes,
                                                    trajectory_in_collision)
 
     dev = torch.device("cuda")
@@ -355,6 +359,14 @@ def main():
                            if "registers" in ln]
     emit({"phase": "setup", "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": build_s, "ptxas": ptxas})
+    # registers and local memory of every K4 / K4v / K5 instantiation
+    # (cudaFuncGetAttributes)
+    cast_attrs = kernel_attributes()
+    emit({"phase": "cast_attributes", "attributes": cast_attrs, "card": smi})
+    # the float32 K4 and K4v without the CONVEX routes keep every value in
+    # registers and shared memory (the launch bounds in cast_kernel.cuh)
+    assert all(cast_attrs[k]["local_bytes"] == 0
+               for k in ("cast_seg_f32", "cast_seg_value_f32")), cast_attrs
 
     def sync():
         torch.cuda.synchronize()
@@ -1378,10 +1390,17 @@ def main():
         "convex_fw": "trajopt_tpu/collision/geometry.py:211",
     }
     source = {k: f"trajopt_tpu_torch/csrc/{k}.cu" for k in replaces}
+    # the cast kernels: instantiated in cast_seg.cu (cast_cvx.cu with the
+    # CONVEX routes), launched by cast_kernel.cuh, their block's body in
+    # cast_block.cuh (the team routines of the CONVEX routes too) over
+    # collision.cuh
+    cast_sources = [f"trajopt_tpu_torch/csrc/{f}" for f in (
+        "cast_seg.cu", "cast_cvx.cu", "cast_kernel.cuh", "cast_block.cuh",
+        "collision.cuh")]
     for k in ("cast_seg", "cast_seg_value", "cast_sweep"):
         source[k] = "trajopt_tpu_torch/csrc/cast_seg.cu"
     for k in ("convex_feature", "convex_fw"):
-        source[k] = "trajopt_tpu_torch/csrc/collision.cuh"
+        source[k] = "trajopt_tpu_torch/csrc/cast_block.cuh"
     launches = {k: launches_f[k] for k in PATH_KERNELS + QP_KERNELS}
     launches.update(convex_feature=launches_p["convex_feature"],
                     convex_fw=launches_p["convex_fw"])
@@ -1446,6 +1465,12 @@ def main():
                    "tie_rows": max(e["tie_rows"] for e in v),
                    "launches_are": "K4 / K4v / K5 launches that ran it",
                    "shapes_rows_n1_n2": timing[k]["shapes"]}
+    for k in ("cast_seg", "cast_seg_value", "cast_sweep"):
+        errs[k].update(sources=cast_sources, attributes={
+            f"{k}{sfx}{d}": cast_attrs[f"{k}{sfx}{d}"]
+            for sfx in ("_", "_cvx_") for d in ("f32", "f64")})
+    for k in ("convex_feature", "convex_fw"):
+        errs[k]["sources"] = cast_sources
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],

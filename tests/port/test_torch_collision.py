@@ -264,11 +264,20 @@ def test_cast_collision_term(worlds, traj, jax_aux, is_constraint):
                                        atol=TOL)
 
 
-@pytest.mark.parametrize("n_sub", [2, 3])
-def test_cast_kernels_host_build(worlds, traj, n_sub):
-    """K4, K4v and K5's device code built for the host against the plain
-    versions: D and the n_sub=16 gate to 1e-12, Ja / Jb to 1e-10 on the
-    rows without a tied witness decision."""
+# the host build's team sizes: 1 (one thread is the whole block) and the
+# card's layout (128 threads in warps); the team-1 cases keep their ids
+HOST_TEAMS = [pytest.param(2, 1, id="2"), pytest.param(3, 1, id="3"),
+              pytest.param(2, TC.CAST_TEAM, id="2-team32"),
+              pytest.param(3, TC.CAST_TEAM, id="3-team32")]
+
+
+@pytest.mark.parametrize("n_sub,team", HOST_TEAMS)
+def test_cast_kernels_host_build(worlds, traj, n_sub, team):
+    """K4, K4v and K5 built for the host (their block body, played at team
+    size ``team``) against the plain versions: D and the n_sub=16 gate to
+    1e-12, Ja / Jb to 1e-10 on the rows without a tied witness decision;
+    at team size 32 also bitwise equal to team size 1 and to each kernel's
+    layout on the card."""
     if not (os.environ.get("CXX") or shutil.which("c++")):
         pytest.skip("no C++ compiler for the host build of the cast kernels")
     _, tw = worlds
@@ -276,22 +285,38 @@ def test_cast_kernels_host_build(worlds, traj, n_sub):
     tp = TC.CastDistancePre(tw, T, n_sub=n_sub)
     D, (Ja, Jb) = tp.value_jac(x)
     args = (T, 7, 0, T - 1, n_sub)
-    Dk, Jak, Jbk = TC.cast_host("cast_seg", tw, x, *args)
+    Dk, Jak, Jbk = TC.cast_host("cast_seg", tw, x, *args, team=team)
     np.testing.assert_allclose(Dk.numpy(), D.numpy(), rtol=0, atol=TOL)
-    Dv = TC.cast_host("cast_seg_value", tw, x, *args)[0]
+    Dv = TC.cast_host("cast_seg_value", tw, x, *args, team=team)[0]
     np.testing.assert_allclose(Dv.numpy(), D.numpy(), rtol=0, atol=TOL)
     X = x.reshape(LANES, T, 7)
     tie = tw.cast_ties(X[:, :-1], X[:, 1:], n_sub).reshape(
         LANES, T - 1, -1).numpy()
-    print(f"host build, n_sub={n_sub}: {int(tie.sum())} of {tie.size} tie "
-          "rows skipped")
+    print(f"host build, n_sub={n_sub}, team {team}: {int(tie.sum())} of "
+          f"{tie.size} tie rows skipped")
     for got, ref in ((Jak, Ja), (Jbk, Jb)):
         np.testing.assert_allclose(got.numpy()[~tie], ref.numpy()[~tie],
                                    rtol=0, atol=JTOL)
-    Ds = TC.cast_host("cast_sweep", tw, x, T, 7, 0, T - 1, 16)[0]
+    gate = (T, 7, 0, T - 1, 16)
+    Ds = TC.cast_host("cast_sweep", tw, x, *gate, team=team)[0]
     np.testing.assert_allclose(Ds.numpy(),
                                TC.cast_sweep_distances(tw, X, 16).numpy(),
                                rtol=0, atol=TOL)
+    if team != 1:  # how the block divides the work changes no bit: team
+        # size 1, warps, and each kernel's layout on the card
+        blocks = {k: TC.CAST_BLOCKS[k, False] for k in ("cast_seg",
+                                                     "cast_seg_value",
+                                                     "cast_sweep")}
+        for layout in ({k: (128, 1) for k in blocks}, blocks):
+            (thr, tm), (thr_v, tm_v), (thr_s, tm_s) = layout.values()
+            other = TC.cast_host("cast_seg", tw, x, *args, team=tm,
+                                 threads=thr) \
+                + TC.cast_host("cast_seg_value", tw, x, *args, team=tm_v,
+                               threads=thr_v)[:1] \
+                + TC.cast_host("cast_sweep", tw, x, *gate, team=tm_s,
+                               threads=thr_s)[:1]
+            for a, b in zip((Dk, Jak, Jbk, Dv, Ds), other):
+                assert torch.equal(a, b)
 
 
 def test_collision_wrappers_launch_or_raise(worlds):

@@ -238,51 +238,115 @@ def test_transfer_gate(scenes, traj):
     assert (got < 0).all()  # the straight transfer passes through the wall
 
 
-@pytest.mark.parametrize("n_sub", [2, 3])
-def test_cast_kernels_host_build(scenes, traj, n_sub):
-    """K4, K4v and K5's CVX instantiations built for the host against the
-    plain versions on the transfer world: D and the n_sub=16 gate to
-    1e-12 on every row, Ja / Jb to 1e-10 on the untied rows."""
+# the host build's team sizes: 1 (one thread is the whole block) and the
+# card's layout (128 threads in warps); the team-1 cases keep their ids
+HOST_TEAMS = [pytest.param(2, 1, id="2"), pytest.param(3, 1, id="3"),
+              pytest.param(2, TC.CAST_TEAM, id="2-team32"),
+              pytest.param(3, TC.CAST_TEAM, id="3-team32")]
+
+
+@pytest.mark.parametrize("n_sub,team", HOST_TEAMS)
+def test_cast_kernels_host_build(scenes, traj, n_sub, team):
+    """K4, K4v and K5's CVX instantiations built for the host (their block
+    body, played at team size ``team``) against the plain versions on the
+    transfer world: D and the n_sub=16 gate to 1e-12 on every row, Ja / Jb
+    to 1e-10 on the untied rows; at team size 32 also bitwise equal to
+    team size 1 and to each kernel's layout on the card."""
     _host_compiler()
     _, tw, _ = scenes
     x = _t(traj)
     tp = TC.CastDistancePre(tw, T, n_sub=n_sub)
     D, (Ja, Jb) = tp.value_jac(x)
     args = (T, 7, 0, T - 1, n_sub)
-    Dk, Jak, Jbk = TC.cast_host("cast_seg", tw, x, *args)
+    Dk, Jak, Jbk = TC.cast_host("cast_seg", tw, x, *args, team=team)
     np.testing.assert_allclose(Dk.numpy(), D.numpy(), rtol=0, atol=TOL)
-    Dv = TC.cast_host("cast_seg_value", tw, x, *args)[0]
+    Dv = TC.cast_host("cast_seg_value", tw, x, *args, team=team)[0]
     np.testing.assert_allclose(Dv.numpy(), D.numpy(), rtol=0, atol=TOL)
     X = x.reshape(LANES, T, 7)
     tie = tw.cast_ties(X[:, :-1], X[:, 1:], n_sub).reshape(
         LANES, T - 1, -1).numpy()
-    print(f"host build, n_sub={n_sub}: {int(tie.sum())} of {tie.size} tie "
-          "rows skipped")
+    print(f"host build, n_sub={n_sub}, team {team}: {int(tie.sum())} of "
+          f"{tie.size} tie rows skipped")
     for got, ref in ((Jak, Ja), (Jbk, Jb)):
         np.testing.assert_allclose(got.numpy()[~tie], ref.numpy()[~tie],
                                    rtol=0, atol=JTOL)
-    Ds = TC.cast_host("cast_sweep", tw, x, T, 7, 0, T - 1, 16)[0]
+    gate = (T, 7, 0, T - 1, 16)
+    Ds = TC.cast_host("cast_sweep", tw, x, *gate, team=team)[0]
     np.testing.assert_allclose(Ds.numpy(),
                                TC.cast_sweep_distances(tw, X, 16).numpy(),
                                rtol=0, atol=TOL)
+    if team != 1:  # how the block divides the work changes no bit: team
+        # size 1, warps, and each kernel's layout on the card
+        blocks = {k: TC.CAST_BLOCKS[k, True] for k in ("cast_seg",
+                                                     "cast_seg_value",
+                                                     "cast_sweep")}
+        for layout in ({k: (128, 1) for k in blocks}, blocks):
+            (thr, tm), (thr_v, tm_v), (thr_s, tm_s) = layout.values()
+            other = TC.cast_host("cast_seg", tw, x, *args, team=tm,
+                                 threads=thr) \
+                + TC.cast_host("cast_seg_value", tw, x, *args, team=tm_v,
+                               threads=thr_v)[:1] \
+                + TC.cast_host("cast_sweep", tw, x, *gate, team=tm_s,
+                               threads=thr_s)[:1]
+            for a, b in zip((Dk, Jak, Jbk, Dv, Ds), other):
+                assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("n1,n2", SIZES)
-def test_convex_route_host_build(scenes, n1, n2):
-    """The route probe's device code built for the host against the plain
-    route on the same rows: values to 1e-12 on the untied rows."""
+ROUTE_TEAMS = [pytest.param(n1, n2, 1, id=f"{n1}-{n2}") for n1, n2 in SIZES] \
+    + [pytest.param(n1, n2, TC.CAST_TEAM, id=f"{n1}-{n2}-team32")
+       for n1, n2 in SIZES]
+
+
+@pytest.mark.parametrize("n1,n2,team", ROUTE_TEAMS)
+def test_convex_route_host_build(scenes, n1, n2, team):
+    """The route probe built for the host (one team per row, at team size
+    ``team``) against the plain route on the same rows: values to 1e-12 on
+    the untied rows; at the card's team size values and witness indices
+    bitwise equal to team size 1."""
     _host_compiler()
     _, tw, _ = scenes
     fw = max(n1, n2) > TG.GENERIC_FEATURE_MAX_VERTS
     if not fw and n1 > 2 and n1 != 8:
         pytest.skip("no generic topology of this size in the world's tables")
     V1, r1, V2, r2 = (_t(a) for a in _route_inputs(n1, n2, 7 * n1 + n2))
-    got = TC.convex_route_host(tw, V1, r1, V2, r2, fw).numpy()
+    got, idx = TC.convex_route_host(tw, V1, r1, V2, r2, fw, team=team,
+                                    index=True)
     ref = TC.convex_route(tw, V1, r1, V2, r2, fw).numpy()
     tie = (TG.convex_convex_ties if fw else TG.feature_ties(
         n1, n2, topology=TG.generic_topology))(V1, V2, *TIE64).numpy()
-    np.testing.assert_allclose(got[~tie], ref[~tie], rtol=0, atol=TOL)
-    np.testing.assert_allclose(got, ref, rtol=0, atol=TIED_VALUE_TOL)
+    np.testing.assert_allclose(got.numpy()[~tie], ref[~tie], rtol=0, atol=TOL)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=TIED_VALUE_TOL)
+    if team != 1:
+        one, idx1 = TC.convex_route_host(tw, V1, r1, V2, r2, fw, index=True)
+        assert torch.equal(got, one) and torch.equal(idx, idx1)
+
+
+@pytest.mark.parametrize("team", [1, TC.CAST_TEAM])
+def test_first_index_wins_on_tied_candidates(scenes, team):
+    """Exact ties in the generic enumeration's candidate grid: a segment
+    level above a box's top face (every coordinate a small dyadic number,
+    so each candidate's d2 is exact) is as near to both top diagonals and
+    to the top triangles under it.  The host build's winning candidate,
+    strided over the team and combined on (d2, index), is the grid's first
+    minimum, as the reference's argmin takes it (numpy's and torch's
+    argmin agree), at team size 1 and at the card's."""
+    _host_compiler()
+    _, tw, _ = scenes
+    V1 = np.array([[[-0.5, 0.0, 2.0], [0.5, 0.0, 2.0]],
+                   [[0.25, -0.25, 1.5], [0.25, 0.25, 1.5]]])
+    V2 = np.stack([_box([0.0, 0.0, 0.0], [1.0, 1.0, 1.0])] * 2)
+    z = np.zeros(2)
+    d2 = TG._FeatureTables(2, 8, TG.generic_topology).candidate_d2(
+        _t(V1), _t(V2)).numpy()
+    first = d2.argmin(-1)
+    n_tied = (d2 == d2.min(-1, keepdims=True)).sum(-1)
+    print(f"tied candidates per row {n_tied.tolist()}, first {first.tolist()}")
+    assert (n_tied >= 3).all()
+    assert (first == torch.argmin(_t(d2), -1).numpy()).all()
+    D, idx = TC.convex_route_host(tw, _t(V1), _t(z), _t(V2), _t(z), False,
+                                  team=team, index=True)
+    assert idx.tolist() == first.tolist()
+    np.testing.assert_allclose(D.numpy(), [1.0, 0.5], rtol=0, atol=TOL)
 
 
 def test_collision_wrappers_launch_or_raise(scenes):

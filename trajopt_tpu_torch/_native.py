@@ -10,7 +10,7 @@ parallel.  Nothing here runs at import time.
 launches its kernel, and nowhere else.  A source's library is named by a
 hash of the source, the headers of ``csrc/`` and its flags.
 
-``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' device
+``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' block
 code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's) for the CPU with the
 host's C++ compiler, for checking that code against the plain PyTorch
 version without a card.
@@ -34,8 +34,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
-_CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _P]
-_ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P]
+_CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
+         _I, _I, _P, _P]
+_ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -46,11 +47,13 @@ _SIGNATURES = {
                   for s in ("f32", "f64")],
     "cast_seg": [(f"{k}_{s}", _CAST) for k in
                  ("cast_seg", "cast_seg_value", "cast_sweep")
-                 for s in ("f32", "f64")],
+                 for s in ("f32", "f64")]
+    + [("cast_seg_attrs", [_I, _P])],
     "cast_cvx": [(f"{k}_cvx_{s}", _CAST) for k in
                  ("cast_seg", "cast_seg_value", "cast_sweep")
                  for s in ("f32", "f64")]
-    + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")],
+    + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")]
+    + [("cast_cvx_attrs", [_I, _P])],
     "ipm_banded": [(f"ipm_banded_{s}", [_P, _P]) for s in ("f32", "f64")],
 }
 SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
@@ -96,8 +99,9 @@ def _flags(name: str) -> list:
 # the host build keeps every multiply and add separate too; unoptimised,
 # as it only checks arithmetic at small sizes (it compiles in ~1 s)
 HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
-_HOST_SIGNATURES = {"cast_host": _SIGNATURES["cast_seg"]
-                    + _SIGNATURES["cast_cvx"],
+_HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx")
+                                   for sig in _SIGNATURES[src]
+                                   if not sig[0].endswith("_attrs")],
                     "ipm_host": _SIGNATURES["ipm_banded"]}
 
 
@@ -187,6 +191,9 @@ def check(name: str, code: int) -> None:
     if code == -1:
         raise ValueError(f"{name}: size not instantiated (block size 7, 14 "
                          "or 21; n_dof 7 for cast_seg; ipm_banded within "
-                         "the shared-memory limit)")
+                         "the shared-memory limit; the cast kernels' blocks "
+                         "of 64 or 128 threads in teams of 4-32 on the card, "
+                         "a team of 1 or a divisor of the threads up to 32 "
+                         "on the host)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

@@ -442,6 +442,34 @@ class CollisionWorld:
             self._cache[key] = t
         return t
 
+    def _work_lists(self):
+        """The kernels' work lists (``csrc/cast_block.cuh``): five counts,
+        then the pairs of phase B's [closed form | CONVEX side] and of phase
+        C's [sphere sweep | min only | team route].  Closed forms and sweeps
+        are grouped by kind pair, so that neighbouring threads run one
+        route; the team items come heaviest first (Frank-Wolfe, then the
+        larger vertex sets), so that a block's last round is a light one."""
+        routes = self.pair_routes()
+        kinds = [(self.geoms[i].kind, self.geoms[j].kind) for i, j in self.pairs]
+        disc = [k for k in range(self.n_pairs) if routes[k][0] != "sphere"]
+
+        def of(route):
+            return [k for k in range(self.n_pairs) if routes[k][0] == route]
+
+        def heavy(k):
+            n1, n2 = routes[k][1]
+            return (max(n1, n2) <= G.GENERIC_FEATURE_MAX_VERTS, -n1 * n2, k)
+
+        lists = [
+            sorted((k for k in disc if kinds[k][1] != CONVEX),
+                   key=lambda k: (kinds[k], k)),
+            sorted((k for k in disc if kinds[k][1] == CONVEX),
+                   key=lambda k: (-_SUPPORT_N.get(kinds[k][0], 0), k)),
+            sorted(of("sphere"), key=lambda k: (kinds[k], k)),
+            sorted(of("none"), key=lambda k: (kinds[k], k)),
+            sorted(of("hull") + of("convex"), key=heavy)]
+        return [len(x) for x in lists] + [k for x in lists for k in x]
+
     def _pack_tables(self):
         ch = self.chain
         L, nd, NG, P = ch.n_links, ch.n_dof, len(self.geoms), self.n_pairs
@@ -477,7 +505,9 @@ class CollisionWorld:
         # the small blocks)
         directory = [at.get(("small" if n <= 2 else "generic", n), -1)
                      for n in range(G.GENERIC_FEATURE_MAX_VERTS + 1)]
-        ints += [at[("small", n)] for n in (1, 2, 4, 8)] + [nv, o]
+        work = self._work_lists()
+        ints += [at[("small", n)] for n in (1, 2, 4, 8)] + [nv, o,
+                                                            o + len(directory)]
         ints += [0] * (head - len(ints))
         ints += list(ch.link_of_dof)
         for l in range(L):
@@ -507,6 +537,7 @@ class CollisionWorld:
         for blk in topo_blocks:
             ints += blk
         ints += directory
+        ints += work
         reals = []
         for l in range(L):
             ax = ch.axis[l] / max(np.linalg.norm(ch.axis[l]), 1e-12)

@@ -1,64 +1,55 @@
-// Host build of the cast kernels' device code (collision.cuh), for
-// checking its arithmetic on a CPU against the plain PyTorch version.
+// Host build of the cast kernels (cast_block.cuh over collision.cuh), for
+// checking them on a CPU against the plain PyTorch version.
 //
-// The same entry points as cast_seg.cu (same arguments, same output
-// layouts), run serially: for each (lane, gap) the three phases of the
-// CUDA block (fill the slots; the discrete distance per (slot, pair); the
-// routes per (segment, pair), or per pair for cast_sweep) run one after
-// another.  Compiled with a C++ compiler by _native.host_library; it is
-// not on any path that solves a problem.
+// The same entry points as cast_seg.cu / cast_cvx.cu (same arguments,
+// same output layouts), and the same block body: each (lane, gap) runs
+// cast_gap with the block played by one thread, stage by stage.  `threads`
+// and `team` set the layout: team 1 is one thread that is the whole block
+// and its only team; a team of t > 1 (t dividing threads, at most
+// CAST_TEAM) runs `threads` threads in teams of t, each thread's share in
+// turn, as the card divides the work.  The outputs are bitwise equal at
+// every layout.  Compiled with a C++
+// compiler by _native.host_library; it is not on any path that solves a
+// problem.
 
 #include <vector>
 
-#include "collision.cuh"
+#include "cast_block.cuh"
 
 using namespace coll;
 
-enum { MODE_JAC = 0, MODE_VALUE = 1, MODE_SWEEP = 2 };
-constexpr int ND_JAC = 7;
+static bool host_block(int threads, int team, int& nthr) {
+  nthr = team == 1 ? 1 : threads;
+  return team >= 1 && team <= CAST_TEAM && threads >= 1 &&
+         threads <= CAST_THREADS && threads % team == 0;
+}
 
 template <typename T, int ND, int MODE, bool CVX>
 static int run(const int* I, const T* F, const T* x, long x_stride, int nc,
                int first, int n_gaps, const T* ss, int n_sub, T* D, T* Ja,
-               T* Jb, int lanes) {
-  const int P = I[3], sz = slot_size(I);
-  const int n_slots = MODE == MODE_SWEEP ? n_sub + 1 : n_sub;
-  std::vector<T> mem(n_slots * sz + n_sub * P * (1 + (MODE == MODE_JAC ? ND : 0)));
-  T* slots = mem.data();
-  T* dsub = slots + n_slots * sz;
-  T* dtan = dsub + n_sub * P;
+               T* Jb, int lanes, int L, int nd, int NG, int P, int threads,
+               int team) {
+  int nthr;
+  if (!host_block(threads, team, nthr)) return -1;
+  std::vector<unsigned char> smem(
+      cast_smem_bytes<T, ND, MODE>(L, nd, NG, P, n_sub, nthr / team));
   for (int lane = 0; lane < lanes; ++lane)
-    for (int g = 0; g < n_gaps; ++g) {
-      const T* qa = x + lane * x_stride + (first + g) * nc;
-      const T* qb = qa + nc;
-      for (int s = 0; s < n_slots; ++s)
-        slot_fill(I, F, qa, qb, ss, s, n_sub, slots + s * sz);
-      for (int it = 0; it < n_sub * P; ++it)
-        discrete_item<T, ND, MODE == MODE_JAC, CVX>(I, F, slots, it / P,
-                                                     it % P, dsub, dtan);
-      const long gap = (long)lane * n_gaps + g;
-      if (MODE == MODE_SWEEP) {
-        for (int p = 0; p < P; ++p)
-          sweep_item<T, CVX>(I, F, slots, n_sub, p, dsub, D + gap * P);
-      } else {
-        const long rows = (long)(n_sub - 1) * P;
-        for (int it = 0; it < rows; ++it)
-          segment_item<T, ND, MODE == MODE_JAC, CVX>(
-              I, F, slots, ss, it / P, it % P, dsub, dtan, D + gap * rows,
-              MODE == MODE_JAC ? Ja + gap * rows * nc : nullptr,
-              MODE == MODE_JAC ? Jb + gap * rows * nc : nullptr, nc);
-      }
-    }
+    for (int g = 0; g < n_gaps; ++g)
+      cast_gap<T, ND, MODE, CVX>(I, F, x, x_stride, nc, first, n_gaps, ss,
+                                 n_sub, D, Ja, Jb, lane, g, smem.data(), nthr,
+                                 team);
   return 0;
 }
 
 #define HOST_ENTRY(NAME, T, ND, MODE, CVX, CHECK)                            \
   extern "C" int NAME(const int* I, const T* F, const T* x, long x_stride,   \
                       int nc, int first, int n_gaps, const T* ss, int n_sub, \
-                      T* D, T* Ja, T* Jb, int lanes, int nd, int, void*) {   \
+                      T* D, T* Ja, T* Jb, int lanes, int L, int nd, int NG,  \
+                      int P, int threads, int team, long long*, void*) {     \
     if (CHECK) return -1;                                                     \
     return run<T, ND, MODE, CVX>(I, F, x, x_stride, nc, first, n_gaps, ss,   \
-                                 n_sub, D, Ja, Jb, lanes);                    \
+                                 n_sub, D, Ja, Jb, lanes, L, nd, NG, P,      \
+                                 threads, team);                              \
   }
 
 HOST_ENTRY(cast_seg_f32, float, ND_JAC, MODE_JAC, false, nd != ND_JAC)
@@ -74,18 +65,19 @@ HOST_ENTRY(cast_seg_value_cvx_f64, double, 1, MODE_VALUE, true, false)
 HOST_ENTRY(cast_sweep_cvx_f32, float, 1, MODE_SWEEP, true, false)
 HOST_ENTRY(cast_sweep_cvx_f64, double, 1, MODE_SWEEP, true, false)
 
-// the route probe of cast_seg.cu, row by row
+// the route probe of cast_cvx.cu, one block playing every team
 #define ROUTE_ENTRY(NAME, T)                                                  \
   extern "C" int NAME(const int* I, const T* F, const T* V1, int n1,          \
                       const T* V2, int n2, const T* r1, const T* r2,          \
-                      int rows, int route, T* D, void*) {                    \
-    if (n1 > CVX_MAXV || n2 > CVX_MAXV ||                                     \
+                      int rows, int route, T* D, int* K, int threads,        \
+                      int team, void*) {                                      \
+    int nthr;                                                                 \
+    if (n1 > CVX_MAXV || n2 > CVX_MAXV || !host_block(threads, team, nthr) || \
         (route == 0 && (n1 > GENERIC_MAX || n2 > GENERIC_MAX)))               \
       return -1;                                                              \
-    for (int row = 0; row < rows; ++row)                                      \
-      D[row] = convex_route_row(I, F, route == 1, V1 + (long)row * n1 * 3,   \
-                                n1, V2 + (long)row * n2 * 3, n2) -           \
-               (r1[row] + r2[row]);                                           \
+    std::vector<TeamMem<T>> teams(nthr / team);                               \
+    route_block(I, F, route == 1, V1, n1, V2, n2, r1, r2, rows, D, K, 0, 1,  \
+                reinterpret_cast<unsigned char*>(teams.data()), nthr, team); \
     return 0;                                                                 \
   }
 

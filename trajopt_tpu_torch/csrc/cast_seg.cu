@@ -9,27 +9,39 @@
 //   K4v terms/collision.py:159-163  CastDistancePre.value
 //   K5  terms/collision.py:548-564  trajectory_in_collision over
 //       collision/world.py:223-239 cast_pair_distances (n_sub substates)
-// The kernel template is in cast_kernel.cuh; this source holds the
-// instantiations without the CONVEX routes, cast_cvx.cu those with them
-// (a world with CONVEX geometry) and the route probe.
+// The launchers are in cast_kernel.cuh and the block's body in
+// cast_block.cuh; this source holds the instantiations without the CONVEX
+// routes, cast_cvx.cu those with them (a world with CONVEX geometry) and
+// the route probe.
 //
-// Design: one block per (lane, gap).  Phase A: one thread per slot
-// (substate, or the exact end pose for K5) runs FK and the joint frames
-// and writes the canonical world geometry to shared memory.  Phase B: one
-// thread per (slot, pair) evaluates the discrete pair distance — with K4
-// as a dual number carrying n_dof tangent columns seeded from the point
-// Jacobians z_d x (v - o_d).  Phase C: one thread per (segment, pair)
-// takes the substate min, applies the pair's static sweep route (exact
-// sphere sweep with 2 n_dof columns; or the two-pose hull feature
-// distance, whose Jacobian is the witness-linear form) and writes D and
-// the Jacobian rows, split onto qa and qb by the substate fractions.
+// Design: one CTA per (lane, gap) (3,712 on the flagship, 1,408 on the
+// pick-and-place transfer), of 64 or 128 threads in teams of 8 or 16 lanes
+// of a warp, the layout chosen per kernel (terms/collision.py
+// CAST_BLOCKS, from the measurements in PERF.md).  Phase A: a thread per
+// slot (substate, or the exact end pose for K5) runs the chain, then a
+// thread per (slot, dof) and (slot, geometry) the joint frames and the
+// canonical world geometry, into shared memory.  Phase B: the discrete
+// pair distance per (slot, pair), a thread per tangent column: with K4 a
+// Dual<T, 1> seeded with one dof's point Jacobian z_d x (v - o_d), each
+// column's thread recomputing the value; a pair with a CONVEX side takes
+// a team.  Phase C: per (segment, pair) the exact sphere sweep (a thread
+// per dof, a Dual<T, 2> for the dof at both slots) or the substate min (a
+// thread per column), and a team per hull or CONVEX route: its candidates,
+// the witness's support scans, the 26-direction depth cover and
+// Frank-Wolfe's support scans strided over the lanes with an in-order
+// (value, index) argmin by warp shuffles, the witness by lane 0, the
+// weights and the witness-linear Jacobian a vertex or a dof per lane.  The
+// work lists group the pairs by route and put the heaviest team items
+// first.  cast_block.cuh holds the body; cast_host.cpp runs it on a CPU.
 //
 // Bound: the work is ~10^4-10^5 flops per (lane, gap) on a few hundred
 // bytes of input (~10^6 with an (8, 8) generic enumeration), so the bound
 // is operations (the float32 / float64 CUDA core rates), far above the
-// bytes of x, D, Ja and Jb.  This first version keeps the dual numbers in
-// registers and local memory; the pair threads of one block diverge by
-// route, and a CONVEX pair's enumeration runs serially in one thread.
+// bytes of x, D, Ja and Jb.  What the design does about it: no tangent
+// array lives in one thread (few registers), a feature enumeration's
+// chain is its lane's share of candidates, not all of them, and float
+// division and square root take no slow-path subroutine (collision.cuh
+// qdiv / qsqrt: the same correctly rounded results).
 
 #include "cast_kernel.cuh"
 
@@ -39,3 +51,4 @@ CAST_ENTRY(cast_seg_value_f32, float, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_seg_value_f64, double, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_sweep_f32, float, 1, MODE_SWEEP, false, false)
 CAST_ENTRY(cast_sweep_f64, double, 1, MODE_SWEEP, false, false)
+ATTRS_ENTRY(cast_seg_attrs, false)

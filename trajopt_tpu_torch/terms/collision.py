@@ -27,6 +27,7 @@ params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -38,6 +39,21 @@ from ..utils.lanes import lane_broadcast
 from .base import Term, hinge_cost, ineq_constraint
 
 _JAC_NDOF = 7  # the n_dof instantiated for K4 (csrc/cast_seg.cu)
+# the cast kernels' blocks (csrc/cast_block.cuh): a CTA of 64 or 128
+# threads per (lane, gap), in teams of 4, 8, 16 or 32 lanes of a warp that
+# share one feature enumeration.  On the card each kernel runs at the
+# layout measured fastest at the main paths' shapes (PERF.md section 6),
+# per kernel and per instantiation (with the CONVEX routes or not).
+# The host build plays any layout (team 1: one thread is the whole block;
+# CAST_TEAM: warps of a 128-thread CTA), all bitwise equal.
+CAST_TEAM, CAST_THREADS = 32, 128
+CAST_BLOCKS = {("cast_seg", False): (64, 8), ("cast_seg_value", False): (64, 8),
+               ("cast_sweep", False): (128, 16),
+               ("cast_seg", True): (128, 16), ("cast_seg_value", True): (128, 16),
+               ("cast_sweep", True): (64, 8),
+               # the route probe, per route
+               ("convex_feature", True): (128, 16),
+               ("convex_fw", True): (64, 8)}
 
 
 def _bcast(v, n, dtype):
@@ -51,10 +67,12 @@ def _bcast(v, n, dtype):
 
 def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
                n_steps: int, nc: int, first: int, n_gaps: int, n_sub: int,
-               stream=None):
+               stream=None, block=(CAST_THREADS, CAST_TEAM), clk=None):
     """Call entry point ``kind`` of a cast library on ``x`` (B, n_steps *
-    nc); the gaps are steps [first, first + n_gaps].  Returns D, and Ja, Jb
-    for ``cast_seg``."""
+    nc); the gaps are steps [first, first + n_gaps]; ``block`` the CTA's
+    (threads, team size); ``clk`` (card only, int64 (B n_gaps, 4))
+    receives each CTA's phase timer.  Returns D, and Ja, Jb for
+    ``cast_seg``."""
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{kind}: dtype {x.dtype} is not float32/float64")
     if x.dim() != 2 or x.shape[1] != n_steps * nc or not x.is_contiguous():
@@ -69,11 +87,6 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
     lanes = x.shape[0]
     ints, reals = world.kernel_tables(x.dtype, x.device)
     ss = CollisionWorld._fractions(n_sub, x.dtype, x.device)
-    n_slots = n_sub + 1 if kind == "cast_sweep" else n_sub
-    L, NG = world.chain.n_links, len(world.geoms)
-    slot = nd + 12 * L + 6 * nd + 15 * NG
-    per_d = 1 + (_JAC_NDOF if kind == "cast_seg" else 0)
-    smem = (n_slots * slot + n_sub * P * per_d) * x.element_size()
     n_seg = n_sub - 1
     if kind == "cast_sweep":
         D = torch.empty((lanes, n_gaps, P), dtype=x.dtype, device=x.device)
@@ -91,39 +104,70 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
         ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
         first, n_gaps, ss.data_ptr(), n_sub, D.data_ptr(),
         0 if Ja is None else Ja.data_ptr(),
-        0 if Jb is None else Jb.data_ptr(), lanes, nd, smem, stream)
+        0 if Jb is None else Jb.data_ptr(), lanes, world.chain.n_links, nd,
+        len(world.geoms), P, *block, 0 if clk is None else clk.data_ptr(),
+        stream)
     _native.check(kind, code)
     return D, Ja, Jb
 
 
-def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
+def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
+                 clk=None):
     """Launch one of the cast kernels on the card (arguments as
     :func:`_cast_call`)."""
     if not x.is_cuda:
         raise ValueError(f"{kind}: tensors must be on a CUDA device")
     lib = _native.library("cast_cvx" if world.n_convex_verts else "cast_seg")
     out = _cast_call(lib, kind, world, x, *args,
-                     stream=torch.cuda.current_stream(x.device).cuda_stream)
+                     stream=torch.cuda.current_stream(x.device).cuda_stream,
+                     block=CAST_BLOCKS[kind, bool(world.n_convex_verts)],
+                     clk=clk)
     _native.LAUNCHES[kind] += 1
     for route in world.kernel_routes():
         _native.LAUNCHES[route] += 1
     return out
 
 
-def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
-    """The cast kernels' device code compiled for the host
-    (``csrc/cast_host.cpp``), on a CPU tensor: a check of the kernels'
-    arithmetic on a CPU (arguments as :func:`_cast_call`)."""
+def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
+              team: int = 1, threads: int = CAST_THREADS):
+    """The cast kernels built for the host (``csrc/cast_host.cpp``: the
+    kernels' block body, its threads played in turn), on a CPU tensor: a
+    check of the kernels on a CPU (arguments as :func:`_cast_call`).
+    ``team=1``: one thread is the whole block; a larger team: a CTA of
+    ``threads`` threads in teams of ``team`` (``CAST_TEAM``: warps), each
+    thread's share in turn, as the card divides the work.  Every layout
+    gives bitwise the same outputs."""
     if x.is_cuda:
         raise ValueError(f"{kind}: the host build takes CPU tensors")
     return _cast_call(_native.host_library("cast_host"), kind, world, x,
-                      *args)
+                      *args, block=(threads, team))
+
+
+def kernel_attributes():
+    """{instantiation: {"num_regs", "local_bytes", "max_threads",
+    "static_smem_bytes"}} of every K4, K4v and K5 instantiation on the card
+    (``cudaFuncGetAttributes``, through each cast library's query)."""
+    out = {}
+    for src, sfx in (("cast_seg", "_"), ("cast_cvx", "_cvx_")):
+        lib = _native.library(src)
+        for which, kind in enumerate(f"{k}{sfx}{s}" for k in (
+                "cast_seg", "cast_seg_value", "cast_sweep")
+                for s in ("f32", "f64")):
+            buf = (ctypes.c_int * 4)()
+            _native.check(f"{src}_attrs", getattr(lib, f"{src}_attrs")(
+                which, buf))
+            out[kind] = dict(zip(("num_regs", "local_bytes", "max_threads",
+                                  "static_smem_bytes"), list(buf)))
+    return out
 
 
 def _route_call(lib, world: CollisionWorld, V1, r1, V2, r2, fw: bool,
-                stream=None):
+                stream=None, block=(CAST_THREADS, CAST_TEAM),
+                index: bool = False):
     """The route probe ``convex_route`` of a cast library on rows of
-    vertex sets V1 (rows, n1, 3), V2 (rows, n2, 3) and radii (rows,)."""
+    vertex sets V1 (rows, n1, 3), V2 (rows, n2, 3) and radii (rows,);
+    ``index``: also the witness index per row (the generic enumeration's
+    winning candidate, Frank-Wolfe's final direction)."""
     dt = V1.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"convex_route: dtype {dt} is not float32/float64")
@@ -134,17 +178,20 @@ def _route_call(lib, world: CollisionWorld, V1, r1, V2, r2, fw: bool,
         raise ValueError("convex_route: V1, V2, r1, r2 need one row each")
     ints, reals = world.kernel_tables(dt, V1.device)
     D = torch.empty((rows,), dtype=dt, device=V1.device)
+    K = torch.empty((rows,), dtype=torch.int32, device=V1.device) \
+        if index else None
     sfx = "f32" if dt == torch.float32 else "f64"
     code = getattr(lib, f"convex_route_{sfx}")(
         ints.data_ptr(), reals.data_ptr(), V1.data_ptr(), V1.shape[1],
         V2.data_ptr(), V2.shape[1], r1.data_ptr(), r2.data_ptr(), rows,
-        int(fw), D.data_ptr(), stream)
+        int(fw), D.data_ptr(), 0 if K is None else K.data_ptr(), *block,
+        stream)
     _native.check("convex_route", code)
-    return D
+    return (D, K) if index else D
 
 
 def convex_route(world: CollisionWorld, V1, r1, V2, r2, fw: bool):
-    """One CONVEX route alone, a row per thread: the generic feature
+    """One CONVEX route alone, a row per team: the generic feature
     enumeration (``fw=False``, ``make_feature_distance(n1, n2,
     generic_topology)``) or the Frank-Wolfe max separation (``fw=True``,
     ``d_convex_convex``) between conv(V1)+r1 and conv(V2)+r2.  The kernel
@@ -156,17 +203,21 @@ def convex_route(world: CollisionWorld, V1, r1, V2, r2, fw: bool):
         return G.make_feature_distance(V1.shape[1], V2.shape[1],
                                        G.generic_topology)(V1, r1, V2, r2)
     out = _route_call(_native.library("cast_cvx"), world, V1, r1, V2, r2, fw,
-                      torch.cuda.current_stream(V1.device).cuda_stream)
+                      torch.cuda.current_stream(V1.device).cuda_stream,
+                      block=CAST_BLOCKS["convex_fw" if fw else
+                                        "convex_feature", True])
     _native.LAUNCHES["convex_route"] += 1
     return out
 
 
-def convex_route_host(world: CollisionWorld, V1, r1, V2, r2, fw: bool):
-    """The route probe's device code built for the host, on CPU tensors."""
+def convex_route_host(world: CollisionWorld, V1, r1, V2, r2, fw: bool,
+                      team: int = 1, index: bool = False):
+    """The route probe built for the host, on CPU tensors (``team`` as
+    :func:`cast_host`, ``index`` as :func:`_route_call`)."""
     if V1.is_cuda:
         raise ValueError("convex_route: the host build takes CPU tensors")
     return _route_call(_native.host_library("cast_host"), world, V1, r1, V2,
-                       r2, fw)
+                       r2, fw, block=(CAST_THREADS, team), index=index)
 
 
 class CastDistancePre:
