@@ -77,7 +77,15 @@ struct Args {
   // outputs: the final iterate, the incumbent, per-lane scalars; scratch
   void *dx, *z5, *z6, *dxb, *h, *z1, *p, *nn, *y, *rp, *rd, *fb, *scr;
   int *it, *status;
+  // the phase timer (card only; null: off): N_PHASES clock64 sums per
+  // lane, each phase's cycles on thread 0 summed over the lane's iterations
+  long long* clk;
 };
+
+// the timer's phases, in the loop's order
+enum { PH_DIAG, PH_ASSEMBLY, PH_FACTOR, PH_RESID, PH_PRED_PASS,
+       PH_PRED_SOLVE, PH_CORR_PASS, PH_CORR_SOLVE, PH_UPDATE, PH_OBJECTIVE,
+       N_PHASES };
 
 BHD long smem_elems(int n, int b, int nb) {
   return (long)(2 * nb - 1) * b * b + (long)N_SMEM_VEC * n + N_RED * 32;
@@ -201,6 +209,8 @@ struct Lane {
   T *odx, *oz5, *oz6, *dxb;
   Rows<T> H, A;
   T *h, *z1, *p, *nn, *y;
+  long long* clk;  // this lane's N_PHASES timer sums, or null
+  long long t_last;
 
   // scratch names (hinge)
   BHD T* s1() const { return H.s[0]; }
@@ -234,6 +244,19 @@ struct Lane {
   }
 
   BHD void sync() const { TEAM_SYNC(); }
+
+  // the timer: thread 0 adds the cycles since the last stamp to phase ph
+  BHD void stamp(int ph) {
+#ifdef __CUDA_ARCH__
+    if (clk != nullptr && tid == 0) {
+      const long long t = clock64();
+      clk[ph] += t - t_last;
+      t_last = t;
+    }
+#else
+    (void)ph;
+#endif
+  }
 
   BHD void solve(const T* r, T* x) const {
     if (tid < WT) banded::btd_solve_lane<T, BS, WT>(D, O, r, x, nb, tid);
@@ -300,9 +323,11 @@ struct Lane {
     for (int e = tid; e < nD; e += nthr)
       if ((e % BB) / BS == e % BS) D[e] = D[e] + reg;
     sync();
+    stamp(PH_ASSEMBLY);
     if (tid < WT)
       banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
     sync();
+    stamp(PH_FACTOR);
   }
 
   // One Newton solve of the condensed system for the predictor (corr
@@ -311,6 +336,8 @@ struct Lane {
   // step length.
   IHD T newton(bool corr, T smu, T* sdx, T* sz5, T* sz6) {
     const int o = corr ? 9 : 6;
+    const int ph_pass = corr ? PH_CORR_PASS : PH_PRED_PASS;
+    const int ph_solve = corr ? PH_CORR_SOLVE : PH_PRED_SOLVE;
     T* dz1 = H.s[o];
     T* dh = H.s[o + 1];
     T* ds1 = H.s[o + 2];
@@ -332,7 +359,9 @@ struct Lane {
                rc6(k, corr, smu) / (ub[k] - dx[k]);
     }
     sync();
+    stamp(ph_pass);
     solve(rhs, sdx);
+    stamp(ph_solve);
     // one refinement step against the exact condensed matrix
     for (int i = tid; i < H.m; i += nthr) jvh()[i] = hdot(i, sdx);
     for (int i = tid; i < A.m; i += nthr) jva()[i] = adot(i, sdx);
@@ -346,7 +375,9 @@ struct Lane {
       tmp[k] = rhs[k] - kmv;
     }
     sync();
+    stamp(ph_pass);
     solve(tmp, tmp2);
+    stamp(ph_solve);
     for (int k = tid; k < n; k += nthr) sdx[k] = sdx[k] + tmp2[k];
     sync();
     // the slack and dual steps, and the step length
@@ -380,6 +411,7 @@ struct Lane {
       step_cand(am[0], z6[k], sz6[k]);
     }
     team_reduce<T, 0, 1>(red, nullptr, am, tid, nthr);
+    stamp(ph_pass);
     return -am[0];
   }
 
@@ -417,6 +449,9 @@ struct Lane {
     sync();
     int it = 0, status = QP_UNSOLVED;
     T rp = inf, rd = inf, fbest = fzero;
+#ifdef __CUDA_ARCH__
+    t_last = clock64();
+#endif
     while (status == QP_UNSOLVED && it < max_iter) {
       // ---- barrier diagonals ----
       for (int i = tid; i < H.m; i += nthr) {
@@ -436,6 +471,7 @@ struct Lane {
         dbox[k] = clamp_hi(z5[k] / (dx[k] - lb[k]) + z6[k] / (ub[k] - dx[k]),
                            dcap());
       sync();
+      stamp(PH_DIAG);
       assemble_factor();
       // ---- residuals and mu ----
       T su[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
@@ -460,6 +496,7 @@ struct Lane {
       }
       team_reduce<T, 6, 0>(red, su, nullptr, tid, nthr);
       const T mu = mu_of(su, n_pairs);
+      stamp(PH_RESID);
 
       // ---- predictor ----
       const T a_aff = newton(false, T(0), ddxa, dz5a, dz6a);
@@ -480,6 +517,7 @@ struct Lane {
         su[5] += (z6[k] + a_aff * dz6a[k]) * (ub[k] - dxa);
       }
       team_reduce<T, 6, 0>(red, su, nullptr, tid, nthr);
+      stamp(PH_PRED_PASS);
       const T mu_aff = mu_of(su, n_pairs);
       const T ratio = mu_aff / clamp_lo(mu, tiny());
       const T sigma = clamp_hi(clamp_lo(ratio * ratio * ratio, T(1e-8)), T(1));
@@ -527,6 +565,7 @@ struct Lane {
       for (int k = tid; k < n; k += nthr)
         tmp[k] = clamp_hi(clamp_lo(dx[k], lbr[k]), ubr[k]);
       sync();
+      stamp(PH_UPDATE);
 
       // ---- composite objective, residuals, mu, scales: one pass ----
       // sums: mu's six dots, d'P d, q'd, the hinge and abs terms;
@@ -592,6 +631,7 @@ struct Lane {
       status = conv ? QP_SOLVED : (fin ? status : broke);
       it += 1;
       sync();
+      stamp(PH_OBJECTIVE);
     }
     for (int k = tid; k < n; k += nthr) {
       odx[k] = dx[k];
@@ -674,6 +714,7 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.p = (T*)a.p + (long)lane * a.ma;
   L.nn = (T*)a.nn + (long)lane * a.ma;
   L.y = (T*)a.y + (long)lane * a.ma;
+  L.clk = a.clk == nullptr ? nullptr : a.clk + (long)lane * N_PHASES;
   L.run(a.it + lane, a.status + lane, (T*)a.rp + lane, (T*)a.rd + lane,
         (T*)a.fb + lane);
 }

@@ -505,7 +505,7 @@ _PTRS = ("PD", "PO", "RD", "RO", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
          "Sa", "Ra", "ea", "wa", "ear", "war",
          "rowGh", "gtabh", "Gh", "rowGa", "gtaba", "Ga",
          "dx", "z5", "z6", "dxb", "h", "z1", "p", "nn", "y", "rp", "rd", "fb",
-         "scr", "it", "status")
+         "scr", "it", "status", "clk")
 
 
 class _K6Args(ctypes.Structure):
@@ -517,6 +517,10 @@ class _K6Args(ctypes.Structure):
 
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
+# K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
+# its iterations
+K6_PHASES = ("diagonals", "assembly", "factor", "residuals", "pred_pass",
+             "pred_solve", "corr_pass", "corr_solve", "update", "objective")
 
 
 class _RowTables(NamedTuple):
@@ -571,9 +575,11 @@ def band_plan(data: ProxQPData, b: int) -> BandPlan:
                     _row_tables(data.Ba, data.Ga, dev))
 
 
-def _k6_call(su: _Setup, plan: BandPlan, fn) -> _St:
+def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None) -> _St:
     """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
-    host build) and return its final state."""
+    host build) and return its final state.  ``clk``: K6's phase timer, an
+    int64 (lanes, len(K6_PHASES)) tensor the card adds each phase's cycles
+    to (the host build ignores it)."""
     d, lanes, n, b, mh, ma = su.data, su.lanes, su.n, su.bsz, su.mh, su.ma
     dt = su.q.dtype
     if dt not in (torch.float32, torch.float64):
@@ -624,6 +630,7 @@ def _k6_call(su: _Setup, plan: BandPlan, fn) -> _St:
                    ngr_h=len(plan.h.shapes), ngr_a=len(plan.a.shapes),
                    max_iter=su.s.max_ipm_iter, pad=0,
                    eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
+                   clk=0 if clk is None else clk.data_ptr(),
                    **{k: t.data_ptr() for k, t in tensors.items()})
     fn(args)
     return _St(out["dx"], out["h"], out["p"], out["nn"], out["z1"], out["y"],
@@ -631,8 +638,9 @@ def _k6_call(su: _Setup, plan: BandPlan, fn) -> _St:
                out["rd"], out["fb"], out["dxb"])
 
 
-def ipm_banded_cuda(su: _Setup, plan: BandPlan) -> _St:
-    """K6 on the card: one launch runs every lane's whole loop."""
+def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
+    """K6 on the card: one launch runs every lane's whole loop (``clk``: the
+    phase timer, see ``_k6_call``)."""
     if not su.q.is_cuda:
         raise ValueError("ipm_banded_cuda: tensors must be on a CUDA device")
 
@@ -650,7 +658,12 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan) -> _St:
         _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
 
-    return _k6_call(su, plan, launch)
+    if clk is not None and (clk.shape != (su.lanes, len(K6_PHASES))
+                            or clk.dtype != torch.int64 or not clk.is_cuda
+                            or not clk.is_contiguous()):
+        raise ValueError("ipm_banded_cuda: clk must be a contiguous int64 "
+                         f"CUDA tensor ({su.lanes}, {len(K6_PHASES)})")
+    return _k6_call(su, plan, launch, clk)
 
 
 def ipm_banded_host(su: _Setup, plan: BandPlan) -> _St:
