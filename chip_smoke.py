@@ -8,9 +8,10 @@ Every line printed is one JSON object.  Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every kernel of ``trajopt_tpu_torch/csrc``
    (one nvcc per source, all at once); the registers and local memory of
-   every K4, K4v and K5 instantiation (``cudaFuncGetAttributes``), which
-   the kernel summary repeats; the float32 K4 and K4v without the CONVEX
-   routes must use no local memory;
+   every K4, K4v and K5 instantiation and of K6's (float32 and float64 at
+   b 7, 14, 21) (``cudaFuncGetAttributes``), which the kernel summary
+   repeats; the float32 K4 and K4v without the CONVEX routes must use no
+   local memory;
 2. each kernel held against its plain PyTorch version on the same inputs
    (tolerances below), in float32 and float64, then its time, its plain
    version's time, one PyTorch library call's time where one computes the
@@ -33,7 +34,9 @@ Every line printed is one JSON object.  Phases, in order:
    captured from real solves: the full flagship's first QP and its second
    (the last with hinge rows active at the solution on many lanes), and
    the pick-and-place transfer's first, 128 lanes
-   each, in float32 and float64 (the float32 capture cast up).  Per lane:
+   each, and the flagship's first regrouped to superblocks of two and
+   three steps (K6 at b 14 and 21), in float32 and float64 (the float32
+   capture cast up).  Per lane:
    status, iteration count and dx.  float64: equal statuses, and dx within
    K6_DX_TOL of the lane's largest |dx| on every lane whose iteration count
    is equal; a lane whose runs end apart must be a termination-threshold
@@ -84,6 +87,7 @@ Any failure raises and the script exits non-zero.  It exits non-zero with
 no result when CUDA is not available.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -363,6 +367,9 @@ def main():
     # (cudaFuncGetAttributes)
     cast_attrs = kernel_attributes()
     emit({"phase": "cast_attributes", "attributes": cast_attrs, "card": smi})
+    # and of K6's instantiations
+    ipm_attrs = ipm_qp.kernel_attributes()
+    emit({"phase": "ipm_attributes", "attributes": ipm_attrs, "card": smi})
     # the float32 K4 and K4v without the CONVEX routes keep every value in
     # registers and shared memory (the launch bounds in cast_kernel.cuh)
     assert all(cast_attrs[k]["local_bytes"] == 0
@@ -809,6 +816,22 @@ def main():
         sc2, rA2.x.reshape(lanes, pnp_T, D)[:, -1].cpu().numpy())
     qps["transfer_qp1"] = capture(lambda: solve_batch_compact(
         specB2, dataB2, params, phase_qp_solves=8, device=dev), {0})[0]
+
+    def regrouped(qd, qset, c):
+        """The QP with its windows regrouped to superblocks of c steps (K6
+        at block size c b)."""
+        b = qset.kkt_block
+        nsb = qd.q.shape[1] // (b * c)
+
+        def rg(Bs, Gs):
+            out = [br.regroup(B, G, b, c, nsb) for B, G in zip(Bs, Gs)]
+            return tuple(B for B, _ in out), tuple(G for _, G in out)
+        Bh, Gh = rg(qd.Bh, qd.Gh)
+        Ba, Ga = rg(qd.Ba, qd.Ga)
+        return (qd._replace(Bh=Bh, Gh=Gh, Ba=Ba, Ga=Ga),
+                dataclasses.replace(qset, kkt_block=b * c))
+    for c in (2, 3):
+        qps[f"flagship_qp1_b{7 * c}"] = regrouped(*qps["flagship_qp1"], c)
 
     def qp_as(qd, dtype):
         return qd._replace(
@@ -1390,6 +1413,9 @@ def main():
         "convex_fw": "trajopt_tpu/collision/geometry.py:211",
     }
     source = {k: f"trajopt_tpu_torch/csrc/{k}.cu" for k in replaces}
+    # K6: ipm_banded.cu (float32; ipm_banded64.cu float64) over
+    # ipm_launch.cuh, its body ipm.cuh over banded.cuh (the warp factor and
+    # solves) and qmath.cuh
     # the cast kernels: instantiated in cast_seg.cu (cast_cvx.cu with the
     # CONVEX routes), launched by cast_kernel.cuh, their block's body in
     # cast_block.cuh (the team routines of the CONVEX routes too) over
@@ -1429,7 +1455,11 @@ def main():
         "batched_qp_solves_by_path": {"free_slice": qp_s, "flagship": qp_f,
                                       "pick_and_place": qp_p},
         "call_ms": timing["ipm_banded"]["call_ms"],
-        "library_ms_null_because": "no one PyTorch call solves this QP"}
+        "attributes": ipm_attrs,
+        "library_ms_null_because": "no one PyTorch call solves this QP",
+        "sources": [f"trajopt_tpu_torch/csrc/{f}" for f in (
+            "ipm_banded.cu", "ipm_banded64.cu", "ipm_launch.cuh", "ipm.cuh",
+            "banded.cuh", "qmath.cuh")]}
     for k, v in coll_err.items():
         errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
                    "max_abs_err_of": "D, all rows",

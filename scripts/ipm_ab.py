@@ -26,7 +26,8 @@ which prints per QP and dtype the largest |dx| difference per lane, the
 lanes whose x is bitwise equal, and the lanes whose status or iteration
 count differ.  ``--phases``: the mean clock64 cycles per CTA and IPM
 iteration of each of K6's timer phases (``ipm_qp.K6_PHASES``), float32,
-where ROOT's K6 has the timer.  ``--e2e``: the main paths' warm walls and
+where ROOT's K6 has the timer, and the factors and solves per iteration
+that took their fallback.  ``--e2e``: the main paths' warm walls and
 gated solves/s, counted as ``cast_ab.py --e2e`` counts them.  Exits
 non-zero when CUDA is not available.
 """
@@ -228,14 +229,21 @@ def main():
                                                                      plan))
             rec["iters_mean"][name] = float(sol.iters.double().mean())
             if a.phases and timed:
-                clk = torch.zeros((lanes, len(ipm_qp.K6_PHASES)),
-                                  dtype=torch.int64, device=dev)
+                nph = len(ipm_qp.K6_PHASES)
+                slots = getattr(ipm_qp, "K6_CLK_SLOTS", nph)
+                clk = torch.zeros((lanes, slots), dtype=torch.int64,
+                                  device=dev)
                 st_k = ipm_qp.ipm_banded_cuda(su, plan, clk=clk)
                 torch.cuda.synchronize()
                 its = float(st_k.it.double().sum())
-                cyc = (clk.double().sum(0) / its).tolist()
+                cyc = (clk[:, :nph].double().sum(0) / its).tolist()
                 rec["phase_cycles_per_cta_iteration"][name] = dict(
                     zip(ipm_qp.K6_PHASES, cyc), total=sum(cyc))
+                for k, chain in enumerate(("factor", "solve")):
+                    if nph + k < slots:  # the chains that took a fallback
+                        rec["phase_cycles_per_cta_iteration"][name][
+                            f"{chain}_fallbacks_per_iteration"] = float(
+                                clk[:, nph + k].double().sum()) / its
     if a.phases and not timed:
         rec["phase_cycles_per_cta_iteration"] = "this checkout's K6 has " \
             "no timer"
@@ -285,6 +293,8 @@ def main():
             wall = sum(walls) / len(walls)
             rec["e2e"][name] = dict(walls_s=walls, wall_s=wall, gated=n_ok,
                                     gated_solves_per_s=n_ok / wall)
+    if hasattr(ipm_qp, "kernel_attributes"):
+        rec["attributes"] = ipm_qp.kernel_attributes()
     rec.update(reps=a.reps, build_s=build_s, card=smi)
     print(json.dumps(rec), flush=True)
 

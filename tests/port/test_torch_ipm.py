@@ -12,9 +12,11 @@ K6 ``ipm_banded``'s device code runs here through its host build
 (``solve_ipm_qp_host``, csrc/ipm_host.cpp): against the plain loop it must
 give equal statuses and iteration counts and dx within 1e-10 of the
 largest |dx| (the same float64 Newton sequence, other sum orders), and
-against JAX the reference tolerance above; at block size 7 and at 14 (the
-fixture's rows regrouped to 2-step superblocks; against JAX with the hinge
-rows), and end to end through the SQP.
+against JAX the reference tolerance above; at block size 7, 14 and 21 (the
+fixture's rows regrouped to 2- and 3-step superblocks; against JAX with the
+hinge rows), on row groups whose windows cover a block from both halves in
+permuted order, with the rows and scratch in device memory as well as in
+the shared-memory array, and end to end through the SQP.
 """
 
 import jax.numpy as jnp
@@ -26,8 +28,9 @@ from trajopt_tpu.ops.ipm_qp import solve_ipm_qp as j_solve
 from trajopt_tpu.ops.prox_qp import ProxQPData as JData
 from trajopt_tpu.ops.qp import QPSettings as JSettings
 from trajopt_tpu_torch.ops.banded_rows import regroup, step_window
-from trajopt_tpu_torch.ops.ipm_qp import (band_plan, check_p_band,
-                                          solve_ipm_qp_host)
+from trajopt_tpu_torch.ops.ipm_qp import (_finish, _setup, band_plan,
+                                          check_p_band, cover_lists,
+                                          ipm_banded_host, solve_ipm_qp_host)
 from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp as t_solve
 from trajopt_tpu_torch.ops.prox_qp import ProxQPData as TData
 from trajopt_tpu_torch.ops.qp import QPSettings as TSettings
@@ -84,13 +87,13 @@ def _tdata(arrays, Bh, Gh, Ba, Ga):
                  Ga=tuple(torch.as_tensor(np.array(G)) for G in Ga))
 
 
-def _regrouped(rng, lanes, with_hinge):
-    """The fixture on 6 steps with its rows regrouped to superblocks of two
-    steps (block size 14)."""
+def _regrouped(rng, lanes, with_hinge, c=2):
+    """The fixture on 6 steps with its rows regrouped to superblocks of c
+    steps (block size 7 c)."""
     arrays, Bh, Gh, Ba, Ga = _problem(rng, lanes, with_hinge, nb=6)
 
     def rg(Bs, Gs):
-        out = [regroup(torch.as_tensor(B), G, B_SZ, 2, 3)
+        out = [regroup(torch.as_tensor(B), G, B_SZ, c, 6 // c)
                for B, G in zip(Bs, Gs)]
         return (tuple(B.numpy() for B, _ in out),
                 tuple(G.numpy() for _, G in out))
@@ -143,22 +146,23 @@ def test_ipm_matches_reference(with_hinge, tight):
     assert (sol.status >= 1).all()
 
 
-@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ])
+@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ, 3 * B_SZ])
 @pytest.mark.parametrize("with_hinge", [True, False])
 @pytest.mark.parametrize("tight", [False, True])
 def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
     """K6's device code (host build) against the plain loop and JAX."""
     lanes = 4
     rng = np.random.default_rng(7 + 2 * tight + with_hinge)
-    arrays, Bh, Gh, Ba, Ga = (_problem(rng, lanes, with_hinge) if b == B_SZ
-                              else _regrouped(rng, lanes, with_hinge))
+    arrays, Bh, Gh, Ba, Ga = (
+        _problem(rng, lanes, with_hinge) if b == B_SZ
+        else _regrouped(rng, lanes, with_hinge, b // B_SZ))
     kw = _settings(tight, b)
     tdata = _tdata(arrays, Bh, Gh, Ba, Ga)
     sol = solve_ipm_qp_host(tdata, TSettings(**kw))
     _assert_same_run(sol, t_solve(tdata, TSettings(**kw), device="cpu"),
                      HOST_TOL)
     if b != B_SZ and not with_hinge:
-        return  # JAX compiles b=14 for ~25 s: the hinge fixtures hold it
+        return  # JAX compiles b=14, 21 for ~25 s: the hinge fixtures hold it
     for z in range(lanes):
         jd = JData(**{k: jnp.asarray(v[z]) for k, v in arrays.items()},
                    A_h=None, A_a=None,
@@ -210,6 +214,41 @@ def test_k6_host_through_the_sqp(monkeypatch):
                                   ref.n_qp_solves.numpy())
     np.testing.assert_allclose(got.x.numpy(), ref.x.numpy(), rtol=0,
                                atol=1e-9)
+
+
+def test_k6_host_cover_lists_both_halves():
+    """Row groups whose windows come in permuted order and overlap, so
+    that a block's cover list holds windows of several groups from both
+    halves, not in block order: the cover lists keep row-group then window
+    order, and K6's host build matches the plain loop on them, with its
+    rows and scratch in the shared-memory array and in device memory alike,
+    and through the factor's and solves' fallback (bitwise)."""
+    lanes, b, nb = 3, B_SZ, NB
+    rng = np.random.default_rng(21)
+    arrays, _, _, Ba, Ga = _problem(rng, lanes, False)
+    Gh = (np.array([2, 0, 3, 1], np.int32), np.array([1, 1, 2], np.int32))
+    Bh = (rng.normal(size=(lanes, 4, 3, 2 * b)),
+          rng.normal(size=(lanes, 3, 2, 2 * b)))
+    mh = 4 * 3 + 3 * 2
+    arrays.update(e_h=rng.normal(size=(lanes, mh)),
+                  w_h=rng.uniform(1, 20, (lanes, mh)))
+    cover = cover_lists(((4, 3), (3, 2)), Gh, nb)
+    # block 2: group 0's window 0 (start 2) and window 3 (start 1), then
+    # group 1's window 1 (start 1) ... in row-group then window order
+    assert cover[2] == [(0, 3, 0), (9, 3, 1), (12, 2, 1), (14, 2, 1),
+                        (16, 2, 0)]
+    assert {h for _, _, h in cover[2]} == {0, 1}
+    tdata = _tdata(arrays, Bh, Gh, Ba, Ga)
+    for tight in (False, True):
+        st = TSettings(**_settings(tight))
+        sol = solve_ipm_qp_host(tdata, st)
+        _assert_same_run(sol, t_solve(tdata, st, device="cpu"), HOST_TOL)
+        su = _setup(tdata, st)
+        plan = band_plan(tdata, b)
+        dev_mem = _finish(su, ipm_banded_host(su, plan, smem=(0, 0)))
+        _assert_same_run(dev_mem, sol, 0.0)
+        exact = _finish(su, ipm_banded_host(su, plan, fallback=True))
+        _assert_same_run(exact, sol, 0.0)
 
 
 def test_p_band_check():

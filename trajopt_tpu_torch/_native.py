@@ -11,9 +11,11 @@ launches its kernel, and nowhere else.  A source's library is named by a
 hash of the source, the headers of ``csrc/`` and its flags.
 
 ``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' block
-code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's) for the CPU with the
-host's C++ compiler, for checking that code against the plain PyTorch
-version without a card.
+code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
+three sources: ``ipm_banded`` float32, ``ipm_banded64`` float64 and
+``ipm_timer`` float32 with the phase timer) for the CPU with the host's
+C++ compiler, for checking that code against the plain PyTorch version
+without a card.
 """
 
 from __future__ import annotations
@@ -54,7 +56,12 @@ _SIGNATURES = {
                  for s in ("f32", "f64")]
     + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")]
     + [("cast_cvx_attrs", [_I, _P])],
-    "ipm_banded": [(f"ipm_banded_{s}", [_P, _P]) for s in ("f32", "f64")],
+    # K6: float32, float64, and float32 with the phase timer
+    "ipm_banded": [("ipm_banded_f32", [_P, _P]),
+                   ("ipm_banded_attrs", [_I, _P])],
+    "ipm_banded64": [("ipm_banded_f64", [_P, _P]),
+                     ("ipm_banded64_attrs", [_I, _P])],
+    "ipm_timer": [("ipm_banded_timed_f32", [_P, _P])],
 }
 SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # extra nvcc flags per source: the cast kernels keep every multiply and add
@@ -62,7 +69,8 @@ SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # so that their argmin decisions agree wherever there is no tie; so does
 # K6 ipm_banded, whose float64 iterates are held to the plain loop's
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
-                "ipm_banded": ["-fmad=false"]}
+                "ipm_banded": ["-fmad=false"], "ipm_banded64": ["-fmad=false"],
+                "ipm_timer": ["-fmad=false"]}
 
 # kernel name -> launch count; the cast sources hold three kernels
 # (``cast_cvx`` their CVX instantiations, with the CONVEX routes, and the
@@ -102,7 +110,9 @@ HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
 _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx")
                                    for sig in _SIGNATURES[src]
                                    if not sig[0].endswith("_attrs")],
-                    "ipm_host": _SIGNATURES["ipm_banded"]}
+                    "ipm_host": [sig for src in ("ipm_banded", "ipm_banded64")
+                                 for sig in _SIGNATURES[src]
+                                 if not sig[0].endswith("_attrs")]}
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:
@@ -165,23 +175,27 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def host_library(name: str) -> ctypes.CDLL:
+def host_library(name: str, defines=()) -> ctypes.CDLL:
     """The loaded host build ``csrc/{name}.cpp`` (compiled at first use
-    with the C++ compiler ``$CXX``, else ``c++``)."""
-    lib = _LIBS.get(name)
+    with the C++ compiler ``$CXX``, else ``c++``), with the preprocessor
+    ``defines`` (``-D`` each; ``QM_TEST_FALLBACK``: every flagged fast path
+    of csrc/qmath.cuh reports that it did not hold)."""
+    flags = HOST_FLAGS + [f"-D{d}" for d in defines]
+    key = (name,) + tuple(defines)
+    lib = _LIBS.get(key)
     if lib is None:
-        path = _lib_path(name, ".cpp", HOST_FLAGS)
+        path = _lib_path(name, ".cpp", flags)
         if not path.exists():
             cxx = os.environ.get("CXX") or shutil.which("c++")
             if not cxx:
                 raise RuntimeError("no C++ compiler for the host build")
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            subprocess.run([cxx, *HOST_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+            subprocess.run([cxx, *flags, "-I", str(CSRC), "-o", str(tmp),
                             str(CSRC / f"{name}.cpp")], check=True,
                            capture_output=True)
             os.replace(tmp, path)
-        lib = _LIBS[name] = _load(path, _HOST_SIGNATURES[name])
+        lib = _LIBS[key] = _load(path, _HOST_SIGNATURES[name])
     return lib
 
 

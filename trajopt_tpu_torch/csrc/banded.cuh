@@ -14,9 +14,15 @@
 // is LD (T, b, b) lower with zeros above the diagonal, LM (T-1, b, b).
 // Row groups are those of ops.banded_rows: B (n_g, r, 2b) windows over
 // column blocks G[g] and G[g] + 1.
+//
+// K6 runs its factor and solves through the warp versions at the end of
+// this file (btd_factor_warp, btd_solve_warp): the same arithmetic as K2's
+// and K3's, with the rows in registers.
 #pragma once
 
 #include <math.h>
+
+#include "qmath.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -253,6 +259,228 @@ BHD void btd_solve_lane(const T* LD, const T* LM, const T* r, T* x, int nT,
     bwd_step<T, BS, NT>(LD + (long)t * BB,
                         t < nT - 1 ? LM + (long)t * BB : nullptr, x + t * BS,
                         t < nT - 1 ? x + (t + 1) * BS : x, x + t * BS, tid);
+}
+
+// ------------------------------------------------- K2, K3: K6's warp form
+//
+// The block Cholesky and the block solves as K6 runs them on one warp:
+// the same arithmetic as btd_factor_inplace and btd_solve_lane, every sum
+// in the same order, but with the rows in registers and no branch in the
+// chains.  Row r of a block is held by member r % NT in slot r / NT (V =
+// ceil(BS / NT) slots: one on the card, where NT = 32 > b, BS on the host,
+// where NT = 1); a value of another member's row comes by team_bcast (a
+// warp shuffle).  A float division by a pivot L[j, j] takes its reciprocal
+// refined once (qm::qrcp, kept in rc beside the factor), and every float
+// division and root takes qmath's fast path with a flag (qdiv_f,
+// qsqrt_f), so the chains hold no branch: a factor or solve whose flag is
+// cleared (an operand out of the fast path's range) returns false, and the
+// caller does it again, whole, with btd_factor_inplace / btd_solve_lane
+// (the operators), so the results are those of the operators bit for bit.
+// Only D's lower triangle is read or written.
+
+// every member's flag, and-ed over the team
+template <int NT>
+BHD bool team_all(bool ok) {
+#ifdef __CUDA_ARCH__
+  if (NT > 1) return __all_sync(0xffffffffu, ok);
+#endif
+  return ok;
+}
+
+// The triangular solve of one b-step in registers: L x = s (LOWER, the
+// terms subtracted in column order) or L^T x = s (the terms subtracted
+// from the last column down); s is consumed; ok cleared where a fast path
+// does not hold.
+template <typename T, int BS, bool LOWER>
+BHD void tri_solve(T (&s)[BS], const T* L, const T* rcp, T (&x)[BS],
+                   bool& ok) {
+#pragma unroll
+  for (int jj = 0; jj < BS; ++jj) {
+    const int j = LOWER ? jj : BS - 1 - jj;
+    const T xj = qm::qdiv_f(s[j], L[j * BS + j], rcp[j], ok);
+    x[j] = xj;
+    if (LOWER) {
+#pragma unroll
+      for (int i = j + 1; i < BS; ++i) s[i] -= L[i * BS + j] * xj;
+    } else {
+#pragma unroll
+      for (int i = 0; i < j; ++i) s[i] -= L[j * BS + i] * xj;
+    }
+  }
+}
+
+// The Cholesky of the lower triangle of A (my rows), column by column, in
+// place
+template <typename T, int BS, int NT>
+BHD void chol_rows(T (&A)[(BS + NT - 1) / NT][BS], T tiny, int tid,
+                   bool& ok) {
+  constexpr int V = (BS + NT - 1) / NT;
+#pragma unroll
+  for (int j = 0; j < BS; ++j) {
+    T s = A[j / NT][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s -= A[j / NT][k] * A[j / NT][k];
+    s = s > tiny ? s : tiny;
+    bool okj = true;
+    const T d = qm::qsqrt_f(s, okj);
+    ok = ok & (okj | (tid != j % NT));
+    const T ljj = team_bcast<NT>(d, j % NT);
+    T ljk[BS > 1 ? BS - 1 : 1];
+#pragma unroll
+    for (int k = 0; k < j; ++k) ljk[k] = team_bcast<NT>(A[j / NT][k], j % NT);
+    const T inv = qm::qdiv_f(T(1), ljj, qm::qrcp(ljj), ok);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT;
+      T r = A[v][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) r -= A[v][k] * ljk[k];
+      if (i > j) A[v][j] = r * inv;
+      if (i == j) A[v][j] = ljj;
+    }
+  }
+}
+
+// One block step of the factor: M <- M Lp^{-T} (M = O[t-1] in place; Lp,
+// rcp the previous block's factor), A <- Dt - M M^T, Dt <- chol(A) in
+// place, rct its pivots' reciprocals.  t = 0: Dt <- chol(Dt) alone.  A
+// member past the block's last row works on that row too and stores
+// nothing, so no branch splits the warp.
+template <typename T, int BS, int NT>
+BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
+                     int tid, bool& ok) {
+  constexpr int V = (BS + NT - 1) / NT;
+  T A[V][BS];
+  if (M != nullptr) {
+    T m[V][BS];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
+      T row[BS];
+#pragma unroll
+      for (int j = 0; j < BS; ++j) row[j] = M[ic * BS + j];
+      bool okr = true;
+      tri_solve<T, BS, true>(row, Lp, rcp, m[v], okr);
+      ok = ok & (okr | (i >= BS));
+    }
+    WSYNC();
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT;
+      if (i < BS) {
+#pragma unroll
+        for (int j = 0; j < BS; ++j) M[i * BS + j] = m[v][j];
+      }
+    }
+    WSYNC();
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
+#pragma unroll
+      for (int j = 0; j < BS; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k < BS; ++k) acc += m[v][k] * M[j * BS + k];
+        A[v][j] = j <= ic ? Dt[ic * BS + j] - acc : T(0);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
+#pragma unroll
+      for (int j = 0; j < BS; ++j) A[v][j] = j <= ic ? Dt[ic * BS + j] : T(0);
+    }
+  }
+  chol_rows<T, BS, NT>(A, tiny, tid, ok);
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = tid + v * NT;
+    if (i < BS) {
+#pragma unroll
+      for (int j = 0; j < BS; ++j)
+        if (j <= i) Dt[i * BS + j] = A[v][j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < BS; ++j)
+    if (tid == j % NT) rct[j] = qm::qrcp(A[j / NT][j]);
+  WSYNC();
+}
+
+// The whole factor of one lane in place: D -> LD (lower), O -> LM, rc
+// (nT, BS) the pivots' reciprocals.  Returns false (on every member) where
+// a fast path did not hold: the caller then assembles D and O again and
+// factors them with btd_factor_inplace.
+template <typename T, int BS, int NT>
+BHD bool btd_factor_warp(T* D, T* O, T* rc, int nT, T tiny, int tid) {
+  constexpr int BB = BS * BS;
+  bool ok = true;
+  factor_step<T, BS, NT>(nullptr, nullptr, nullptr, D, rc, tiny, tid, ok);
+  for (int t = 1; t < nT; ++t)
+    factor_step<T, BS, NT>(D + (long)(t - 1) * BB, rc + (t - 1) * BS,
+                           O + (long)(t - 1) * BB, D + (long)t * BB,
+                           rc + t * BS, tiny, tid, ok);
+  return team_all<NT>(ok);
+}
+
+// One b-step's right-hand side gathered to every member: s = v - M u
+// (TRANS: v - M^T u; no M at the chain's first step), row i formed by its
+// owner (a member past the last row repeats that row)
+template <typename T, int BS, int NT, bool TRANS>
+BHD void gather_rhs(const T* v, const T* M, const T (&u)[BS], T (&s)[BS],
+                    int tid) {
+  constexpr int V = (BS + NT - 1) / NT;
+  T part[V];
+#pragma unroll
+  for (int w = 0; w < V; ++w) {
+    const int i = tid + w * NT, ic = i < BS ? i : BS - 1;
+    T si = v[ic];
+    if (M != nullptr) {
+      T acc = T(0);
+#pragma unroll
+      for (int c = 0; c < BS; ++c)
+        acc += (TRANS ? M[c * BS + ic] : M[ic * BS + c]) * u[c];
+      si = si - acc;
+    }
+    part[w] = si;
+  }
+#pragma unroll
+  for (int j = 0; j < BS; ++j) s[j] = team_bcast<NT>(part[j / NT], j % NT);
+}
+
+// K x = r for one lane from the factor (LD, LM, rc); x (T, b) may not be
+// r.  Each b-step's right-hand side is formed row by row, gathered to
+// every member, and the triangular solve runs in every member's
+// registers.  The owner of row i stores it and is the only member that
+// reads it back, so the forward solve's y lies in x with no barrier.
+// Returns false (on every member) where a fast path did not hold: the
+// caller then solves again with btd_solve_lane.
+template <typename T, int BS, int NT>
+BHD bool btd_solve_warp(const T* LD, const T* LM, const T* rc, const T* r,
+                        T* x, int nT, int tid) {
+  constexpr int BB = BS * BS;
+  T xv[BS], s[BS];
+  bool ok = true;
+  // forward: y_t = L_t^{-1} (r_t - M_t y_{t-1})
+  for (int t = 0; t < nT; ++t) {
+    gather_rhs<T, BS, NT, false>(
+        r + t * BS, t > 0 ? LM + (long)(t - 1) * BB : nullptr, xv, s, tid);
+    tri_solve<T, BS, true>(s, LD + (long)t * BB, rc + t * BS, xv, ok);
+#pragma unroll
+    for (int j = 0; j < BS; ++j)
+      if (tid == j % NT) x[t * BS + j] = xv[j];
+  }
+  // backward: x_t = L_t^{-T} (y_t - M_{t+1}^T x_{t+1})
+  for (int t = nT - 1; t >= 0; --t) {
+    gather_rhs<T, BS, NT, true>(
+        x + t * BS, t < nT - 1 ? LM + (long)t * BB : nullptr, xv, s, tid);
+    tri_solve<T, BS, false>(s, LD + (long)t * BB, rc + t * BS, xv, ok);
+#pragma unroll
+    for (int j = 0; j < BS; ++j)
+      if (tid == j % NT) x[t * BS + j] = xv[j];
+  }
+  return team_all<NT>(ok);
 }
 
 }  // namespace banded

@@ -6,35 +6,45 @@
 // :373-511, cond :513-514, while_loop :516-520, make_kkt_solve :321-371);
 // its plain PyTorch counterpart is ops/ipm_qp.py's _loop_plain.  Per
 // iteration, in the plain loop's order: the barrier diagonals; the block
-// assembly of K = P + Jh' Dh Jh + Ja' Da Ja + Dbox (K1's
-// banded::bb_quad_entry per row group) and the relative regularization;
-// the block Cholesky (K2's steps, in place); the residuals and mu; the
-// predictor and corrector Newton solves (K3's steps), each with one
-// refinement step against the exact condensed matrix; the step lengths and
-// sigma; the NaN-guarded update; best-iterate tracking by the exact
-// composite objective; the unscaled termination test.  A lane leaves its
-// loop when its status is set or it reaches max_iter, so a stopped lane
-// never changes again.  The set-up (pinned-coordinate elimination, column
-// and row scaling, the cost scale c, P's blocks, f(0)) and the teardown run
-// in PyTorch in the wrapper (ops/ipm_qp.py).
+// assembly of K = P + Jh' Dh Jh + Ja' Da Ja + Dbox (K1's sums, over each
+// block's cover list) and the relative regularization; the block Cholesky
+// (K2's steps, banded::btd_factor_warp); the residuals and mu; the
+// predictor and corrector Newton solves (K3's steps,
+// banded::btd_solve_warp), each with one refinement step against the
+// exact condensed matrix; the step lengths and sigma; the NaN-guarded
+// update; best-iterate tracking by the exact composite objective; the
+// unscaled termination test.  A lane leaves its loop when its status is
+// set or it reaches max_iter, so a stopped lane never changes again.  The
+// set-up (pinned-coordinate elimination, column and row scaling, the cost
+// scale c, P's blocks, f(0)) and the teardown run in PyTorch in the
+// wrapper (ops/ipm_qp.py).
 //
 // Team: every phase is a strided loop over a thread team (`tid` of
 // `nthr`): rows i = tid, tid + nthr, ... of each row kind, columns
 // likewise, so a row or column always has the same owner and no two
 // members write one entry.  TEAM_SYNC separates phases that read what
 // another member wrote.  The factor and the solves run on the first WT
-// members (one warp on the card, banded.cuh's warp-synchronous b-steps).
-// On the card the team is the CTA (ipm_banded.cu); in the host build
-// (ipm_host.cpp) it is one thread and TEAM_SYNC is empty.
+// members (one warp on the card).  On the card the team is the CTA
+// (ipm_banded.cu); in the host build (ipm_host.cpp) it is one thread and
+// TEAM_SYNC is empty.
 //
 // Sums: every sum runs in a fixed order (a row's window in column order,
-// Jh' w by column over the row groups in row order, reductions in a fixed
-// tree), no atomics; min, max and clamp propagate NaN as torch does.
+// Jh' w by column over the windows that cover its block in row-group then
+// window order, reductions in a fixed tree), no atomics; min, max and
+// clamp propagate NaN as torch does.  Divisions and square roots are
+// qm::qdiv / qm::qsqrt (correctly rounded, as the operators).
 //
-// Memory per lane: D, O (factored in place) and the n-vectors in shared
-// memory (smem_elems); the rows (scaled for the Newton system, raw for
-// the composite objective) and the m-vectors in device memory (the
-// scratch holds 12 vectors per row kind).
+// Cover lists (ops.ipm_qp.band_plan): for each column block t, the windows
+// that cover it, as (first row, rows, half) in row-group then window order
+// (half 0: the window starts at t; half 1: at t - 1).  Block t's column
+// sums and D[t] visit only those windows, and O[t] their half-0 entries.
+//
+// Memory per lane: D (lower triangle), O, the pivots' reciprocals and the
+// n-vectors in shared memory; the lane's scaled rows and its scratch
+// m-vectors (12 per row kind) in shared memory where the launcher's budget
+// holds them (Args::smem_rows, smem_scr; smem_layout), else in device
+// memory; the raw rows, the per-row inputs and the m-vector state in
+// device memory.
 #pragma once
 
 #include "banded.cuh"
@@ -53,6 +63,8 @@
 
 namespace ipm {
 
+using qm::qdiv;
+
 enum { QP_UNSOLVED = 0, QP_SOLVED = 1, QP_SOLVED_INACCURATE = 2,
        QP_MAX_ITER = 3 };
 constexpr int N_SMEM_VEC = 17;  // n-vectors in shared memory
@@ -62,23 +74,28 @@ constexpr int N_RED = 14;       // values of the widest team reduction
 // The launch arguments (ctypes mirror: ops.ipm_qp._K6Args).  Per-lane
 // arrays are lane-major and contiguous; the int tables are shared.
 struct Args {
-  int lanes, n, b, nb, mh, ma, ngr_h, ngr_a, max_iter, pad;
+  int lanes, n, b, nb, mh, ma, max_iter;
+  // where the scaled rows and the scratch live: 1 shared memory, 0 device
+  // memory (the card's launcher sets both from its budget and writes its
+  // choice back; the host build takes them as given)
+  int smem_rows, smem_scr;
   double eps_abs, eps_rel;
   // P blocks: scaled and masked (PD, PO) and raw (RD, RO); q scaled and
   // raw; the IPM's bounds (pinned coordinates at -1, 1) and the raw ones;
   // cf (lanes, 2): c, f(0)
   const void *PD, *PO, *RD, *RO, *q, *qr, *lb, *ub, *lbr, *ubr, *cf;
   // per row kind: rows (m, 2b) scaled S and raw R, scaled e and w, raw
-  // e and w; rowG (m) window start block of each row; gtab (ngr, 4) per
-  // row group: first row, n_g, r, offset of its window starts in G
+  // e and w; rowG (m) window start block of each row; cov the cover lists:
+  // offsets (nb + 1), then (first row, rows, half) per entry
   const void *Sh, *Rh, *eh, *wh, *ehr, *whr;
   const void *Sa, *Ra, *ea, *wa, *ear, *war;
-  const int *rowGh, *gtabh, *Gh, *rowGa, *gtaba, *Ga;
+  const int *rowGh, *covh, *rowGa, *cova;
   // outputs: the final iterate, the incumbent, per-lane scalars; scratch
   void *dx, *z5, *z6, *dxb, *h, *z1, *p, *nn, *y, *rp, *rd, *fb, *scr;
   int *it, *status;
-  // the phase timer (card only; null: off): N_PHASES clock64 sums per
-  // lane, each phase's cycles on thread 0 summed over the lane's iterations
+  // the phase timer (card only; null: off): N_PHASES + 2 per lane, each
+  // phase's clock64 cycles on thread 0 summed over the lane's iterations,
+  // then the counts of factors and of solves that took their fallback
   long long* clk;
 };
 
@@ -87,8 +104,26 @@ enum { PH_DIAG, PH_ASSEMBLY, PH_FACTOR, PH_RESID, PH_PRED_PASS,
        PH_PRED_SOLVE, PH_CORR_PASS, PH_CORR_SOLVE, PH_UPDATE, PH_OBJECTIVE,
        N_PHASES };
 
-BHD long smem_elems(int n, int b, int nb) {
-  return (long)(2 * nb - 1) * b * b + (long)N_SMEM_VEC * n + N_RED * 32;
+// A lane's shared memory, in elements of T: D, O, the pivots'
+// reciprocals, the n-vectors, the reduction buffer, the factor's flag;
+// then, as planned, the scaled rows (hinge, abs) and the scratch.
+struct Layout {
+  long o_O, o_rc, o_v, o_red, o_flag, o_Sh, o_Sa, o_scr, total;
+};
+
+BHD Layout smem_layout(int n, int b, int nb, int mh, int ma, bool rows,
+                       bool scr) {
+  Layout L;
+  L.o_O = (long)nb * b * b;
+  L.o_rc = L.o_O + (long)(nb - 1) * b * b;
+  L.o_v = L.o_rc + (long)nb * b;
+  L.o_red = L.o_v + (long)N_SMEM_VEC * n;
+  L.o_flag = L.o_red + N_RED * 32;
+  L.o_Sh = L.o_flag + 1;
+  L.o_Sa = L.o_Sh + (rows ? (long)mh * 2 * b : 0);
+  L.o_scr = L.o_Sa + (rows ? (long)ma * 2 * b : 0);
+  L.total = L.o_scr + (scr ? (long)N_SCR_VEC * (mh + ma) : 0);
+  return L;
 }
 
 template <typename T>
@@ -118,15 +153,19 @@ BHD void team_reduce(T* red, T* sums, T* maxs, int tid, int nthr) {
       maxs[k] = nmax(maxs[k], __shfl_down_sync(0xffffffffu, maxs[k], o));
   }
   if (lane == 0) {
+#pragma unroll
     for (int k = 0; k < KS; ++k) red[k * 32 + warp] = sums[k];
+#pragma unroll
     for (int k = 0; k < KM; ++k) red[(KS + k) * 32 + warp] = maxs[k];
   }
   __syncthreads();
+#pragma unroll
   for (int k = 0; k < KS; ++k) {
     T a = red[k * 32];
     for (int w = 1; w < nw; ++w) a += red[k * 32 + w];
     sums[k] = a;
   }
+#pragma unroll
   for (int k = 0; k < KM; ++k) {
     T a = red[(KS + k) * 32];
     for (int w = 1; w < nw; ++w) a = nmax(a, red[(KS + k) * 32 + w]);
@@ -145,35 +184,64 @@ BHD T rowdot(const T* row, const T* v, int w) {
   return s;
 }
 
-// One row kind (hinge or abs) of one lane.
+// One row kind (hinge or abs) of one lane: its rows, inputs, tables and
+// scratch, each scratch vector by name (the predictor's steps at [0], the
+// corrector's at [1]).
 template <typename T>
 struct Rows {
-  int m, ngr;
+  int m;
   const T *S, *R, *e, *w, *er, *wr;
-  const int *rowG, *gtab, *G;
-  T *s[N_SCR_VEC];  // scratch m-vectors
+  const int *rowG, *cov;
+  // hinge: s1, z2, den, dhd, bh, jvh; abs: z3, z4, da, ba, re, jva
+  T *v0, *v1, *v2, *v3, *v4, *v5;
+  // hinge: dz1, dh, ds1; abs: dy, dp, dnn
+  T *d0[2], *d1[2], *d2[2];
 };
 
-// Column (t, i) of A' (u * w) (u may be null): each row group's window
-// groups that cover block t, their r rows summed first, in row order.
+// Column (t, i) of A' (u * w) (u may be null): the windows that cover
+// block t, their r rows summed first, in row order.
 template <typename T>
-BHD T rmv_col(const Rows<T>& K, const T* w, const T* u, int b, int t, int i) {
+BHD T rmv_col(const Rows<T>& K, const T* w, const T* u, int b, int nb, int t,
+              int i) {
   T acc = T(0);
   const int ww = 2 * b;
-  for (int gr = 0; gr < K.ngr; ++gr) {
-    const int* g4 = K.gtab + 4 * gr;
-    const int* G = K.G + g4[3];
-    for (int g = 0; g < g4[1]; ++g) {
-      const int Gg = G[g];
-      const int half = Gg == t ? 0 : (Gg + 1 == t ? 1 : -1);
-      if (half < 0) continue;
-      const int r0 = g4[0] + g * g4[2];
-      const T* B = K.S + (long)r0 * ww + half * b + i;
-      T s = T(0);
-      for (int k = 0; k < g4[2]; ++k)
-        s += B[(long)k * ww] * (u ? u[r0 + k] * w[r0 + k] : w[r0 + k]);
-      acc += s;
+  const int* ent = K.cov + nb + 1;
+  for (int e = K.cov[t]; e < K.cov[t + 1]; ++e) {
+    const int r0 = ent[3 * e], r = ent[3 * e + 1], half = ent[3 * e + 2];
+    const T* B = K.S + (long)r0 * ww + half * b + i;
+    const T* wk = w + r0;
+    T s = T(0);
+    if (u) {
+      const T* uk = u + r0;
+#pragma unroll 4
+      for (int k = 0; k < r; ++k) s += B[(long)k * ww] * (uk[k] * wk[k]);
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < r; ++k) s += B[(long)k * ww] * wk[k];
     }
+    acc += s;
+  }
+  return acc;
+}
+
+// Entry (t, i, j) of D (isD) or O of A' diag(d) A, added to acc: the
+// windows that cover block t (O: those that start at t), each window's r
+// rows summed first, in row order (K1's bb_quad_entry over every group).
+template <typename T>
+BHD T quad_entry(const Rows<T>& K, const T* d, int b, int nb, bool isD,
+                 int t, int i, int j, T acc) {
+  const int w = 2 * b;
+  const int* ent = K.cov + nb + 1;
+  for (int e = K.cov[t]; e < K.cov[t + 1]; ++e) {
+    const int r0 = ent[3 * e], r = ent[3 * e + 1], half = ent[3 * e + 2];
+    if (!isD && half != 0) continue;
+    const int wi = (isD ? half * b : b) + i, wj = (isD ? half * b : 0) + j;
+    const T* Bg = K.S + (long)r0 * w;
+    const T* dg = d + r0;
+    T s = T(0);
+#pragma unroll 4
+    for (int k = 0; k < r; ++k) s += Bg[k * w + wi] * dg[k] * Bg[k * w + wj];
+    acc += s;
   }
   return acc;
 }
@@ -196,12 +264,13 @@ BHD T pmv(const T* PD, const T* PO, const T* v, int nb, int t, int i) {
   return acc;
 }
 
-template <typename T, int BS, int WT>
+template <typename T, int BS, int WT, bool TIMED>
 struct Lane {
   int tid, nthr, n, nb, max_iter;
   T eps_abs, eps_rel, c, fzero;
   // shared memory
-  T *D, *O, *red;
+  T *D, *O, *rc, *red;
+  int* flag;  // the factor's fast paths did not hold
   T *dx, *z5, *z6, *lb, *ub, *q, *dbox, *rdx, *rhs, *ddxa, *dz5a, *dz6a,
       *ddx, *dz5, *dz6, *tmp, *tmp2;
   // device memory
@@ -209,23 +278,8 @@ struct Lane {
   T *odx, *oz5, *oz6, *dxb;
   Rows<T> H, A;
   T *h, *z1, *p, *nn, *y;
-  long long* clk;  // this lane's N_PHASES timer sums, or null
+  long long* clk;  // this lane's timer sums and fallbacks (TIMED)
   long long t_last;
-
-  // scratch names (hinge)
-  BHD T* s1() const { return H.s[0]; }
-  BHD T* z2() const { return H.s[1]; }
-  BHD T* den() const { return H.s[2]; }
-  BHD T* dhd() const { return H.s[3]; }
-  BHD T* bh() const { return H.s[4]; }
-  BHD T* jvh() const { return H.s[5]; }
-  // (abs)
-  BHD T* z3() const { return A.s[0]; }
-  BHD T* z4() const { return A.s[1]; }
-  BHD T* da() const { return A.s[2]; }
-  BHD T* ba() const { return A.s[3]; }
-  BHD T* re() const { return A.s[4]; }
-  BHD T* jva() const { return A.s[5]; }
 
   static BHD T tiny() { return sizeof(T) == 8 ? T(1e-30) : T(1e-25); }
   static BHD T dcap() { return sizeof(T) == 8 ? T(1e14) : T(1e10); }
@@ -237,10 +291,16 @@ struct Lane {
   BHD T adot(int i, const T* v) const {
     return rowdot(A.S + (long)i * 2 * BS, v + A.rowG[i] * BS, 2 * BS);
   }
+  BHD T hcol(const T* w, const T* u, int t, int i) const {
+    return rmv_col(H, w, u, BS, nb, t, i);
+  }
+  BHD T acol(const T* w, const T* u, int t, int i) const {
+    return rmv_col(A, w, u, BS, nb, t, i);
+  }
 
   // the step-length candidate of (v, dv), folded into the running -min
   static BHD void step_cand(T& negmin, T v, T dv) {
-    if (dv < T(0)) negmin = nmax(negmin, -((T(-0.99) * v) / dv));
+    if (dv < T(0)) negmin = nmax(negmin, -qdiv(T(-0.99) * v, dv));
   }
 
   BHD void sync() const { TEAM_SYNC(); }
@@ -248,7 +308,7 @@ struct Lane {
   // the timer: thread 0 adds the cycles since the last stamp to phase ph
   BHD void stamp(int ph) {
 #ifdef __CUDA_ARCH__
-    if (clk != nullptr && tid == 0) {
+    if (TIMED && tid == 0) {
       const long long t = clock64();
       clk[ph] += t - t_last;
       t_last = t;
@@ -258,105 +318,159 @@ struct Lane {
 #endif
   }
 
-  BHD void solve(const T* r, T* x) const {
-    if (tid < WT) banded::btd_solve_lane<T, BS, WT>(D, O, r, x, nb, tid);
+  // the timer's counts of chains that took their fallback (0: the
+  // factor, 1: a solve)
+  BHD void count_fallback(int which) {
+    if (TIMED && tid == 0) clk[N_PHASES + which] += 1;
+  }
+
+  BHD void solve(const T* r, T* x) {
+    if (tid < WT &&
+        !banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid)) {
+      banded::btd_solve_lane<T, BS, WT>(D, O, r, x, nb, tid);
+      count_fallback(1);
+    }
     sync();
   }
 
-  // the complementarity right-hand sides of the predictor (corr false)
+  // hinge scratch
+  BHD T* s1() const { return H.v0; }
+  BHD T* z2() const { return H.v1; }
+  BHD T* den() const { return H.v2; }
+  BHD T* dhd() const { return H.v3; }
+  BHD T* bh() const { return H.v4; }
+  BHD T* jvh() const { return H.v5; }
+  // abs scratch
+  BHD T* z3() const { return A.v0; }
+  BHD T* z4() const { return A.v1; }
+  BHD T* da() const { return A.v2; }
+  BHD T* ba() const { return A.v3; }
+  BHD T* re() const { return A.v4; }
+  BHD T* jva() const { return A.v5; }
+
+  // the complementarity right-hand sides of the predictor (CORR false)
   // and of the corrector (Mehrotra's second-order terms from the
-  // predictor's step, stored in H.s[6..8], A.s[6..8], ddxa, dz5a, dz6a)
-  BHD T rc1(int i, bool corr, T smu) const {
-    return corr ? (smu - z1[i] * s1()[i]) - H.s[6][i] * H.s[8][i]
+  // predictor's step: [0] of the step vectors, ddxa, dz5a, dz6a)
+  template <bool CORR>
+  BHD T rc1(int i, T smu) const {
+    return CORR ? (smu - z1[i] * s1()[i]) - H.d0[0][i] * H.d2[0][i]
                 : -z1[i] * s1()[i];
   }
-  BHD T rc2(int i, bool corr, T smu) const {
-    return corr ? (smu - z2()[i] * h[i]) - (-H.s[6][i]) * H.s[7][i]
+  template <bool CORR>
+  BHD T rc2(int i, T smu) const {
+    return CORR ? (smu - z2()[i] * h[i]) - (-H.d0[0][i]) * H.d1[0][i]
                 : -z2()[i] * h[i];
   }
-  BHD T rc3(int i, bool corr, T smu) const {
-    return corr ? (smu - z3()[i] * p[i]) - (-A.s[6][i]) * A.s[7][i]
+  template <bool CORR>
+  BHD T rc3(int i, T smu) const {
+    return CORR ? (smu - z3()[i] * p[i]) - (-A.d0[0][i]) * A.d1[0][i]
                 : -z3()[i] * p[i];
   }
-  BHD T rc4(int i, bool corr, T smu) const {
-    return corr ? (smu - z4()[i] * nn[i]) - A.s[6][i] * A.s[8][i]
+  template <bool CORR>
+  BHD T rc4(int i, T smu) const {
+    return CORR ? (smu - z4()[i] * nn[i]) - A.d0[0][i] * A.d2[0][i]
                 : -z4()[i] * nn[i];
   }
-  BHD T rc5(int k, bool corr, T smu) const {
-    return corr ? (smu - z5[k] * (dx[k] - lb[k])) - dz5a[k] * ddxa[k]
+  template <bool CORR>
+  BHD T rc5(int k, T smu) const {
+    return CORR ? (smu - z5[k] * (dx[k] - lb[k])) - dz5a[k] * ddxa[k]
                 : -z5[k] * (dx[k] - lb[k]);
   }
-  BHD T rc6(int k, bool corr, T smu) const {
-    return corr ? (smu - z6[k] * (ub[k] - dx[k])) - dz6a[k] * (-ddxa[k])
+  template <bool CORR>
+  BHD T rc6(int k, T smu) const {
+    return CORR ? (smu - z6[k] * (ub[k] - dx[k])) - dz6a[k] * (-ddxa[k])
                 : -z6[k] * (ub[k] - dx[k]);
   }
 
-  // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D, O), then its
-  // block Cholesky in place
-  IHD void assemble_factor() {
-    constexpr int BB = BS * BS;
-    const int nD = nb * BB, nO = (nb - 1) * BB;
+  // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D's lower triangle,
+  // O)
+  IHD void assemble() {
+    constexpr int BB = BS * BS, LT = BS * (BS + 1) / 2;
+    const int nDl = nb * LT, nO = (nb - 1) * BB;
     T dm[1] = {T(-INFINITY)};
-    for (int e = tid; e < nD + nO; e += nthr) {
-      const bool isD = e < nD;
-      const int ee = isD ? e : e - nD;
-      const int t = ee / BB, i = (ee % BB) / BS, j = ee % BS;
-      T acc = isD ? PD[ee] + (i == j ? dbox[t * BS + i] : T(0)) : PO[ee];
-      for (int gr = 0; gr < H.ngr; ++gr) {
-        const int* g4 = H.gtab + 4 * gr;
-        acc = banded::bb_quad_entry<T>(H.S + (long)g4[0] * 2 * BS,
-                                       H.G + g4[3], dhd() + g4[0], g4[1],
-                                       g4[2], BS, isD, t, i, j, acc);
+    for (int e = tid; e < nDl + nO; e += nthr) {
+      const bool isD = e < nDl;
+      int t, i, j;
+      if (isD) {
+        t = e / LT;
+        j = e % LT;
+        i = 0;
+        while (j > i) j -= ++i;
+      } else {
+        const int ee = e - nDl;
+        t = ee / BB;
+        i = (ee % BB) / BS;
+        j = ee % BS;
       }
-      for (int gr = 0; gr < A.ngr; ++gr) {
-        const int* g4 = A.gtab + 4 * gr;
-        acc = banded::bb_quad_entry<T>(A.S + (long)g4[0] * 2 * BS,
-                                       A.G + g4[3], da() + g4[0], g4[1],
-                                       g4[2], BS, isD, t, i, j, acc);
-      }
-      (isD ? D : O)[ee] = acc;
+      const long at = (long)t * BB + i * BS + j;
+      T acc = isD ? PD[at] + (i == j ? dbox[t * BS + i] : T(0)) : PO[at];
+      acc = quad_entry(H, dhd(), BS, nb, isD, t, i, j, acc);
+      acc = quad_entry(A, da(), BS, nb, isD, t, i, j, acc);
+      (isD ? D : O)[at] = acc;
       if (isD && i == j) dm[0] = nmax(dm[0], acc);
     }
     team_reduce<T, 0, 1>(red, nullptr, dm, tid, nthr);
     const T reg = sizeof(T) == 8 ? T(1e-12) * dm[0] + T(1e-11)
                                  : T(1e-7) * dm[0] + T(1e-8);
-    for (int e = tid; e < nD; e += nthr)
-      if ((e % BB) / BS == e % BS) D[e] = D[e] + reg;
+    for (int k = tid; k < nb * BS; k += nthr) {
+      T* Dk = D + (long)(k / BS) * BB + (k % BS) * (BS + 1);
+      *Dk = *Dk + reg;
+    }
     sync();
+  }
+
+  // the assembly, then its block Cholesky in place (btd_factor_warp's
+  // fast paths; where one did not hold, the assembly again and K2's
+  // btd_factor_inplace, with the pivots' reciprocals formed after it)
+  IHD void assemble_factor() {
+    assemble();
     stamp(PH_ASSEMBLY);
-    if (tid < WT)
-      banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
+    if (tid < WT) {
+      const bool ok =
+          banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, chol_tiny(), tid);
+      if (tid == 0) *flag = ok ? 0 : 1;
+    }
     sync();
+    if (*flag != 0) {
+      count_fallback(0);
+      assemble();
+      if (tid < WT) {
+        banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
+        WSYNC();
+        for (int k = tid; k < nb * BS; k += WT)
+          rc[k] = qm::qrcp(D[(long)(k / BS) * BS * BS + (k % BS) * (BS + 1)]);
+      }
+      sync();
+    }
     stamp(PH_FACTOR);
   }
 
-  // One Newton solve of the condensed system for the predictor (corr
-  // false) or the corrector; the step goes to (ddx, dz5, dz6) and the
-  // row kinds' slots 6..8 (predictor) or 9..11 (corrector).  Returns the
-  // step length.
-  IHD T newton(bool corr, T smu, T* sdx, T* sz5, T* sz6) {
-    const int o = corr ? 9 : 6;
-    const int ph_pass = corr ? PH_CORR_PASS : PH_PRED_PASS;
-    const int ph_solve = corr ? PH_CORR_SOLVE : PH_PRED_SOLVE;
-    T* dz1 = H.s[o];
-    T* dh = H.s[o + 1];
-    T* ds1 = H.s[o + 2];
-    T* dy = A.s[o];
-    T* dp = A.s[o + 1];
-    T* dnn = A.s[o + 2];
+  // One Newton solve of the condensed system for the predictor (CORR
+  // false) or the corrector; the step goes to (sdx, sz5, sz6) and the row
+  // kinds' step vectors [CORR].  Returns the step length.
+  template <bool CORR>
+  IHD T newton(T smu, T* sdx, T* sz5, T* sz6) {
+    constexpr int ph_pass = CORR ? PH_CORR_PASS : PH_PRED_PASS;
+    constexpr int ph_solve = CORR ? PH_CORR_SOLVE : PH_PRED_SOLVE;
+    T* dz1 = H.d0[CORR];
+    T* dh = H.d1[CORR];
+    T* ds1 = H.d2[CORR];
+    T* dy = A.d0[CORR];
+    T* dp = A.d1[CORR];
+    T* dnn = A.d2[CORR];
     for (int i = tid; i < H.m; i += nthr)
-      bh()[i] = (rc1(i, corr, smu) * z2()[i] - z1[i] * rc2(i, corr, smu)) /
-                den()[i];
+      bh()[i] = qdiv(rc1<CORR>(i, smu) * z2()[i] - z1[i] * rc2<CORR>(i, smu),
+                     den()[i]);
     for (int i = tid; i < A.m; i += nthr)
-      ba()[i] = (-re()[i] + rc3(i, corr, smu) / z3()[i]) -
-                rc4(i, corr, smu) / z4()[i];
+      ba()[i] = (-re()[i] + qdiv(rc3<CORR>(i, smu), z3()[i])) -
+                qdiv(rc4<CORR>(i, smu), z4()[i]);
     sync();
     for (int k = tid; k < n; k += nthr) {
       const int t = k / BS, i = k % BS;
-      rhs[k] = ((-rdx[k] - rmv_col(H, bh(), (const T*)nullptr, BS, t, i)) +
-                rmv_col(A, ba(), da(), BS, t, i) +
-                rc5(k, corr, smu) / (dx[k] - lb[k])) -
-               rc6(k, corr, smu) / (ub[k] - dx[k]);
+      rhs[k] = ((-rdx[k] - hcol(bh(), (const T*)nullptr, t, i)) +
+                acol(ba(), da(), t, i) +
+                qdiv(rc5<CORR>(k, smu), dx[k] - lb[k])) -
+               qdiv(rc6<CORR>(k, smu), ub[k] - dx[k]);
     }
     sync();
     stamp(ph_pass);
@@ -369,8 +483,8 @@ struct Lane {
     for (int k = tid; k < n; k += nthr) {
       const int t = k / BS, i = k % BS;
       const T kmv = ((pmv<T, BS>(PD, PO, sdx, nb, t, i) +
-                      rmv_col(H, jvh(), dhd(), BS, t, i)) +
-                     rmv_col(A, jva(), da(), BS, t, i)) +
+                      hcol(jvh(), dhd(), t, i)) +
+                     acol(jva(), da(), t, i)) +
                     dbox[k] * sdx[k];
       tmp[k] = rhs[k] - kmv;
     }
@@ -385,7 +499,7 @@ struct Lane {
     for (int i = tid; i < H.m; i += nthr) {
       const T jv = hdot(i, sdx);
       dz1[i] = dhd()[i] * jv + bh()[i];
-      dh[i] = (rc2(i, corr, smu) + h[i] * dz1[i]) / z2()[i];
+      dh[i] = qdiv(rc2<CORR>(i, smu) + h[i] * dz1[i], z2()[i]);
       ds1[i] = dh[i] - jv;
       step_cand(am[0], s1()[i], ds1[i]);
       step_cand(am[0], h[i], dh[i]);
@@ -395,16 +509,16 @@ struct Lane {
     for (int i = tid; i < A.m; i += nthr) {
       const T jv = adot(i, sdx);
       dy[i] = da()[i] * (jv - ba()[i]);
-      dp[i] = (rc3(i, corr, smu) + p[i] * dy[i]) / z3()[i];
-      dnn[i] = (rc4(i, corr, smu) - nn[i] * dy[i]) / z4()[i];
+      dp[i] = qdiv(rc3<CORR>(i, smu) + p[i] * dy[i], z3()[i]);
+      dnn[i] = qdiv(rc4<CORR>(i, smu) - nn[i] * dy[i], z4()[i]);
       step_cand(am[0], p[i], dp[i]);
       step_cand(am[0], nn[i], dnn[i]);
       step_cand(am[0], z3()[i], -dy[i]);
       step_cand(am[0], z4()[i], dy[i]);
     }
     for (int k = tid; k < n; k += nthr) {
-      sz5[k] = (rc5(k, corr, smu) - z5[k] * sdx[k]) / (dx[k] - lb[k]);
-      sz6[k] = (rc6(k, corr, smu) + z6[k] * sdx[k]) / (ub[k] - dx[k]);
+      sz5[k] = qdiv(rc5<CORR>(k, smu) - z5[k] * sdx[k], dx[k] - lb[k]);
+      sz6[k] = qdiv(rc6<CORR>(k, smu) + z6[k] * sdx[k], ub[k] - dx[k]);
       step_cand(am[0], dx[k] - lb[k], sdx[k]);
       step_cand(am[0], ub[k] - dx[k], -sdx[k]);
       step_cand(am[0], z5[k], sz5[k]);
@@ -416,7 +530,7 @@ struct Lane {
   }
 
   static BHD T mu_of(const T* s, T n_pairs) {
-    return ((((s[0] + s[1]) + (s[2] + s[3])) + s[4]) + s[5]) / n_pairs;
+    return qdiv(((((s[0] + s[1]) + (s[2] + s[3])) + s[4]) + s[5]), n_pairs);
   }
 
   // the whole loop; returns the final (it, status, rp, rd, f_best)
@@ -450,7 +564,7 @@ struct Lane {
     int it = 0, status = QP_UNSOLVED;
     T rp = inf, rd = inf, fbest = fzero;
 #ifdef __CUDA_ARCH__
-    t_last = clock64();
+    if (TIMED) t_last = clock64();
 #endif
     while (status == QP_UNSOLVED && it < max_iter) {
       // ---- barrier diagonals ----
@@ -458,18 +572,19 @@ struct Lane {
         s1()[i] = h[i] - (hdot(i, dx) + H.e[i]);
         z2()[i] = H.w[i] - z1[i];
         den()[i] = clamp_lo(h[i] * z1[i] + s1()[i] * z2()[i], tiny());
-        dhd()[i] = clamp_hi(z1[i] * z2()[i] / den()[i], dcap());
+        dhd()[i] = clamp_hi(qdiv(z1[i] * z2()[i], den()[i]), dcap());
       }
       for (int i = tid; i < A.m; i += nthr) {
         z3()[i] = A.w[i] - y[i];
         z4()[i] = A.w[i] + y[i];
         da()[i] = clamp_hi(
-            T(1) / clamp_lo(p[i] / z3()[i] + nn[i] / z4()[i], tiny()),
+            qdiv(T(1), clamp_lo(qdiv(p[i], z3()[i]) + qdiv(nn[i], z4()[i]),
+                                tiny())),
             dcap());
       }
       for (int k = tid; k < n; k += nthr)
-        dbox[k] = clamp_hi(z5[k] / (dx[k] - lb[k]) + z6[k] / (ub[k] - dx[k]),
-                           dcap());
+        dbox[k] = clamp_hi(
+            qdiv(z5[k], dx[k] - lb[k]) + qdiv(z6[k], ub[k] - dx[k]), dcap());
       sync();
       stamp(PH_DIAG);
       assemble_factor();
@@ -487,8 +602,8 @@ struct Lane {
       for (int k = tid; k < n; k += nthr) {
         const int t = k / BS, i = k % BS;
         rdx[k] = ((((pmv<T, BS>(PD, PO, dx, nb, t, i) + q[k]) +
-                    rmv_col(H, z1, (const T*)nullptr, BS, t, i)) +
-                   rmv_col(A, y, (const T*)nullptr, BS, t, i)) -
+                    hcol(z1, (const T*)nullptr, t, i)) +
+                   acol(y, (const T*)nullptr, t, i)) -
                   z5[k]) +
                  z6[k];
         su[4] += z5[k] * (dx[k] - lb[k]);
@@ -499,17 +614,17 @@ struct Lane {
       stamp(PH_RESID);
 
       // ---- predictor ----
-      const T a_aff = newton(false, T(0), ddxa, dz5a, dz6a);
+      const T a_aff = newton<false>(T(0), ddxa, dz5a, dz6a);
       for (int k = 0; k < 6; ++k) su[k] = T(0);
       for (int i = tid; i < H.m; i += nthr) {
-        const T z1a = z1[i] + a_aff * H.s[6][i];
-        su[0] += z1a * (s1()[i] + a_aff * H.s[8][i]);
-        su[1] += (H.w[i] - z1a) * (h[i] + a_aff * H.s[7][i]);
+        const T z1a = z1[i] + a_aff * H.d0[0][i];
+        su[0] += z1a * (s1()[i] + a_aff * H.d2[0][i]);
+        su[1] += (H.w[i] - z1a) * (h[i] + a_aff * H.d1[0][i]);
       }
       for (int i = tid; i < A.m; i += nthr) {
-        const T ya = y[i] + a_aff * A.s[6][i];
-        su[2] += (A.w[i] - ya) * (p[i] + a_aff * A.s[7][i]);
-        su[3] += (A.w[i] + ya) * (nn[i] + a_aff * A.s[8][i]);
+        const T ya = y[i] + a_aff * A.d0[0][i];
+        su[2] += (A.w[i] - ya) * (p[i] + a_aff * A.d1[0][i]);
+        su[3] += (A.w[i] + ya) * (nn[i] + a_aff * A.d2[0][i]);
       }
       for (int k = tid; k < n; k += nthr) {
         const T dxa = dx[k] + a_aff * ddxa[k];
@@ -519,16 +634,16 @@ struct Lane {
       team_reduce<T, 6, 0>(red, su, nullptr, tid, nthr);
       stamp(PH_PRED_PASS);
       const T mu_aff = mu_of(su, n_pairs);
-      const T ratio = mu_aff / clamp_lo(mu, tiny());
+      const T ratio = qdiv(mu_aff, clamp_lo(mu, tiny()));
       const T sigma = clamp_hi(clamp_lo(ratio * ratio * ratio, T(1e-8)), T(1));
 
       // ---- corrector ----
-      const T a = newton(true, sigma * mu, ddx, dz5, dz6);
-      T* dz1 = H.s[9];
-      T* dh = H.s[10];
-      T* dy = A.s[9];
-      T* dp = A.s[10];
-      T* dnn = A.s[11];
+      const T a = newton<true>(sigma * mu, ddx, dz5, dz6);
+      T* dz1 = H.d0[1];
+      T* dh = H.d1[1];
+      T* dy = A.d0[1];
+      T* dp = A.d1[1];
+      T* dnn = A.d2[1];
 
       // ---- NaN guard: a broken Newton step keeps the incumbent ----
       T bad[1] = {T(0)};
@@ -595,8 +710,8 @@ struct Lane {
       for (int k = tid; k < n; k += nthr) {
         const int t = k / BS, i = k % BS;
         const T pdx = pmv<T, BS>(PD, PO, dx, nb, t, i);
-        const T jh = rmv_col(H, z1, (const T*)nullptr, BS, t, i);
-        const T ja = rmv_col(A, y, (const T*)nullptr, BS, t, i);
+        const T jh = hcol(z1, (const T*)nullptr, t, i);
+        const T ja = acol(y, (const T*)nullptr, t, i);
         const T r = ((((pdx + q[k]) + jh) + ja) - z5[k]) + z6[k];
         mx[2] = nmax(mx[2], aabs(r));
         mx[3] = nmax(nmax(mx[3], nmax(aabs(pdx), aabs(q[k]))),
@@ -617,15 +732,15 @@ struct Lane {
       // ---- termination (unscaled; OSQP-style abs + rel criterion) ----
       const T mu1 = mu_of(sm, n_pairs);
       const T rp_u = mx[0];
-      const T rd_u = mx[2] / c;
-      const T gap_u = (n_pairs * mu1) / c;
-      const T d_scale = mx[3] / c;
+      const T rd_u = qdiv(mx[2], c);
+      const T gap_u = qdiv(n_pairs * mu1, c);
+      const T d_scale = qdiv(mx[3], c);
       const T f_scale = nmax(aabs(f1), aabs(fzero)) + T(1);
       const T eps_p = eps_abs + eps_rel * mx[1];
       const T eps_d = eps_abs + eps_rel * d_scale;
       const T eps_g = eps_abs * f_scale;
-      rp = rp_u / eps_p;
-      rd = nmax(rd_u / eps_d, gap_u / eps_g);
+      rp = qdiv(rp_u, eps_p);
+      rd = nmax(qdiv(rd_u, eps_d), qdiv(gap_u, eps_g));
       const bool conv = fin && rp <= T(1) && rd <= T(1);
       const int broke = fbest < fzero ? QP_SOLVED_INACCURATE : QP_MAX_ITER;
       status = conv ? QP_SOLVED : (fin ? status : broke);
@@ -648,13 +763,48 @@ struct Lane {
   }
 };
 
-// Lane `lane`'s view of the arguments, with its shared memory `sm`
-// (smem_elems entries) and the team (tid of nthr); then its whole loop.
-template <typename T, int BS, int WT>
+// One row kind of lane `lane`: its slices of the arguments, its scaled
+// rows at S (shared or device memory) and its scratch at scr (12 m).
+template <typename T>
+BHD Rows<T> lane_rows(int m, long lane, int b, const T* S, const void* R,
+                      const void* e, const void* w, const void* er,
+                      const void* wr, const int* rowG, const int* cov,
+                      T* scr) {
+  Rows<T> K;
+  const long ml = lane * m;
+  K.m = m;
+  K.S = S;
+  K.R = (const T*)R + ml * 2 * b;
+  K.e = (const T*)e + ml;
+  K.w = (const T*)w + ml;
+  K.er = (const T*)er + ml;
+  K.wr = (const T*)wr + ml;
+  K.rowG = rowG;
+  K.cov = cov;
+  K.v0 = scr;
+  K.v1 = scr + m;
+  K.v2 = scr + 2L * m;
+  K.v3 = scr + 3L * m;
+  K.v4 = scr + 4L * m;
+  K.v5 = scr + 5L * m;
+  K.d0[0] = scr + 6L * m;
+  K.d1[0] = scr + 7L * m;
+  K.d2[0] = scr + 8L * m;
+  K.d0[1] = scr + 9L * m;
+  K.d1[1] = scr + 10L * m;
+  K.d2[1] = scr + 11L * m;
+  return K;
+}
+
+// Lane `lane`'s view of the arguments, with its shared memory `sm` (laid
+// out by smem_layout) and the team (tid of nthr); then its whole loop.
+template <typename T, int BS, int WT, bool TIMED>
 IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
-  Lane<T, BS, WT> L;
-  const int n = a.n, nb = a.nb, BB = BS * BS;
+  Lane<T, BS, WT, TIMED> L;
+  const int n = a.n, nb = a.nb, mh = a.mh, ma = a.ma, BB = BS * BS;
   const long nl = (long)lane * n;
+  const Layout lay = smem_layout(n, BS, nb, mh, ma, a.smem_rows != 0,
+                                 a.smem_scr != 0);
   L.tid = tid;
   L.nthr = nthr;
   L.n = n;
@@ -665,14 +815,28 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.c = ((const T*)a.cf)[2 * lane];
   L.fzero = ((const T*)a.cf)[2 * lane + 1];
   L.D = sm;
-  L.O = L.D + (long)nb * BB;
-  T* v = L.O + (long)(nb - 1) * BB;
-  T** vecs[N_SMEM_VEC] = {&L.dx,   &L.z5,   &L.z6,   &L.lb,  &L.ub,  &L.q,
-                          &L.dbox, &L.rdx,  &L.rhs,  &L.ddxa, &L.dz5a,
-                          &L.dz6a, &L.ddx,  &L.dz5,  &L.dz6, &L.tmp,
-                          &L.tmp2};
-  for (int k = 0; k < N_SMEM_VEC; ++k) *vecs[k] = v + (long)k * n;
-  L.red = v + (long)N_SMEM_VEC * n;
+  L.O = sm + lay.o_O;
+  L.rc = sm + lay.o_rc;
+  T* v = sm + lay.o_v;
+  L.dx = v;
+  L.z5 = v + n;
+  L.z6 = v + 2L * n;
+  L.lb = v + 3L * n;
+  L.ub = v + 4L * n;
+  L.q = v + 5L * n;
+  L.dbox = v + 6L * n;
+  L.rdx = v + 7L * n;
+  L.rhs = v + 8L * n;
+  L.ddxa = v + 9L * n;
+  L.dz5a = v + 10L * n;
+  L.dz6a = v + 11L * n;
+  L.ddx = v + 12L * n;
+  L.dz5 = v + 13L * n;
+  L.dz6 = v + 14L * n;
+  L.tmp = v + 15L * n;
+  L.tmp2 = v + 16L * n;
+  L.red = sm + lay.o_red;
+  L.flag = reinterpret_cast<int*>(sm + lay.o_flag);
   L.PD = (const T*)a.PD + (long)lane * nb * BB;
   L.PO = (const T*)a.PO + (long)lane * (nb - 1) * BB;
   L.RD = (const T*)a.RD + (long)lane * nb * BB;
@@ -687,34 +851,32 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.oz5 = (T*)a.z5 + nl;
   L.oz6 = (T*)a.z6 + nl;
   L.dxb = (T*)a.dxb + nl;
-  T* scr = (T*)a.scr + (long)lane * N_SCR_VEC * (a.mh + a.ma);
-  const void* src[2][6] = {{a.Sh, a.Rh, a.eh, a.wh, a.ehr, a.whr},
-                           {a.Sa, a.Ra, a.ea, a.wa, a.ear, a.war}};
-  const int* tabs[2][3] = {{a.rowGh, a.gtabh, a.Gh}, {a.rowGa, a.gtaba, a.Ga}};
-  for (int kind = 0; kind < 2; ++kind) {
-    Rows<T>& K = kind ? L.A : L.H;
-    const int m = kind ? a.ma : a.mh;
-    const long ml = (long)lane * m, mw = ml * 2 * BS;
-    K.m = m;
-    K.ngr = kind ? a.ngr_a : a.ngr_h;
-    K.S = (const T*)src[kind][0] + mw;
-    K.R = (const T*)src[kind][1] + mw;
-    K.e = (const T*)src[kind][2] + ml;
-    K.w = (const T*)src[kind][3] + ml;
-    K.er = (const T*)src[kind][4] + ml;
-    K.wr = (const T*)src[kind][5] + ml;
-    K.rowG = tabs[kind][0];
-    K.gtab = tabs[kind][1];
-    K.G = tabs[kind][2];
-    for (int k = 0; k < N_SCR_VEC; ++k) K.s[k] = scr + (long)k * m;
-    scr += (long)N_SCR_VEC * m;
+  // the scaled rows: staged into shared memory by the team (made visible
+  // by the barrier after the initial point's n-vectors), or read where
+  // they lie
+  const T* Sh = (const T*)a.Sh + (long)lane * mh * 2 * BS;
+  const T* Sa = (const T*)a.Sa + (long)lane * ma * 2 * BS;
+  if (a.smem_rows) {
+    T* sh = sm + lay.o_Sh;
+    T* sa = sm + lay.o_Sa;
+    for (long k = tid; k < (long)mh * 2 * BS; k += nthr) sh[k] = Sh[k];
+    for (long k = tid; k < (long)ma * 2 * BS; k += nthr) sa[k] = Sa[k];
+    Sh = sh;
+    Sa = sa;
   }
-  L.h = (T*)a.h + (long)lane * a.mh;
-  L.z1 = (T*)a.z1 + (long)lane * a.mh;
-  L.p = (T*)a.p + (long)lane * a.ma;
-  L.nn = (T*)a.nn + (long)lane * a.ma;
-  L.y = (T*)a.y + (long)lane * a.ma;
-  L.clk = a.clk == nullptr ? nullptr : a.clk + (long)lane * N_PHASES;
+  T* scr = a.smem_scr ? sm + lay.o_scr
+                      : (T*)a.scr + (long)lane * N_SCR_VEC * (mh + ma);
+  L.H = lane_rows<T>(mh, lane, BS, Sh, a.Rh, a.eh, a.wh, a.ehr, a.whr,
+                     a.rowGh, a.covh, scr);
+  L.A = lane_rows<T>(ma, lane, BS, Sa, a.Ra, a.ea, a.wa, a.ear, a.war,
+                     a.rowGa, a.cova, scr + (long)N_SCR_VEC * mh);
+  L.h = (T*)a.h + (long)lane * mh;
+  L.z1 = (T*)a.z1 + (long)lane * mh;
+  L.p = (T*)a.p + (long)lane * ma;
+  L.nn = (T*)a.nn + (long)lane * ma;
+  L.y = (T*)a.y + (long)lane * ma;
+  L.clk = TIMED ? a.clk + (long)lane * (N_PHASES + 2) : nullptr;
+  L.t_last = 0;
   L.run(a.it + lane, a.status + lane, (T*)a.rp + lane, (T*)a.rd + lane,
         (T*)a.fb + lane);
 }

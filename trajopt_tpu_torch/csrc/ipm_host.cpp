@@ -2,10 +2,13 @@
 // checking its arithmetic on a CPU against the plain PyTorch loop and the
 // JAX reference without a card.
 //
-// The same entry points as ipm_banded.cu (same arguments, same outputs),
-// run serially: each lane's whole IPM loop by a team of one thread, with
-// an empty barrier, one lane after another.  Compiled with a C++ compiler
-// by _native.host_library; it is not on any path that solves a problem.
+// The same entry points as ipm_banded.cu and ipm_banded64.cu (same
+// arguments, same outputs), run serially: each lane's whole IPM loop by a
+// team of one thread, with an empty barrier, one lane after another.  The
+// shared memory is a host array laid out as Args::smem_rows / smem_scr
+// ask (both paths of the card's plan run here).  Compiled with a C++
+// compiler by _native.host_library; it is not on any path that solves a
+// problem.
 
 #include <vector>
 
@@ -13,9 +16,11 @@
 
 template <typename T, int BS>
 static int run(const ipm::Args* a) {
-  std::vector<T> smem(ipm::smem_elems(a->n, BS, a->nb));
+  std::vector<T> smem(ipm::smem_layout(a->n, BS, a->nb, a->mh, a->ma,
+                                       a->smem_rows != 0, a->smem_scr != 0)
+                           .total);
   for (int lane = 0; lane < a->lanes; ++lane)
-    ipm::ipm_lane<T, BS, 1>(*a, lane, smem.data(), 0, 1);
+    ipm::ipm_lane<T, BS, 1, false>(*a, lane, smem.data(), 0, 1);
   return 0;
 }
 
@@ -33,10 +38,10 @@ static int dispatch(const ipm::Args* a) {
   }
 }
 
-extern "C" int ipm_banded_f32(const ipm::Args* a, void*) {
+extern "C" int ipm_banded_f32(ipm::Args* a, void*) {
   return dispatch<float>(a);
 }
 
-extern "C" int ipm_banded_f64(const ipm::Args* a, void*) {
+extern "C" int ipm_banded_f64(ipm::Args* a, void*) {
   return dispatch<double>(a);
 }

@@ -498,12 +498,12 @@ def _loop_plain(su: _Setup) -> _St:
 # K6 ipm_banded: the whole loop as one launch (csrc/ipm_banded.cu)
 # --------------------------------------------------------------------------
 
-_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "ngr_h", "ngr_a", "max_iter",
-         "pad")
+_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "max_iter", "smem_rows",
+         "smem_scr")
 _PTRS = ("PD", "PO", "RD", "RO", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
          "Sh", "Rh", "eh", "wh", "ehr", "whr",
          "Sa", "Ra", "ea", "wa", "ear", "war",
-         "rowGh", "gtabh", "Gh", "rowGa", "gtaba", "Ga",
+         "rowGh", "covh", "rowGa", "cova",
          "dx", "z5", "z6", "dxb", "h", "z1", "p", "nn", "y", "rp", "rd", "fb",
          "scr", "it", "status", "clk")
 
@@ -518,9 +518,11 @@ class _K6Args(ctypes.Structure):
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
 # K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
-# its iterations
+# its iterations, then the counts of factors and of solves that took their
+# fallback (K6_CLK_SLOTS per lane)
 K6_PHASES = ("diagonals", "assembly", "factor", "residuals", "pred_pass",
              "pred_solve", "corr_pass", "corr_solve", "update", "objective")
+K6_CLK_SLOTS = len(K6_PHASES) + 2
 
 
 class _RowTables(NamedTuple):
@@ -528,17 +530,21 @@ class _RowTables(NamedTuple):
 
     shapes: tuple  # (n_g, r) of each row group
     rowG: torch.Tensor  # (m,) window start block of each row
-    gtab: torch.Tensor  # (ngr, 4): first row, n_g, r, offset in G
-    G: torch.Tensor  # the groups' window starts, concatenated
+    # the cover lists: offsets (nb + 1) into the entries that follow,
+    # (first row, rows, half) of each window that covers a column block, by
+    # block, in row-group then window order (half 0: the window starts at
+    # the block, 1: one block before it)
+    cov: torch.Tensor
 
 
 class BandPlan(NamedTuple):
     """What K6 needs of the problem's structure, fixed across the QPs of
     one SQP solve: the block size, at which P was checked block-tridiagonal
-    (the cost rows' step coupling), and each row kind's tables (the window
-    starts are the terms' stencils)."""
+    (the cost rows' step coupling), the block count, and each row kind's
+    tables (the window starts are the terms' stencils)."""
 
     b: int
+    nb: int
     h: _RowTables
     a: _RowTables
 
@@ -547,22 +553,37 @@ def _group_shapes(Bs) -> tuple:
     return tuple((B.shape[1], B.shape[2]) for B in Bs)
 
 
-def _row_tables(Bs, Gs, dev) -> _RowTables:
-    shapes = _group_shapes(Bs)
-    if not Bs:
-        z = torch.zeros(1, dtype=torch.int32, device=dev)
-        return _RowTables(shapes, z, z, z)
-    tab, row0, g0 = [], 0, 0
-    for ng, r in shapes:
-        tab.append([row0, ng, r, g0])
+def cover_lists(shapes, Gs, nb: int) -> list:
+    """For each column block t < nb, the (first row, rows, half) of every
+    window that covers it, in row-group then window order."""
+    cover = [[] for _ in range(nb)]
+    row0 = 0
+    for (ng, r), G in zip(shapes, Gs):
+        G = torch.as_tensor(G).cpu().tolist()
+        for g in range(ng):
+            for half in (0, 1):
+                t = int(G[g]) + half
+                if 0 <= t < nb:
+                    cover[t].append((row0 + g * r, r, half))
         row0 += ng * r
-        g0 += ng
+    return cover
+
+
+def _row_tables(Bs, Gs, nb, dev) -> _RowTables:
+    shapes = _group_shapes(Bs)
+    cover = cover_lists(shapes, Gs, nb)
+    off = [0]
+    for c in cover:
+        off.append(off[-1] + len(c))
+    cov = torch.tensor(off + [v for c in cover for e in c for v in e],
+                       dtype=torch.int32, device=dev)
+    if not Bs:
+        return _RowTables(shapes, torch.zeros(1, dtype=torch.int32,
+                                              device=dev), cov)
     Gs = [torch.as_tensor(g, device=dev).to(torch.int32) for g in Gs]
     rowG = torch.cat([g[:, None].expand(-1, r).reshape(-1)
                       for g, (_, r) in zip(Gs, shapes)])
-    return _RowTables(shapes, rowG.contiguous(),
-                      torch.tensor(tab, dtype=torch.int32, device=dev),
-                      torch.cat(Gs).contiguous())
+    return _RowTables(shapes, rowG.contiguous(), cov)
 
 
 def band_plan(data: ProxQPData, b: int) -> BandPlan:
@@ -570,16 +591,19 @@ def band_plan(data: ProxQPData, b: int) -> BandPlan:
     block-tridiagonal at block size b (``check_p_band``), and builds the
     row tables once."""
     check_p_band(data.P, b)
-    dev = data.q.device
-    return BandPlan(b, _row_tables(data.Bh, data.Gh, dev),
-                    _row_tables(data.Ba, data.Ga, dev))
+    dev, nb = data.q.device, data.q.shape[1] // b
+    return BandPlan(b, nb, _row_tables(data.Bh, data.Gh, nb, dev),
+                    _row_tables(data.Ba, data.Ga, nb, dev))
 
 
-def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None) -> _St:
+def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None, smem=(1, 1)) -> _St:
     """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
     host build) and return its final state.  ``clk``: K6's phase timer, an
-    int64 (lanes, len(K6_PHASES)) tensor the card adds each phase's cycles
-    to (the host build ignores it)."""
+    int64 (lanes, K6_CLK_SLOTS) tensor the card adds each phase's cycles
+    and the fallbacks to (float32 on the card; the host build ignores
+    it).  ``smem``: where the host build keeps
+    the scaled rows and the scratch (1 its shared-memory array, 0 device
+    memory); the card's launcher decides by its budget."""
     d, lanes, n, b, mh, ma = su.data, su.lanes, su.n, su.bsz, su.mh, su.ma
     dt = su.q.dtype
     if dt not in (torch.float32, torch.float64):
@@ -587,8 +611,8 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None) -> _St:
     if b not in KERNEL_BLOCKS:
         raise ValueError(f"ipm_banded: block size {b} not in {KERNEL_BLOCKS} "
                          "(the sizes K6 is instantiated for)")
-    if (plan.b, plan.h.shapes, plan.a.shapes) \
-            != (b, _group_shapes(d.Bh), _group_shapes(d.Ba)):
+    if (plan.b, plan.nb, plan.h.shapes, plan.a.shapes) \
+            != (b, su.nb, _group_shapes(d.Bh), _group_shapes(d.Ba)):
         raise ValueError("ipm_banded: the plan was built for another block "
                          "size or other row groups")
     RD, RO = blocks_from_dense(d.P, su.nb, b)
@@ -620,15 +644,15 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None) -> _St:
         wh=cont(su.wh), ehr=cont(d.e_h), whr=cont(d.w_h),
         Sa=cont(rows(su.BaS)), Ra=cont(rows(d.Ba)), ea=cont(su.ea),
         wa=cont(su.wa), ear=cont(d.e_a), war=cont(d.w_a),
-        rowGh=plan.h.rowG, gtabh=plan.h.gtab, Gh=plan.h.G,
-        rowGa=plan.a.rowG, gtaba=plan.a.gtab, Ga=plan.a.G, **out)
+        rowGh=plan.h.rowG, covh=plan.h.cov, rowGa=plan.a.rowG,
+        cova=plan.a.cov, **out)
     for k, t in tensors.items():
         if t.device != su.q.device:
             raise TypeError(f"ipm_banded: {k} is on {t.device}, not "
                             f"{su.q.device}")
     args = _K6Args(lanes=lanes, n=n, b=b, nb=su.nb, mh=mh, ma=ma,
-                   ngr_h=len(plan.h.shapes), ngr_a=len(plan.a.shapes),
-                   max_iter=su.s.max_ipm_iter, pad=0,
+                   max_iter=su.s.max_ipm_iter, smem_rows=smem[0],
+                   smem_scr=smem[1],
                    eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
                    clk=0 if clk is None else clk.data_ptr(),
                    **{k: t.data_ptr() for k, t in tensors.items()})
@@ -645,40 +669,65 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
         raise ValueError("ipm_banded_cuda: tensors must be on a CUDA device")
 
     def launch(args):
-        lib = _native.library("ipm_banded")
-        fn = lib.ipm_banded_f32 if su.q.dtype == torch.float32 \
-            else lib.ipm_banded_f64
+        if clk is not None:
+            fn = _native.library("ipm_timer").ipm_banded_timed_f32
+        elif su.q.dtype == torch.float32:
+            fn = _native.library("ipm_banded").ipm_banded_f32
+        else:
+            fn = _native.library("ipm_banded64").ipm_banded_f64
         stream = torch.cuda.current_stream(su.q.device).cuda_stream
         code = fn(ctypes.byref(args), stream)
         if code == -1:  # the block size is checked: shared memory
             raise ValueError(
                 f"ipm_banded: n={su.n}, b={su.bsz} in {su.q.dtype} needs "
                 "more shared memory per CTA than the card offers "
-                "(ipm::smem_elems in csrc/ipm.cuh)")
+                "(ipm::smem_layout in csrc/ipm.cuh)")
         _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
 
-    if clk is not None and (clk.shape != (su.lanes, len(K6_PHASES))
+    if clk is not None and (su.q.dtype != torch.float32
+                            or clk.shape != (su.lanes, K6_CLK_SLOTS)
                             or clk.dtype != torch.int64 or not clk.is_cuda
                             or not clk.is_contiguous()):
-        raise ValueError("ipm_banded_cuda: clk must be a contiguous int64 "
-                         f"CUDA tensor ({su.lanes}, {len(K6_PHASES)})")
+        raise ValueError("ipm_banded_cuda: the timer runs in float32, on a "
+                         "contiguous int64 CUDA tensor clk "
+                         f"({su.lanes}, {K6_CLK_SLOTS})")
     return _k6_call(su, plan, launch, clk)
 
 
-def ipm_banded_host(su: _Setup, plan: BandPlan) -> _St:
+def kernel_attributes() -> dict:
+    """{"f32_b7": {"num_regs", "local_bytes", "max_threads",
+    "static_smem_bytes"}, ...} of K6's instantiations on the card, float32
+    and float64 at b 7, 14 and 21 (``cudaFuncGetAttributes``)."""
+    out = {}
+    for d, src in (("f32", "ipm_banded"), ("f64", "ipm_banded64")):
+        query = getattr(_native.library(src), f"{src}_attrs")
+        for which, b in enumerate(KERNEL_BLOCKS):
+            buf = (ctypes.c_int * 4)()
+            _native.check(f"{src}_attrs", query(which, buf))
+            out[f"{d}_b{b}"] = dict(zip(("num_regs", "local_bytes",
+                                         "max_threads", "static_smem_bytes"),
+                                        list(buf)))
+    return out
+
+
+def ipm_banded_host(su: _Setup, plan: BandPlan, smem=(1, 1),
+                    fallback: bool = False) -> _St:
     """K6's device code built for the CPU (``csrc/ipm_host.cpp``), on CPU
-    tensors: for checking it without a card."""
+    tensors: for checking it without a card (``smem``: see ``_k6_call``;
+    ``fallback``: a build whose factors and solves all take their fallback,
+    csrc/qmath.cuh's QM_TEST_FALLBACK)."""
     if su.q.is_cuda:
         raise ValueError("ipm_banded_host: tensors must be on the CPU")
 
     def launch(args):
-        lib = _native.host_library("ipm_host")
+        lib = _native.host_library(
+            "ipm_host", ("QM_TEST_FALLBACK",) if fallback else ())
         fn = lib.ipm_banded_f32 if su.q.dtype == torch.float32 \
             else lib.ipm_banded_f64
         _native.check("ipm_banded", fn(ctypes.byref(args), None))
 
-    return _k6_call(su, plan, launch)
+    return _k6_call(su, plan, launch, smem=smem)
 
 
 # --------------------------------------------------------------------------
