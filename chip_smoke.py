@@ -10,8 +10,8 @@ Every line printed is one JSON object.  Phases, in order:
    (one nvcc per source, all at once); the registers and local memory of
    every K4, K4v and K5 instantiation and of K6's (float32 and float64 at
    b 7, 14, 21) (``cudaFuncGetAttributes``), which the kernel summary
-   repeats; the float32 K4 and K4v without the CONVEX routes must use no
-   local memory;
+   repeats; the float32 K4 and K4v without the CONVEX routes, and the
+   float32 K6 at b 7, must use no local memory;
 2. each kernel held against its plain PyTorch version on the same inputs
    (tolerances below), in float32 and float64, then its time, its plain
    version's time, one PyTorch library call's time where one computes the
@@ -367,9 +367,11 @@ def main():
     # (cudaFuncGetAttributes)
     cast_attrs = kernel_attributes()
     emit({"phase": "cast_attributes", "attributes": cast_attrs, "card": smi})
-    # and of K6's instantiations
+    # and of K6's instantiations; the float32 one at the flagship's b=7
+    # keeps its lane view in registers and shared memory
     ipm_attrs = ipm_qp.kernel_attributes()
     emit({"phase": "ipm_attributes", "attributes": ipm_attrs, "card": smi})
+    assert ipm_attrs["f32_b7"]["local_bytes"] == 0, ipm_attrs
     # the float32 K4 and K4v without the CONVEX routes keep every value in
     # registers and shared memory (the launch bounds in cast_kernel.cuh)
     assert all(cast_attrs[k]["local_bytes"] == 0

@@ -26,8 +26,8 @@ which prints per QP and dtype the largest |dx| difference per lane, the
 lanes whose x is bitwise equal, and the lanes whose status or iteration
 count differ.  ``--phases``: the mean clock64 cycles per CTA and IPM
 iteration of each of K6's timer phases (``ipm_qp.K6_PHASES``), float32,
-where ROOT's K6 has the timer, and the factors and solves per iteration
-that took their fallback.  ``--e2e``: the main paths' warm walls and
+where ROOT's K6 has the timer, and the factors per iteration that took
+their fallback.  ``--e2e``: the main paths' warm walls and
 gated solves/s, counted as ``cast_ab.py --e2e`` counts them.  Exits
 non-zero when CUDA is not available.
 """
@@ -239,11 +239,10 @@ def main():
                 cyc = (clk[:, :nph].double().sum(0) / its).tolist()
                 rec["phase_cycles_per_cta_iteration"][name] = dict(
                     zip(ipm_qp.K6_PHASES, cyc), total=sum(cyc))
-                for k, chain in enumerate(("factor", "solve")):
-                    if nph + k < slots:  # the chains that took a fallback
-                        rec["phase_cycles_per_cta_iteration"][name][
-                            f"{chain}_fallbacks_per_iteration"] = float(
-                                clk[:, nph + k].double().sum()) / its
+                if slots > nph:  # the factors that took their fallback
+                    rec["phase_cycles_per_cta_iteration"][name][
+                        "factor_fallbacks_per_iteration"] = float(
+                            clk[:, nph].double().sum()) / its
     if a.phases and not timed:
         rec["phase_cycles_per_cta_iteration"] = "this checkout's K6 has " \
             "no timer"

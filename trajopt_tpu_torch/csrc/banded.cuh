@@ -272,10 +272,12 @@ BHD void btd_solve_lane(const T* LD, const T* LM, const T* r, T* x, int nT,
 // warp shuffle).  A float division by a pivot L[j, j] takes its reciprocal
 // refined once (qm::qrcp, kept in rc beside the factor), and every float
 // division and root takes qmath's fast path with a flag (qdiv_f,
-// qsqrt_f), so the chains hold no branch: a factor or solve whose flag is
-// cleared (an operand out of the fast path's range) returns false, and the
-// caller does it again, whole, with btd_factor_inplace / btd_solve_lane
-// (the operators), so the results are those of the operators bit for bit.
+// qsqrt_f): a triangular b-step whose flag is cleared (an operand out of
+// the fast path's range, as the tiny values of pinned coordinates) is done
+// again with qdiv, and a factor whose Cholesky steps' flag is cleared
+// returns false, and the caller does it again, whole, with
+// btd_factor_inplace, so the results are those of the operators bit for
+// bit.
 // Only D's lower triangle is read or written.
 
 // every member's flag, and-ed over the team
@@ -289,15 +291,16 @@ BHD bool team_all(bool ok) {
 
 // The triangular solve of one b-step in registers: L x = s (LOWER, the
 // terms subtracted in column order) or L^T x = s (the terms subtracted
-// from the last column down); s is consumed; ok cleared where a fast path
-// does not hold.
-template <typename T, int BS, bool LOWER>
-BHD void tri_solve(T (&s)[BS], const T* L, const T* rcp, T (&x)[BS],
-                   bool& ok) {
+// from the last column down); s is consumed.  EXACT: qdiv, else the
+// flagged fast path (returns false where it did not hold).
+template <typename T, int BS, bool LOWER, bool EXACT>
+BHD bool tri_pass(T (&s)[BS], const T* L, const T* rcp, T (&x)[BS]) {
+  bool ok = true;
 #pragma unroll
   for (int jj = 0; jj < BS; ++jj) {
     const int j = LOWER ? jj : BS - 1 - jj;
-    const T xj = qm::qdiv_f(s[j], L[j * BS + j], rcp[j], ok);
+    const T xj = EXACT ? qm::qdiv(s[j], L[j * BS + j])
+                       : qm::qdiv_f(s[j], L[j * BS + j], rcp[j], ok);
     x[j] = xj;
     if (LOWER) {
 #pragma unroll
@@ -307,6 +310,20 @@ BHD void tri_solve(T (&s)[BS], const T* L, const T* rcp, T (&x)[BS],
       for (int i = 0; i < j; ++i) s[i] -= L[j * BS + i] * xj;
     }
   }
+  return ok;
+}
+
+// the b-step's triangular solve: the fast path, and where it did not
+// hold (an operand out of its range), the same step again with qdiv
+template <typename T, int BS, bool LOWER>
+BHD void tri_solve(const T (&s)[BS], const T* L, const T* rcp, T (&x)[BS]) {
+  T w[BS];
+#pragma unroll
+  for (int i = 0; i < BS; ++i) w[i] = s[i];
+  if (tri_pass<T, BS, LOWER, false>(w, L, rcp, x)) return;
+#pragma unroll
+  for (int i = 0; i < BS; ++i) w[i] = s[i];
+  tri_pass<T, BS, LOWER, true>(w, L, rcp, x);
 }
 
 // The Cholesky of the lower triangle of A (my rows), column by column, in
@@ -343,15 +360,15 @@ BHD void chol_rows(T (&A)[(BS + NT - 1) / NT][BS], T tiny, int tid,
 
 // One block step of the factor: M <- M Lp^{-T} (M = O[t-1] in place; Lp,
 // rcp the previous block's factor), A <- Dt - M M^T, Dt <- chol(A) in
-// place, rct its pivots' reciprocals.  t = 0: Dt <- chol(Dt) alone.  A
-// member past the block's last row works on that row too and stores
-// nothing, so no branch splits the warp.
-template <typename T, int BS, int NT>
+// place, rct its pivots' reciprocals.  FIRST (t = 0): Dt <- chol(Dt)
+// alone.  A member past the block's last row works on that row too and
+// stores nothing, so no branch splits the warp.
+template <typename T, int BS, int NT, bool FIRST>
 BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
                      int tid, bool& ok) {
   constexpr int V = (BS + NT - 1) / NT;
   T A[V][BS];
-  if (M != nullptr) {
+  if (!FIRST) {
     T m[V][BS];
 #pragma unroll
     for (int v = 0; v < V; ++v) {
@@ -359,9 +376,7 @@ BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
       T row[BS];
 #pragma unroll
       for (int j = 0; j < BS; ++j) row[j] = M[ic * BS + j];
-      bool okr = true;
-      tri_solve<T, BS, true>(row, Lp, rcp, m[v], okr);
-      ok = ok & (okr | (i >= BS));
+      tri_solve<T, BS, true>(row, Lp, rcp, m[v]);
     }
     WSYNC();
 #pragma unroll
@@ -416,27 +431,28 @@ template <typename T, int BS, int NT>
 BHD bool btd_factor_warp(T* D, T* O, T* rc, int nT, T tiny, int tid) {
   constexpr int BB = BS * BS;
   bool ok = true;
-  factor_step<T, BS, NT>(nullptr, nullptr, nullptr, D, rc, tiny, tid, ok);
+  factor_step<T, BS, NT, true>(nullptr, nullptr, nullptr, D, rc, tiny, tid,
+                               ok);
   for (int t = 1; t < nT; ++t)
-    factor_step<T, BS, NT>(D + (long)(t - 1) * BB, rc + (t - 1) * BS,
-                           O + (long)(t - 1) * BB, D + (long)t * BB,
-                           rc + t * BS, tiny, tid, ok);
+    factor_step<T, BS, NT, false>(D + (long)(t - 1) * BB, rc + (t - 1) * BS,
+                                  O + (long)(t - 1) * BB, D + (long)t * BB,
+                                  rc + t * BS, tiny, tid, ok);
   return team_all<NT>(ok);
 }
 
 // One b-step's right-hand side gathered to every member: s = v - M u
-// (TRANS: v - M^T u; no M at the chain's first step), row i formed by its
-// owner (a member past the last row repeats that row)
+// (TRANS: v - M^T u; without M, hasM false, at the chain's first step),
+// row i formed by its owner (a member past the last row repeats that row)
 template <typename T, int BS, int NT, bool TRANS>
-BHD void gather_rhs(const T* v, const T* M, const T (&u)[BS], T (&s)[BS],
-                    int tid) {
+BHD void gather_rhs(const T* v, const T* M, bool hasM, const T (&u)[BS],
+                    T (&s)[BS], int tid) {
   constexpr int V = (BS + NT - 1) / NT;
   T part[V];
 #pragma unroll
   for (int w = 0; w < V; ++w) {
     const int i = tid + w * NT, ic = i < BS ? i : BS - 1;
     T si = v[ic];
-    if (M != nullptr) {
+    if (hasM) {
       T acc = T(0);
 #pragma unroll
       for (int c = 0; c < BS; ++c)
@@ -454,33 +470,29 @@ BHD void gather_rhs(const T* v, const T* M, const T (&u)[BS], T (&s)[BS],
 // every member, and the triangular solve runs in every member's
 // registers.  The owner of row i stores it and is the only member that
 // reads it back, so the forward solve's y lies in x with no barrier.
-// Returns false (on every member) where a fast path did not hold: the
-// caller then solves again with btd_solve_lane.
 template <typename T, int BS, int NT>
-BHD bool btd_solve_warp(const T* LD, const T* LM, const T* rc, const T* r,
+BHD void btd_solve_warp(const T* LD, const T* LM, const T* rc, const T* r,
                         T* x, int nT, int tid) {
   constexpr int BB = BS * BS;
   T xv[BS], s[BS];
-  bool ok = true;
   // forward: y_t = L_t^{-1} (r_t - M_t y_{t-1})
   for (int t = 0; t < nT; ++t) {
-    gather_rhs<T, BS, NT, false>(
-        r + t * BS, t > 0 ? LM + (long)(t - 1) * BB : nullptr, xv, s, tid);
-    tri_solve<T, BS, true>(s, LD + (long)t * BB, rc + t * BS, xv, ok);
+    gather_rhs<T, BS, NT, false>(r + t * BS, LM + (long)(t - 1) * BB, t > 0,
+                                 xv, s, tid);
+    tri_solve<T, BS, true>(s, LD + (long)t * BB, rc + t * BS, xv);
 #pragma unroll
     for (int j = 0; j < BS; ++j)
       if (tid == j % NT) x[t * BS + j] = xv[j];
   }
   // backward: x_t = L_t^{-T} (y_t - M_{t+1}^T x_{t+1})
   for (int t = nT - 1; t >= 0; --t) {
-    gather_rhs<T, BS, NT, true>(
-        x + t * BS, t < nT - 1 ? LM + (long)t * BB : nullptr, xv, s, tid);
-    tri_solve<T, BS, false>(s, LD + (long)t * BB, rc + t * BS, xv, ok);
+    gather_rhs<T, BS, NT, true>(x + t * BS, LM + (long)t * BB, t < nT - 1,
+                                xv, s, tid);
+    tri_solve<T, BS, false>(s, LD + (long)t * BB, rc + t * BS, xv);
 #pragma unroll
     for (int j = 0; j < BS; ++j)
       if (tid == j % NT) x[t * BS + j] = xv[j];
   }
-  return team_all<NT>(ok);
 }
 
 }  // namespace banded

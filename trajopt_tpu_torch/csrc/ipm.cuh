@@ -93,9 +93,9 @@ struct Args {
   // outputs: the final iterate, the incumbent, per-lane scalars; scratch
   void *dx, *z5, *z6, *dxb, *h, *z1, *p, *nn, *y, *rp, *rd, *fb, *scr;
   int *it, *status;
-  // the phase timer (card only; null: off): N_PHASES + 2 per lane, each
+  // the phase timer (card only; null: off): N_PHASES + 1 per lane, each
   // phase's clock64 cycles on thread 0 summed over the lane's iterations,
-  // then the counts of factors and of solves that took their fallback
+  // then the count of factors that took their fallback
   long long* clk;
 };
 
@@ -105,10 +105,11 @@ enum { PH_DIAG, PH_ASSEMBLY, PH_FACTOR, PH_RESID, PH_PRED_PASS,
        N_PHASES };
 
 // A lane's shared memory, in elements of T: D, O, the pivots'
-// reciprocals, the n-vectors, the reduction buffer, the factor's flag;
-// then, as planned, the scaled rows (hinge, abs) and the scratch.
+// reciprocals, the n-vectors, the reduction buffer, two scalars (the
+// factor's fallback flag, mu); then, as planned, the scaled rows (hinge,
+// abs) and the scratch.
 struct Layout {
-  long o_O, o_rc, o_v, o_red, o_flag, o_Sh, o_Sa, o_scr, total;
+  long o_O, o_rc, o_v, o_red, o_sc, o_Sh, o_Sa, o_scr, total;
 };
 
 BHD Layout smem_layout(int n, int b, int nb, int mh, int ma, bool rows,
@@ -118,8 +119,8 @@ BHD Layout smem_layout(int n, int b, int nb, int mh, int ma, bool rows,
   L.o_rc = L.o_O + (long)(nb - 1) * b * b;
   L.o_v = L.o_rc + (long)nb * b;
   L.o_red = L.o_v + (long)N_SMEM_VEC * n;
-  L.o_flag = L.o_red + N_RED * 32;
-  L.o_Sh = L.o_flag + 1;
+  L.o_sc = L.o_red + N_RED * 32;
+  L.o_Sh = L.o_sc + 2;
   L.o_Sa = L.o_Sh + (rows ? (long)mh * 2 * b : 0);
   L.o_scr = L.o_Sa + (rows ? (long)ma * 2 * b : 0);
   L.total = L.o_scr + (scr ? (long)N_SCR_VEC * (mh + ma) : 0);
@@ -224,26 +225,35 @@ BHD T rmv_col(const Rows<T>& K, const T* w, const T* u, int b, int nb, int t,
   return acc;
 }
 
-// Entry (t, i, j) of D (isD) or O of A' diag(d) A, added to acc: the
+// Row i of block t of D (isD) or O of A' diag(d) A, added to acc[j]: the
 // windows that cover block t (O: those that start at t), each window's r
-// rows summed first, in row order (K1's bb_quad_entry over every group).
-template <typename T>
-BHD T quad_entry(const Rows<T>& K, const T* d, int b, int nb, bool isD,
-                 int t, int i, int j, T acc) {
-  const int w = 2 * b;
+// rows summed first, in row order (K1's bb_quad_entry over every group,
+// for the b entries of the row at once: each row of a window is read once
+// for them).  A row of D is formed whole; the caller keeps its lower part.
+template <typename T, int BS>
+BHD void quad_row(const Rows<T>& K, const T* d, int nb, bool isD, int t,
+                  int i, T (&acc)[BS]) {
+  constexpr int w = 2 * BS;
   const int* ent = K.cov + nb + 1;
   for (int e = K.cov[t]; e < K.cov[t + 1]; ++e) {
     const int r0 = ent[3 * e], r = ent[3 * e + 1], half = ent[3 * e + 2];
     if (!isD && half != 0) continue;
-    const int wi = (isD ? half * b : b) + i, wj = (isD ? half * b : 0) + j;
+    const int wi = (isD ? half * BS : BS) + i, w0 = isD ? half * BS : 0;
     const T* Bg = K.S + (long)r0 * w;
     const T* dg = d + r0;
-    T s = T(0);
-#pragma unroll 4
-    for (int k = 0; k < r; ++k) s += Bg[k * w + wi] * dg[k] * Bg[k * w + wj];
-    acc += s;
+    T s[BS];
+#pragma unroll
+    for (int j = 0; j < BS; ++j) s[j] = T(0);
+#pragma unroll 2
+    for (int k = 0; k < r; ++k) {
+      const T* row = Bg + k * w;
+      const T a = row[wi] * dg[k];
+#pragma unroll
+      for (int j = 0; j < BS; ++j) s[j] += a * row[w0 + j];
+    }
+#pragma unroll
+    for (int j = 0; j < BS; ++j) acc[j] += s[j];
   }
-  return acc;
 }
 
 // Row (t, i) of the block-tridiagonal P (PD, PO) times v
@@ -270,7 +280,7 @@ struct Lane {
   T eps_abs, eps_rel, c, fzero;
   // shared memory
   T *D, *O, *rc, *red;
-  int* flag;  // the factor's fast paths did not hold
+  T* sc;  // [0] the factor's fast paths did not hold, [1] mu
   T *dx, *z5, *z6, *lb, *ub, *q, *dbox, *rdx, *rhs, *ddxa, *dz5a, *dz6a,
       *ddx, *dz5, *dz6, *tmp, *tmp2;
   // device memory
@@ -318,18 +328,13 @@ struct Lane {
 #endif
   }
 
-  // the timer's counts of chains that took their fallback (0: the
-  // factor, 1: a solve)
-  BHD void count_fallback(int which) {
-    if (TIMED && tid == 0) clk[N_PHASES + which] += 1;
+  // the timer's count of factors that took their fallback
+  BHD void count_fallback() {
+    if (TIMED && tid == 0) clk[N_PHASES] += 1;
   }
 
-  BHD void solve(const T* r, T* x) {
-    if (tid < WT &&
-        !banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid)) {
-      banded::btd_solve_lane<T, BS, WT>(D, O, r, x, nb, tid);
-      count_fallback(1);
-    }
+  BHD void solve(const T* r, T* x) const {
+    if (tid < WT) banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid);
     sync();
   }
 
@@ -383,31 +388,28 @@ struct Lane {
   }
 
   // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D's lower triangle,
-  // O)
+  // O), a block row per member in turn
   IHD void assemble() {
-    constexpr int BB = BS * BS, LT = BS * (BS + 1) / 2;
-    const int nDl = nb * LT, nO = (nb - 1) * BB;
+    constexpr int BB = BS * BS;
+    const int nDr = nb * BS, nOr = (nb - 1) * BS;
     T dm[1] = {T(-INFINITY)};
-    for (int e = tid; e < nDl + nO; e += nthr) {
-      const bool isD = e < nDl;
-      int t, i, j;
-      if (isD) {
-        t = e / LT;
-        j = e % LT;
-        i = 0;
-        while (j > i) j -= ++i;
-      } else {
-        const int ee = e - nDl;
-        t = ee / BB;
-        i = (ee % BB) / BS;
-        j = ee % BS;
+    for (int e = tid; e < nDr + nOr; e += nthr) {
+      const bool isD = e < nDr;
+      const int ee = isD ? e : e - nDr;
+      const int t = ee / BS, i = ee % BS;
+      const long at = (long)t * BB + i * BS;
+      T acc[BS];
+#pragma unroll
+      for (int j = 0; j < BS; ++j)
+        acc[j] = isD ? PD[at + j] + (i == j ? dbox[t * BS + i] : T(0))
+                     : PO[at + j];
+      quad_row(H, dhd(), nb, isD, t, i, acc);
+      quad_row(A, da(), nb, isD, t, i, acc);
+#pragma unroll
+      for (int j = 0; j < BS; ++j) {
+        if (!isD || j <= i) (isD ? D : O)[at + j] = acc[j];
+        if (isD && j == i) dm[0] = nmax(dm[0], acc[j]);
       }
-      const long at = (long)t * BB + i * BS + j;
-      T acc = isD ? PD[at] + (i == j ? dbox[t * BS + i] : T(0)) : PO[at];
-      acc = quad_entry(H, dhd(), BS, nb, isD, t, i, j, acc);
-      acc = quad_entry(A, da(), BS, nb, isD, t, i, j, acc);
-      (isD ? D : O)[at] = acc;
-      if (isD && i == j) dm[0] = nmax(dm[0], acc);
     }
     team_reduce<T, 0, 1>(red, nullptr, dm, tid, nthr);
     const T reg = sizeof(T) == 8 ? T(1e-12) * dm[0] + T(1e-11)
@@ -419,20 +421,92 @@ struct Lane {
     sync();
   }
 
-  // the assembly, then its block Cholesky in place (btd_factor_warp's
-  // fast paths; where one did not hold, the assembly again and K2's
-  // btd_factor_inplace, with the pivots' reciprocals formed after it)
-  IHD void assemble_factor() {
+  // the barrier of the members past the first warp (the side of
+  // factor_beside; the host's one thread: none)
+  BHD void side_sync() const {
+#ifdef __CUDA_ARCH__
+    asm volatile("bar.sync 1, %0;" ::"r"(nthr - WT) : "memory");
+#endif
+  }
+
+  // The residuals rdx, re and mu's six sums, on the side: the members past
+  // the first warp, which play the first warp's share too (warp 1 sums
+  // its rows and warp 0's), so each member's sums and the reduction tree
+  // are team_reduce's over the whole team; every side member gets mu.
+  IHD T residuals_side() {
+    const bool two = nthr > 1 && (tid >> 5) == 1;
+    T su[2][6] = {};
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (g == 1 && !two) continue;
+      const int v = g == 0 ? tid : tid - 32;
+      for (int i = v; i < H.m; i += nthr) {
+        su[g][0] += z1[i] * s1()[i];
+        su[g][1] += z2()[i] * h[i];
+      }
+      for (int i = v; i < A.m; i += nthr) {
+        re()[i] = ((adot(i, dx) - p[i]) + nn[i]) + A.e[i];
+        su[g][2] += z3()[i] * p[i];
+        su[g][3] += z4()[i] * nn[i];
+      }
+      for (int k = v; k < n; k += nthr) {
+        const int t = k / BS, i = k % BS;
+        rdx[k] = ((((pmv<T, BS>(PD, PO, dx, nb, t, i) + q[k]) +
+                    hcol(z1, (const T*)nullptr, t, i)) +
+                   acol(y, (const T*)nullptr, t, i)) -
+                  z5[k]) +
+                 z6[k];
+        su[g][4] += z5[k] * (dx[k] - lb[k]);
+        su[g][5] += z6[k] * (ub[k] - dx[k]);
+      }
+    }
+#ifdef __CUDA_ARCH__
+    const int lane = tid & 31, warp = tid >> 5, nw = nthr >> 5;
+#pragma unroll
+    for (int g = 0; g < 2; ++g) {
+      if (g == 1 && !two) continue;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+        for (int k = 0; k < 6; ++k)
+          su[g][k] += __shfl_down_sync(0xffffffffu, su[g][k], o);
+      if (lane == 0)
+#pragma unroll
+        for (int k = 0; k < 6; ++k) red[k * 32 + (g == 0 ? warp : 0)] = su[g][k];
+    }
+    side_sync();
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      T a = red[k * 32];
+      for (int w = 1; w < nw; ++w) a += red[k * 32 + w];
+      su[0][k] = a;
+    }
+#endif
+    return mu_of(su[0], n_pairs());
+  }
+
+  // the assembly, then its block Cholesky in place on the first warp
+  // (btd_factor_warp's fast paths) and beside it, on the other members,
+  // the residuals, mu and the predictor's right-hand side (they read
+  // neither D nor O); where a fast path did not hold, the assembly again
+  // and K2's btd_factor_inplace, with the pivots' reciprocals formed after
+  // it.  Returns mu.
+  IHD T factor_beside() {
     assemble();
     stamp(PH_ASSEMBLY);
     if (tid < WT) {
       const bool ok =
           banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, chol_tiny(), tid);
-      if (tid == 0) *flag = ok ? 0 : 1;
+      if (tid == 0) sc[0] = ok ? T(0) : T(1);
+    }
+    if (tid >= WT || nthr == 1) {
+      const T mu = residuals_side();
+      if (tid == (nthr > 1 ? WT : 0)) sc[1] = mu;
+      newton_rhs<false, true>(T(0));
     }
     sync();
-    if (*flag != 0) {
-      count_fallback(0);
+    if (sc[0] != T(0)) {
+      count_fallback();
       assemble();
       if (tid < WT) {
         banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
@@ -443,11 +517,39 @@ struct Lane {
       sync();
     }
     stamp(PH_FACTOR);
+    return sc[1];
+  }
+
+  // The right-hand side of the condensed system for the predictor (CORR
+  // false) or the corrector, into rhs: by the whole team, or (SIDE) by
+  // the members past the first warp
+  template <bool CORR, bool SIDE>
+  IHD void newton_rhs(T smu) {
+    const int first = SIDE && nthr > 1 ? tid - WT : tid;
+    const int step = SIDE && nthr > 1 ? nthr - WT : nthr;
+    for (int i = first; i < H.m; i += step)
+      bh()[i] = qdiv(rc1<CORR>(i, smu) * z2()[i] - z1[i] * rc2<CORR>(i, smu),
+                     den()[i]);
+    for (int i = first; i < A.m; i += step)
+      ba()[i] = (-re()[i] + qdiv(rc3<CORR>(i, smu), z3()[i])) -
+                qdiv(rc4<CORR>(i, smu), z4()[i]);
+    if (SIDE)
+      side_sync();
+    else
+      sync();
+    for (int k = first; k < n; k += step) {
+      const int t = k / BS, i = k % BS;
+      rhs[k] = ((-rdx[k] - hcol(bh(), (const T*)nullptr, t, i)) +
+                acol(ba(), da(), t, i) +
+                qdiv(rc5<CORR>(k, smu), dx[k] - lb[k])) -
+               qdiv(rc6<CORR>(k, smu), ub[k] - dx[k]);
+    }
   }
 
   // One Newton solve of the condensed system for the predictor (CORR
-  // false) or the corrector; the step goes to (sdx, sz5, sz6) and the row
-  // kinds' step vectors [CORR].  Returns the step length.
+  // false; its right-hand side formed beside the factor) or the corrector;
+  // the step goes to (sdx, sz5, sz6) and the row kinds' step vectors
+  // [CORR].  Returns the step length.
   template <bool CORR>
   IHD T newton(T smu, T* sdx, T* sz5, T* sz6) {
     constexpr int ph_pass = CORR ? PH_CORR_PASS : PH_PRED_PASS;
@@ -458,22 +560,11 @@ struct Lane {
     T* dy = A.d0[CORR];
     T* dp = A.d1[CORR];
     T* dnn = A.d2[CORR];
-    for (int i = tid; i < H.m; i += nthr)
-      bh()[i] = qdiv(rc1<CORR>(i, smu) * z2()[i] - z1[i] * rc2<CORR>(i, smu),
-                     den()[i]);
-    for (int i = tid; i < A.m; i += nthr)
-      ba()[i] = (-re()[i] + qdiv(rc3<CORR>(i, smu), z3()[i])) -
-                qdiv(rc4<CORR>(i, smu), z4()[i]);
-    sync();
-    for (int k = tid; k < n; k += nthr) {
-      const int t = k / BS, i = k % BS;
-      rhs[k] = ((-rdx[k] - hcol(bh(), (const T*)nullptr, t, i)) +
-                acol(ba(), da(), t, i) +
-                qdiv(rc5<CORR>(k, smu), dx[k] - lb[k])) -
-               qdiv(rc6<CORR>(k, smu), ub[k] - dx[k]);
+    if (CORR) {
+      newton_rhs<true, false>(smu);
+      sync();
+      stamp(ph_pass);
     }
-    sync();
-    stamp(ph_pass);
     solve(rhs, sdx);
     stamp(ph_solve);
     // one refinement step against the exact condensed matrix
@@ -529,13 +620,14 @@ struct Lane {
     return -am[0];
   }
 
+  BHD T n_pairs() const { return T(2 * H.m + 2 * A.m + 2 * n); }
+
   static BHD T mu_of(const T* s, T n_pairs) {
     return qdiv(((((s[0] + s[1]) + (s[2] + s[3])) + s[4]) + s[5]), n_pairs);
   }
 
   // the whole loop; returns the final (it, status, rp, rd, f_best)
   IHD void run(int* it_out, int* st_out, T* rp_out, T* rd_out, T* fb_out) {
-    const T n_pairs = T(2 * H.m + 2 * A.m + 2 * n);
     const T inf = T(INFINITY);
     // ---- initial interior point ----
     for (int k = tid; k < n; k += nthr) {
@@ -587,35 +679,13 @@ struct Lane {
             qdiv(z5[k], dx[k] - lb[k]) + qdiv(z6[k], ub[k] - dx[k]), dcap());
       sync();
       stamp(PH_DIAG);
-      assemble_factor();
-      // ---- residuals and mu ----
-      T su[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
-      for (int i = tid; i < H.m; i += nthr) {
-        su[0] += z1[i] * s1()[i];
-        su[1] += z2()[i] * h[i];
-      }
-      for (int i = tid; i < A.m; i += nthr) {
-        re()[i] = ((adot(i, dx) - p[i]) + nn[i]) + A.e[i];
-        su[2] += z3()[i] * p[i];
-        su[3] += z4()[i] * nn[i];
-      }
-      for (int k = tid; k < n; k += nthr) {
-        const int t = k / BS, i = k % BS;
-        rdx[k] = ((((pmv<T, BS>(PD, PO, dx, nb, t, i) + q[k]) +
-                    hcol(z1, (const T*)nullptr, t, i)) +
-                   acol(y, (const T*)nullptr, t, i)) -
-                  z5[k]) +
-                 z6[k];
-        su[4] += z5[k] * (dx[k] - lb[k]);
-        su[5] += z6[k] * (ub[k] - dx[k]);
-      }
-      team_reduce<T, 6, 0>(red, su, nullptr, tid, nthr);
-      const T mu = mu_of(su, n_pairs);
+      // ---- the factor, and beside it the residuals and mu ----
+      const T mu = factor_beside();
       stamp(PH_RESID);
 
       // ---- predictor ----
       const T a_aff = newton<false>(T(0), ddxa, dz5a, dz6a);
-      for (int k = 0; k < 6; ++k) su[k] = T(0);
+      T su[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
       for (int i = tid; i < H.m; i += nthr) {
         const T z1a = z1[i] + a_aff * H.d0[0][i];
         su[0] += z1a * (s1()[i] + a_aff * H.d2[0][i]);
@@ -633,7 +703,7 @@ struct Lane {
       }
       team_reduce<T, 6, 0>(red, su, nullptr, tid, nthr);
       stamp(PH_PRED_PASS);
-      const T mu_aff = mu_of(su, n_pairs);
+      const T mu_aff = mu_of(su, n_pairs());
       const T ratio = qdiv(mu_aff, clamp_lo(mu, tiny()));
       const T sigma = clamp_hi(clamp_lo(ratio * ratio * ratio, T(1e-8)), T(1));
 
@@ -730,10 +800,10 @@ struct Lane {
         for (int k = tid; k < n; k += nthr) dxb[k] = dx[k];
       }
       // ---- termination (unscaled; OSQP-style abs + rel criterion) ----
-      const T mu1 = mu_of(sm, n_pairs);
+      const T mu1 = mu_of(sm, n_pairs());
       const T rp_u = mx[0];
       const T rd_u = qdiv(mx[2], c);
-      const T gap_u = qdiv(n_pairs * mu1, c);
+      const T gap_u = qdiv(n_pairs() * mu1, c);
       const T d_scale = qdiv(mx[3], c);
       const T f_scale = nmax(aabs(f1), aabs(fzero)) + T(1);
       const T eps_p = eps_abs + eps_rel * mx[1];
@@ -836,7 +906,7 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.tmp = v + 15L * n;
   L.tmp2 = v + 16L * n;
   L.red = sm + lay.o_red;
-  L.flag = reinterpret_cast<int*>(sm + lay.o_flag);
+  L.sc = sm + lay.o_sc;
   L.PD = (const T*)a.PD + (long)lane * nb * BB;
   L.PO = (const T*)a.PO + (long)lane * (nb - 1) * BB;
   L.RD = (const T*)a.RD + (long)lane * nb * BB;
@@ -875,7 +945,7 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.p = (T*)a.p + (long)lane * ma;
   L.nn = (T*)a.nn + (long)lane * ma;
   L.y = (T*)a.y + (long)lane * ma;
-  L.clk = TIMED ? a.clk + (long)lane * (N_PHASES + 2) : nullptr;
+  L.clk = TIMED ? a.clk + (long)lane * (N_PHASES + 1) : nullptr;
   L.t_last = 0;
   L.run(a.it + lane, a.status + lane, (T*)a.rp + lane, (T*)a.rd + lane,
         (T*)a.fb + lane);

@@ -518,11 +518,11 @@ class _K6Args(ctypes.Structure):
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
 # K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
-# its iterations, then the counts of factors and of solves that took their
-# fallback (K6_CLK_SLOTS per lane)
+# its iterations, then the count of factors that took their fallback
+# (K6_CLK_SLOTS per lane)
 K6_PHASES = ("diagonals", "assembly", "factor", "residuals", "pred_pass",
              "pred_solve", "corr_pass", "corr_solve", "update", "objective")
-K6_CLK_SLOTS = len(K6_PHASES) + 2
+K6_CLK_SLOTS = len(K6_PHASES) + 1
 
 
 class _RowTables(NamedTuple):
@@ -600,7 +600,7 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None, smem=(1, 1)) -> _St:
     """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
     host build) and return its final state.  ``clk``: K6's phase timer, an
     int64 (lanes, K6_CLK_SLOTS) tensor the card adds each phase's cycles
-    and the fallbacks to (float32 on the card; the host build ignores
+    and the factor's fallbacks to (float32 on the card; the host build ignores
     it).  ``smem``: where the host build keeps
     the scaled rows and the scratch (1 its shared-memory array, 0 device
     memory); the card's launcher decides by its budget."""
