@@ -8,12 +8,12 @@
 // iteration, in the plain loop's order: the barrier diagonals; the block
 // assembly of K = P + Jh' Dh Jh + Ja' Da Ja + Dbox (K1's sums, over each
 // block's cover list) and the relative regularization; the block Cholesky
-// (K2's steps, banded::btd_factor_warp); the residuals and mu; the
-// predictor and corrector Newton solves (K3's steps,
-// banded::btd_solve_warp), each with one refinement step against the
-// exact condensed matrix; the step lengths and sigma; the NaN-guarded
-// update; best-iterate tracking by the exact composite objective; the
-// unscaled termination test.  A lane leaves its loop when its status is
+// (K2's steps, banded::btd_factor_warp) and, beside it, the residuals, mu
+// and the predictor's right-hand side; the predictor and corrector Newton
+// solves (K3's steps, banded::btd_solve_warp), each with one refinement
+// step against the exact condensed matrix; the step lengths and sigma;
+// the NaN-guarded update; best-iterate tracking by the exact composite
+// objective; the unscaled termination test.  A lane leaves its loop when its status is
 // set or it reaches max_iter, so a stopped lane never changes again.  The
 // set-up (pinned-coordinate elimination, column and row scaling, the cost
 // scale c, P's blocks, f(0)) and the teardown run in PyTorch in the
@@ -24,8 +24,9 @@
 // likewise, so a row or column always has the same owner and no two
 // members write one entry.  TEAM_SYNC separates phases that read what
 // another member wrote.  The factor and the solves run on the first WT
-// members (one warp on the card).  On the card the team is the CTA
-// (ipm_banded.cu); in the host build (ipm_host.cpp) it is one thread and
+// members (one warp on the card), the residuals beside the factor on the
+// others (side_sync their barrier).  On the card the team is the CTA
+// (ipm_launch.cuh); in the host build (ipm_host.cpp) it is one thread and
 // TEAM_SYNC is empty.
 //
 // Sums: every sum runs in a fixed order (a row's window in column order,

@@ -600,10 +600,10 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None, smem=(1, 1)) -> _St:
     """Lay the set-up out for K6, run ``fn(args)`` (the CUDA launcher or the
     host build) and return its final state.  ``clk``: K6's phase timer, an
     int64 (lanes, K6_CLK_SLOTS) tensor the card adds each phase's cycles
-    and the factor's fallbacks to (float32 on the card; the host build ignores
-    it).  ``smem``: where the host build keeps
-    the scaled rows and the scratch (1 its shared-memory array, 0 device
-    memory); the card's launcher decides by its budget."""
+    and the factor's fallbacks to (float32 on the card; the host build
+    ignores it).  ``smem``: where the host build keeps the scaled rows and
+    the scratch (1 its shared-memory array, 0 device memory); the card's
+    launcher decides by its budget."""
     d, lanes, n, b, mh, ma = su.data, su.lanes, su.n, su.bsz, su.mh, su.ma
     dt = su.q.dtype
     if dt not in (torch.float32, torch.float64):
