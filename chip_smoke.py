@@ -8,10 +8,11 @@ Every line printed is one JSON object.  Phases, in order:
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of every kernel of ``trajopt_tpu_torch/csrc``
    (one nvcc per source, all at once); the registers and local memory of
-   every K4, K4v and K5 instantiation and of K6's (float32 and float64 at
-   b 7, 14, 21) (``cudaFuncGetAttributes``), which the kernel summary
-   repeats; the float32 K4 and K4v without the CONVEX routes, and the
-   float32 K6 at b 7, must use no local memory;
+   every K4 (n_dof 7 and 9), K4v, K5, K7 and K7v instantiation and of K6's
+   (float32 and float64 at b 7, 9, 14, 21) (``cudaFuncGetAttributes``),
+   which the kernel summary repeats; the float32 K4 (n_dof 7) and K4v
+   without the CONVEX routes, and the float32 K6 at b 7, must use no local
+   memory;
 2. each kernel held against its plain PyTorch version on the same inputs
    (tolerances below), in float32 and float64, then its time, its plain
    version's time, one PyTorch library call's time where one computes the
@@ -45,7 +46,18 @@ Every line printed is one JSON object.  Phases, in order:
    within K6_F32_GAP_TOL of the IPM's gap tolerance from the plain loop's,
    its status usable alike, and dx within K6_F32_DX_TOL of the lane's
    largest |dx| on every lane whose runs end alike (K6 constants below);
-   then K6's time per call, the plain loop's, and K6's bound;
+   then K6's time per call, the plain loop's, and K6's bound; and K6 at
+   b 9 on the 9-DoF rail's first QP (128 lanes), with the same checks, and
+   its time;
+2e. the kernels of the reference's solve benchmarks against their plain
+   versions, float32 and float64, with phase 2's value and Jacobian rules
+   (a float32 Jacobian row over its tolerance must be one whose plain
+   Jacobian moves by more than it under a few ulps of x): K7 disc_dist
+   and K7v disc_dist_value on the spherebot (128 lanes, one step) and on
+   arm7's table world (128 lanes x 30 steps x 28 pairs, the flagship's
+   initial trajectories plus seeded noise); K4 and K4v at n_sub 8 on the
+   planning scene (128 x 5 gaps) and K4 at n_dof 9 on the rail (128 x 14
+   gaps), then their times and bounds;
 3. the collision-free slice: ``make_glass_upright_free(batch=128, T=30,
    float32)`` through ``solve_batch_compact(bench_params(),
    phase_qp_solves=8)`` with every launch counter and the count of batched
@@ -80,7 +92,23 @@ Every line printed is one JSON object.  Phases, in order:
    plain path from x0 moved by one ulp is printed beside it, and no lane
    may move further than that), and 1e-4 for the transfer
    (``TRANSFER_DX_TOL``);
-5. the kernel summary line, then the last line
+5. ``run_benchmarks(batch=128, repeats=3)`` on the card (the reference's
+   four solve benchmarks: simple_collision, planning, glass_upright,
+   redundant_rail), each entry with every launch counter and the count of
+   batched QP solves set to 0 just before and read just after: each
+   entry's dict and launches; simple_collision must launch K7 and K7v and
+   no K6 (its one-step QP takes the dense rows), planning K4 and K4v and
+   K6 once per batched QP solve, the rail K6 at b 9 and K4 at n_dof 9; no
+   lane non-finite; the K5 gate at n_sub 16 on the planning and rail
+   lanes; converged and gated counts at or above ``BENCH_LIMITS`` (the
+   JAX package's own counts on the CPU less 5);
+5b. 8 lanes each of simple_collision, planning and the rail in float64
+   through ``solve_batch``'s kernel path and plain path: equal statuses
+   and QP counts, x within 3e-5 and the plain path's own one-ulp move;
+   the rail from x0 plus seeded noise (its straight-line start sits on
+   exact ties that each path resolves by its own rounding: that run, and
+   the two paths' first QP solves from it, are reported);
+6. the kernel summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Any failure raises and the script exits non-zero.  It exits non-zero with
@@ -137,6 +165,14 @@ TRANSFER_DX_TOL = 1e-4
 # on no path: their math is K6's (csrc/banded.cuh)
 PATH_KERNELS = ("ipm_banded", "cast_seg", "cast_seg_value", "cast_sweep")
 QP_KERNELS = ("bb_quad", "btd_factor", "btd_solve")
+# run_benchmarks at batch 128, float32: the JAX package's own counts on the
+# CPU (scripts/jax_reference_counts.py, seed 0) less 5, as the transfer's
+# gate limit is its JAX count less 5 (converged; gated: CONVERGED, max
+# violation < 1e-4 and, with a collision world over gaps, the n_sub=16
+# swept check >= 0)
+BENCH_LIMITS = {"simple_collision": {"converged": 123, "gated": 123},
+                "planning": {"converged": 123, "gated": 121},
+                "redundant_rail": {"converged": 45, "gated": 45}}
 # K6 vs the plain loop, float64: dx relative to the lane's largest |dx| on
 # lanes with equal iteration counts (the same Newton sequence in another
 # sum order: ~1e-15 per step, amplified by the late barrier stages'
@@ -334,15 +370,20 @@ def main():
                                               make_glass_upright,
                                               make_glass_upright_free,
                                               make_pick_and_place,
+                                              make_planning,
+                                              make_redundant_rail,
+                                              make_simple_collision,
+                                              run_benchmarks,
                                               solve_pick_and_place)
     from trajopt_tpu_torch.collision import geometry as geom
     from trajopt_tpu_torch.ops import banded_rows as br
     from trajopt_tpu_torch.ops import btridiag as bt
     from trajopt_tpu_torch.ops import ipm_qp
     from trajopt_tpu_torch.solver import sqp as sqp_mod
-    from trajopt_tpu_torch.solver.sqp import solve_batch_compact
-    from trajopt_tpu_torch.solver.types import CONVERGED
+    from trajopt_tpu_torch.solver.sqp import solve_batch, solve_batch_compact
+    from trajopt_tpu_torch.solver.types import CONVERGED, FAILED
     from trajopt_tpu_torch.terms.collision import (CastDistancePre,
+                                                   DiscreteDistancePre,
                                                    cast_sweep_distances,
                                                    convex_route,
                                                    kernel_attributes,
@@ -372,8 +413,9 @@ def main():
     ipm_attrs = ipm_qp.kernel_attributes()
     emit({"phase": "ipm_attributes", "attributes": ipm_attrs, "card": smi})
     assert ipm_attrs["f32_b7"]["local_bytes"] == 0, ipm_attrs
-    # the float32 K4 and K4v without the CONVEX routes keep every value in
-    # registers and shared memory (the launch bounds in cast_kernel.cuh)
+    # the float32 K4 (n_dof 7) and K4v without the CONVEX routes keep every
+    # value in registers and shared memory (the launch bounds in
+    # cast_kernel.cuh)
     assert all(cast_attrs[k]["local_bytes"] == 0
                for k in ("cast_seg_f32", "cast_seg_value_f32")), cast_attrs
 
@@ -494,7 +536,12 @@ def main():
         "bb_quad": dict(
             ms=time_ms(lambda: br.bb_quad_group_cuda(Bw, G, d, D0, O0)),
             plain_ms=time_ms(lambda: br.bb_quad_group_plain(Bw, G, d, D0, O0)),
-            library_ms=None,
+            # one batched einsum forms every window's B' diag(d) B (the
+            # scatter-add into D and O aside)
+            library_ms=time_ms(lambda: torch.einsum(
+                "zgri,zgr,zgrj->zgij", Bw, d.reshape(lanes, T, 2), Bw)),
+            library_call="torch.einsum zgri,zgr,zgrj->zgij (the window "
+            "products, without the scatter into D, O)",
             bytes=es * (Bw.numel() + d.numel() + 2 * (D0.numel() + O0.numel()))
             + 4 * G.numel(),
             flops=lanes * T * 9 * bb * 2,
@@ -818,6 +865,12 @@ def main():
         sc2, rA2.x.reshape(lanes, pnp_T, D)[:, -1].cpu().numpy())
     qps["transfer_qp1"] = capture(lambda: solve_batch_compact(
         specB2, dataB2, params, phase_qp_solves=8, device=dev), {0})[0]
+    # the 9-DoF rail's first QP: K6 at b 9
+    spec_r, data_r, _, world_r = make_redundant_rail(lanes, dtype=f32,
+                                                     device=dev)
+    qps["rail_qp1"] = capture(lambda: solve_batch(
+        spec_r, data_r, dataclasses.replace(params, max_total_qp_solves=1),
+        device=dev), {0})[0]
 
     def regrouped(qd, qset, c):
         """The QP with its windows regrouped to superblocks of c steps (K6
@@ -953,6 +1006,268 @@ def main():
         shape=f"one batched QP: 128 lanes, n {qd.q.shape[1]}, b "
         f"{qset.kkt_block}, m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
     emit({"time": "ipm_banded", **timing["ipm_banded"], "card": smi})
+    # and at b 9, on the rail's first QP
+    qd, qset = qps["rail_qp1"]
+    su = ipm_qp._setup(qd, qset)
+    plan = ipm_qp.band_plan(qd, qset.kkt_block)
+    it_k = ipm_qp.ipm_banded_cuda(su, plan).it
+    k6_bytes, k6_flops = k6_work(qd, qset.kkt_block, it_k, es)
+    t_bytes = k6_bytes / PEAK_BYTES * 1e3
+    t_ops = k6_flops / PEAK_FLOPS["float32"] * 1e3
+    timing["ipm_banded_b9"] = dict(
+        ms=time_ms(lambda: ipm_qp.ipm_banded_cuda(su, plan), reps=10),
+        plain_ms=time_ms(lambda: ipm_qp._loop_plain(su), reps=2),
+        library_ms=None, bytes=k6_bytes, flops=k6_flops,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        iters_mean=float(it_k.double().mean()), iters_max=int(it_k.max()),
+        shape=f"one batched QP: 128 lanes, n {qd.q.shape[1]}, b "
+        f"{qset.kkt_block}, m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
+    emit({"time": "ipm_banded_b9", **timing["ipm_banded_b9"], "card": smi})
+
+    # ---- 2e: K7 / K7v, K4 / K4v at n_sub 8 and K4 at n_dof 9 against
+    # their plain versions, then their times ----
+    def jac_rows(name, dname, rowj, capbox, jac_fn, rows_x, tol_j, ties):
+        """The Jacobian check: rowj (rows) each row's largest error relative
+        to the largest |J|; rows tied by ``ties`` excluded and counted;
+        sphere-box rows (``capbox``) held to CAPBOX_JTOL; float64: every
+        row to tol_j too; float32: a row over its tolerance must be one
+        whose plain Jacobian moves by more than it under ULP_MOVE ulps of x
+        (``jac_fn`` maps (n, draws, *x) to (n, draws, cols)), at most
+        D_OVER_SHARE of the rows."""
+        keep = ~ties
+        lim = torch.where(capbox, torch.full_like(rowj, CAPBOX_JTOL[dname]),
+                          torch.full_like(rowj, tol_j))
+        over = keep & (rowj > lim)
+        rec = {"check": name, "dtype": dname,
+               "J_rel_err_untied_rows": max0((rowj * ~capbox)[keep]),
+               "J_rel_err_sphere_box_untied_rows": max0((rowj * capbox)[keep]),
+               "J_rel_err_all_rows": float(rowj.max()),
+               "rows": rowj.numel(), "tie_rows_excluded": int(ties.sum()),
+               "J_untied_rows_over_tol": int(over.sum()),
+               "tol": [tol_j, CAPBOX_JTOL[dname]]}
+        ok = not bool(over.any())
+        if dname == "float64":
+            ok = ok and rec["J_rel_err_all_rows"] < tol_j
+        elif bool(over.any()):
+            idx = torch.nonzero(over)
+            spread = ulp_spread(rows_x(idx),
+                                lambda xp: jac_fn(idx, xp)).amax(-1)
+            moved = spread > lim[over] * jac_scale[0]
+            rec.update(J_rows_over_tol_plain_moves=int(moved.sum()),
+                       worst_row=idx[int(rowj[over].argmax())].tolist())
+            ok = bool(moved.all()) and int(over.sum()) \
+                <= D_OVER_SHARE * rowj.numel()
+        rec["ok"] = ok
+        emit(rec)
+        assert ok, f"{name} disagrees with the plain version"
+        return rec
+
+    jac_scale = [1.0]  # the largest |J| of the plain version, per check
+
+    def disc_work(world, lanes_, span, es_, nc):
+        """(bytes, flops) of K7 ("jac") and K7v ("value") on these inputs:
+        x read once, D (and J) written once; per (lane, step) the chain,
+        the joint frames and world records, and per pair its closed form
+        (with n_dof tangent columns for K7), counted as cast_work counts
+        K4's phase A and B."""
+        L, NG, P = world.chain.n_links, len(world.geoms), world.n_pairs
+        nd = world.chain.n_dof
+        fk = L * FK_LINK + nd * FK_DOF + NG * FK_GEOM
+        jac = val = 0.0
+        for i, j in world.pairs:
+            disc = DISCRETE[(world.geoms[i].kind, world.geoms[j].kind)]
+            jac += disc * (1 + 1.5 * nd) + 4 * nd * 11
+            val += disc
+        blocks = lanes_ * span
+        tables = sum(t.numel() * t.element_size()
+                     for t in world.kernel_tables(torch.float32, dev))
+        x_b = lanes_ * span * nc * es_
+        d_b = lanes_ * span * P * es_
+        return {"jac": (x_b + tables + d_b * (1 + nc), blocks * (fk + jac)),
+                "value": (x_b + tables + d_b, blocks * (fk + val))}
+
+    def bound(w):
+        t_bytes = w[0] / PEAK_BYTES * 1e3
+        t_ops = w[1] / PEAK_FLOPS["float32"] * 1e3
+        return dict(bytes=w[0], flops=w[1], bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+    _, data_sb, _, world_sb = make_simple_collision(lanes, torch.float64,
+                                                    device=dev)
+    x_sb64 = (data_sb.x0 + torch.as_tensor(np.random.default_rng(8).normal(
+        0.0, 0.1, tuple(data_sb.x0.shape)), device=dev)).contiguous()
+    disc_err = {"disc_dist": [], "disc_dist_value": []}
+    disc_time = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        tol_d, tol_j = COLL_TOL[dname]
+        x_arm, world_arm = flagship_x(dtype, 7)
+        for label, world, x, TT in (
+                ("spherebot", world_sb, x_sb64.to(dtype).contiguous(), 1),
+                ("arm7", world_arm, x_arm, 30)):
+            nd, P = world.chain.n_dof, world.n_pairs
+            X = x.reshape(lanes, TT, nd)
+            pre = DiscreteDistancePre(world, TT)
+            Dk, Jk = pre.value_jac(x)
+            Dv = pre.value(x)
+            sync()
+            Dp, Jp = pre.value_jac(x, kernels=False)
+
+            def step_x(idx):
+                return X[idx[:, 0], idx[:, 1]][:, None]
+
+            def disc_values(idx, xp):
+                n, draws = xp.shape[:2]
+                d = world.pair_distances(xp[:, :, 0])
+                return torch.gather(d, 2, idx[:, 2:3, None].expand(
+                    -1, draws, 1))[..., 0]
+
+            def disc_jac(idx, xp):
+                n, draws = xp.shape[:2]
+                J = torch.func.vmap(torch.func.jacfwd(world.pair_distances))(
+                    xp[:, :, 0].reshape(-1, nd)).reshape(n, draws, P, nd)
+                return torch.gather(J, 2, idx[:, 2:3, None, None].expand(
+                    -1, draws, 1, nd))[:, :, 0]
+
+            dscale = float(Dp.abs().max())
+            for name, Dout in (("disc_dist", Dk), ("disc_dist_value", Dv)):
+                rec = value_rows(f"{name}_{label}", dname,
+                                 (Dout - Dp).abs() / dscale, step_x,
+                                 disc_values, dscale, tol_d)
+                disc_err[name].append(dict(rec, dtype=dname, world=label))
+            jac_scale[0] = float(Jp.abs().max())
+            rowj = (Jk - Jp).abs().amax(-1) / jac_scale[0]
+            # capsule-box rows: d_capsule_box's 12 projections, as phase 2's
+            # sphere sweeps against a box
+            capbox = torch.as_tensor(
+                [(world.geoms[i].kind, world.geoms[j].kind) == (1, 2)
+                 for i, j in world.pairs], device=dev).expand_as(rowj)
+            rec = jac_rows(f"disc_dist_jacobian_{label}", dname, rowj,
+                           capbox, disc_jac, step_x, tol_j,
+                           torch.zeros_like(rowj, dtype=torch.bool))
+            disc_err["disc_dist"][-1].update(
+                {k: v for k, v in rec.items() if k.startswith("J_")},
+                tie_rows_excluded=rec["tie_rows_excluded"])
+            if dtype == torch.float32:
+                w = disc_work(world, lanes, TT, es, nd)
+                for name, fn, plain, wk in (
+                        ("disc_dist", lambda: pre.value_jac(x),
+                         lambda: pre.value_jac(x, kernels=False), w["jac"]),
+                        ("disc_dist_value", lambda: pre.value(x),
+                         lambda: pre.value(x, kernels=False), w["value"])):
+                    disc_time[name, label] = dict(
+                        ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                        library_ms=None, **bound(wk),
+                        shape=f"x ({lanes}, {TT * nd}) -> D ({lanes}, {TT}, "
+                        f"{P})" + (f", J ({lanes}, {TT}, {P}, {nd})"
+                                   if name == "disc_dist" else ""))
+                    emit({"time": f"{name}_{label}",
+                          **disc_time[name, label], "card": smi})
+    for name in ("disc_dist", "disc_dist_value"):
+        # the main path's shape: simple_collision's spherebot
+        timing[name] = dict(disc_time[name, "spherebot"],
+                            arm7_table_world=disc_time[name, "arm7"])
+
+    # K4 / K4v at n_sub 8 (planning) and K4 at n_dof 9 (the rail)
+    def cast_check(label, world, X, n_sub, dname, kinds):
+        """K4 (and K4v) against the plain versions on trajectories X
+        (lanes, T, nd): values on every row, Jacobians on the untied rows
+        (the sphere-box ones to CAPBOX_JTOL), as phase 2."""
+        tol_d, tol_j = COLL_TOL[dname]
+        TT, nd = X.shape[1], X.shape[2]
+        P = world.n_pairs
+        x = X.reshape(lanes, -1).contiguous()
+        pre = CastDistancePre(world, TT, n_sub=n_sub)
+        pre1 = CastDistancePre(world, 2, n_sub=n_sub)
+        Dk, (Jak, Jbk) = pre.value_jac(x)
+        Dv = pre.value(x)
+        sync()
+        Dp, (Jap, Jbp) = pre.value_jac(x, kernels=False)
+
+        def gap_x(idx):
+            return torch.stack([X[idx[:, 0], idx[:, 1]],
+                                X[idx[:, 0], idx[:, 1] + 1]], 1)
+
+        def seg_values(idx, xp):
+            n, draws = xp.shape[:2]
+            Dx = pre1.value(xp.reshape(n * draws, 2 * nd),
+                            kernels=False).reshape(n, draws, -1, P)
+            return Dx[torch.arange(n, device=dev)[:, None],
+                      torch.arange(draws, device=dev)[None],
+                      idx[:, 2:3], idx[:, 3:4]]
+
+        def seg_jac(idx, xp):
+            n, draws = xp.shape[:2]
+            _, (Ja_, Jb_) = pre1.value_jac(xp.reshape(n * draws, 2 * nd),
+                                           kernels=False)
+            row = (idx[:, 2] * P + idx[:, 3])[:, None].expand(-1, draws)
+            Ja_ = Ja_.reshape(n, draws, -1, nd)
+            Jb_ = Jb_.reshape(n, draws, -1, nd)
+            pick = row[..., None, None].expand(-1, -1, 1, nd)
+            return torch.cat([torch.gather(Ja_, 2, pick)[:, :, 0],
+                              torch.gather(Jb_, 2, pick)[:, :, 0]], -1)
+
+        dscale = float(Dp.abs().max())
+        recs = {}
+        for name, Dout in (("cast_seg", Dk), ("cast_seg_value", Dv)):
+            if name in kinds:
+                recs[name] = value_rows(f"{name}_{label}", dname,
+                                        (Dout - Dp).abs() / dscale, gap_x,
+                                        seg_values, dscale, tol_d)
+        tie = world.cast_ties(X[:, :-1], X[:, 1:], n_sub, *TIE_RULE[dname]
+                              ).reshape(lanes, TT - 1, n_sub - 1, P)
+        jac_scale[0] = max(float(Jap.abs().max()), float(Jbp.abs().max()))
+        rowj = (torch.maximum((Jak - Jap).abs().amax(-1),
+                              (Jbk - Jbp).abs().amax(-1)) / jac_scale[0]
+                ).reshape(lanes, TT - 1, n_sub - 1, P)
+        capbox = torch.as_tensor(
+            [r == "sphere" and 2 in (world.geoms[i].kind,
+                                     world.geoms[j].kind)
+             for (i, j), (r, _) in zip(world.pairs, world.pair_routes())],
+            device=dev).expand_as(rowj)
+        rec = jac_rows(f"cast_seg_jacobian_{label}", dname, rowj, capbox,
+                       seg_jac, gap_x, tol_j, tie)
+        recs["cast_seg"].update({k: v for k, v in rec.items()
+                                 if k.startswith("J_")},
+                                J_tie_rows_excluded=rec["tie_rows_excluded"])
+        return recs, pre, x, Dp
+
+    new_err = {}
+    _, data_pl, _, world_pl = make_planning(lanes, dtype=f32, device=dev)
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        for label, world, data_, n_sub, kinds in (
+                ("planning_nsub8", world_pl, data_pl, 8,
+                 ("cast_seg", "cast_seg_value")),
+                ("rail_nd9", world_r, data_r, 2, ("cast_seg",))):
+            x0 = data_.x0.to(dtype)
+            noise = torch.as_tensor(np.random.default_rng(9).normal(
+                0.0, 0.02, tuple(x0.shape)), device=dev).to(dtype)
+            nd = world.chain.n_dof
+            X = (x0 + noise).reshape(lanes, -1, nd)
+            recs, pre, x, Dp = cast_check(label, world, X, n_sub, dname,
+                                          kinds)
+            for name, r in recs.items():
+                new_err.setdefault((name, label), []).append(
+                    dict(r, dtype=dname))
+            if dtype != torch.float32:
+                continue
+            w = cast_work(world, Dp, lanes, X.shape[1] - 1, n_sub, es, nd)
+            for name in kinds:
+                fn = (lambda: pre.value_jac(x)) if name == "cast_seg" \
+                    else (lambda: pre.value(x))
+                plain = (lambda: pre.value_jac(x, kernels=False)) \
+                    if name == "cast_seg" \
+                    else (lambda: pre.value(x, kernels=False))
+                t = dict(ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                         library_ms=None,
+                         **bound(w["jac" if name == "cast_seg" else "value"]),
+                         shape=f"x ({lanes}, {x.shape[1]}) -> D ({lanes}, "
+                         f"{X.shape[1] - 1}, {n_sub - 1}, {world.n_pairs})"
+                         f" at n_sub {n_sub}, n_dof {nd}")
+                timing[f"{name}_{label}"] = t
+                emit({"time": f"{name}_{label}", **t, "card": smi})
 
     # the SQP's batched QP solves (its calls of solve_ipm_qp), counted from
     # here on beside the launch counters
@@ -1398,6 +1713,134 @@ def main():
         TRANSFER_DX_TOL, False)
 
     # ------------------------------------------------------------------
+    # phase 5: the reference's four solve benchmarks, run_benchmarks(
+    # batch=128, repeats=3) on the card, entry by entry
+    # ------------------------------------------------------------------
+    bench_recs, bench_launches, bench_qp = [], {}, {}
+    for name in ("simple_collision", "planning", "glass_upright",
+                 "redundant_rail"):
+        got = {}
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = run_benchmarks([name], batch=lanes, repeats=3, device=dev,
+                             results=got)[0]
+        sync()
+        entry_s = time.perf_counter() - t0
+        bl = dict(_native.LAUNCHES)
+        bench_launches[name], bench_qp[name] = bl, qp_calls[0]
+        res, world = got[name]
+        st = res.status.cpu().numpy()
+        v = res.cnt_viols.max(dim=1).values.cpu().numpy()
+        gated = (st == CONVERGED) & (v < 1e-4)
+        out = {"phase": "run_benchmarks", "entry": rec,
+               "entry_s_cold_and_warm": entry_s, "runs": 4,
+               "launches": bl, "batched_qp_solves": qp_calls[0],
+               "finite": bool(torch.isfinite(res.x).all()),
+               "max_viol": float(v.max()),
+               "status_counts": np.bincount(st, minlength=5).tolist(),
+               "card": smi}
+        if name != "simple_collision":  # the K5 gate (n_sub 16)
+            T_ = res.x.shape[1] // world.chain.n_dof
+            g = trajectory_in_collision(
+                world, res.x.reshape(lanes, T_, world.chain.n_dof)
+            ).cpu().numpy()
+            gated = gated & (g >= 0.0)
+            out["min_swept_distance"] = float(g.min())
+        out["gated"] = int(gated.sum())
+        lim = BENCH_LIMITS.get(name)
+        if lim:
+            out["limits"] = lim
+        emit(out)
+        bench_recs.append(out)
+        assert out["finite"], f"{name}: non-finite lanes"
+        if lim:
+            assert rec["converged"] >= lim["converged"] \
+                and out["gated"] >= lim["gated"], (name, rec, out["gated"])
+        if name == "simple_collision":
+            # one step: the dense-row QP (no K6), the discrete kernels
+            assert bl["disc_dist"] > 0 and bl["disc_dist_value"] > 0 \
+                and bl["ipm_banded"] == 0 and qp_calls[0] > 0, bl
+        else:
+            assert path_ok(bl, qp_calls[0]), (name, bl, qp_calls[0])
+            assert bl["cast_seg"] > 0 and bl["cast_seg_value"] > 0, bl
+        if name == "redundant_rail":
+            assert bl["ipm_banded_b9"] == bl["ipm_banded"] \
+                and bl["cast_seg_nd9"] == bl["cast_seg"], bl
+    launches_b = {k: sum(bench_launches[n][k] for n in bench_launches)
+                  for k in _native.LAUNCHES}
+
+    # phase 5b: the float64 kernel path against the plain path, 8 lanes
+    # of each new scene, through solve_batch (run_benchmarks' solver)
+    def batch_vs_plain(label, spec64, data64, hold=True):
+        """Equal statuses and QP counts, x within FLAGSHIP_DX_TOL and the
+        plain path's own move from x0 moved by one ulp; ``hold=False``:
+        reported, and every lane finite and not FAILED."""
+        rk = solve_batch(spec64, data64, params, device=dev, kernels=True)
+        t0 = time.perf_counter()
+        rp = solve_batch(spec64, data64, params, device=dev, kernels=False)
+        sync()
+        plain_s = time.perf_counter() - t0
+        u = torch.as_tensor(np.random.default_rng(10).integers(
+            -1, 2, tuple(data64.x0.shape)), device=dev).to(torch.float64)
+        ru = solve_batch(spec64, data64._replace(
+            x0=data64.x0 * (1 + u * torch.finfo(torch.float64).eps)),
+            params, device=dev, kernels=False)
+        dx_lane = (rk.x - rp.x).abs().amax(-1)
+        du_lane = (ru.x - rp.x).abs().amax(-1)
+        rec = {"phase": f"f64_{label}_kernel_vs_plain",
+               "lanes": rk.x.shape[0], "status": rk.status.tolist(),
+               "n_qp": rk.n_qp_solves.tolist(),
+               "status_plain": rp.status.tolist(),
+               "n_qp_plain": rp.n_qp_solves.tolist(),
+               "same_status": bool((rk.status == rp.status).all()),
+               "same_n_qp": bool((rk.n_qp_solves == rp.n_qp_solves).all()),
+               "max_abs_dx": float(dx_lane.max()),
+               "dx_per_lane": dx_lane.tolist(),
+               "plain_x0_ulp_dx_per_lane": du_lane.tolist(),
+               "plain_x0_ulp_status": ru.status.tolist(),
+               "plain_x0_ulp_n_qp": ru.n_qp_solves.tolist(),
+               "plain_x0_ulp_same_status": bool(
+                   (ru.status == rp.status).all()),
+               "tol": FLAGSHIP_DX_TOL if hold else "reported",
+               "plain_path_s": plain_s}
+        if hold:
+            ok = rec["same_status"] and rec["same_n_qp"] \
+                and rec["max_abs_dx"] < FLAGSHIP_DX_TOL \
+                and rec["max_abs_dx"] <= max(float(du_lane.max()), 1e-10)
+        else:
+            ok = bool(torch.isfinite(rk.x).all()) and bool(
+                (rk.status != FAILED).all())
+        rec["ok"] = ok
+        emit(rec)
+        assert ok, f"{label}: kernel path != plain path"
+        return rec
+
+    batch_vs_plain("simple_collision",
+                   *make_simple_collision(8, torch.float64, device=dev)[:2])
+    batch_vs_plain("planning", *make_planning(8, dtype=torch.float64,
+                                              device=dev)[:2])
+    # The rail's straight-line start moves only the carriage and the first
+    # and last joints: about half of its cast rows hold an exact tie there
+    # (two substates at one distance, a hull at the substates' minimum),
+    # which each path resolves by its own rounding.  From it the two paths
+    # part at the first QP solve (its dx reported here), and the plain
+    # path's own outcome moves under one ulp of x0: reported.  From x0 plus
+    # seeded noise no decision is tied, and the kernel path is held to the
+    # plain path as above (PERF.md section 6).
+    spec9, data9 = make_redundant_rail(8, dtype=torch.float64, device=dev)[:2]
+    first = [solve_batch(spec9, data9, dataclasses.replace(
+        params, max_total_qp_solves=1), device=dev, kernels=k)
+        for k in (True, False)]
+    batch_vs_plain("redundant_rail_straight_start", spec9, data9,
+                   hold=False)
+    emit({"phase": "f64_redundant_rail_straight_start_first_qp",
+          "dx_per_lane": (first[0].x - first[1].x).abs().amax(-1).tolist()})
+    noise9 = torch.as_tensor(np.random.default_rng(11).normal(
+        0.0, 0.02, tuple(data9.x0.shape)), device=dev)
+    batch_vs_plain("redundant_rail", spec9,
+                   data9._replace(x0=data9.x0 + noise9))
+
+    # ------------------------------------------------------------------
     # summary (launches: the full flagship's run, phase 3b, for K1-K6; the
     # pick-and-place run, phase 3c, for the CONVEX routes; every path's
     # counts in launches_by_path; K1-K3 run on no path, their math inside
@@ -1413,8 +1856,11 @@ def main():
         "cast_sweep": "trajopt_tpu/terms/collision.py:548",
         "convex_feature": "trajopt_tpu/collision/geometry.py:796",
         "convex_fw": "trajopt_tpu/collision/geometry.py:211",
+        "disc_dist": "trajopt_tpu/terms/collision.py:117",
+        "disc_dist_value": "trajopt_tpu/terms/collision.py:114",
     }
     source = {k: f"trajopt_tpu_torch/csrc/{k}.cu" for k in replaces}
+    source["disc_dist_value"] = source["disc_dist"]
     # K6: ipm_banded.cu (float32; ipm_banded64.cu float64) over
     # ipm_launch.cuh, its body ipm.cuh over banded.cuh (the warp factor and
     # solves) and qmath.cuh
@@ -1431,7 +1877,11 @@ def main():
         source[k] = "trajopt_tpu_torch/csrc/cast_block.cuh"
     launches = {k: launches_f[k] for k in PATH_KERNELS + QP_KERNELS}
     launches.update(convex_feature=launches_p["convex_feature"],
-                    convex_fw=launches_p["convex_fw"])
+                    convex_fw=launches_p["convex_fw"],
+                    # K7 / K7v: simple_collision's run_benchmarks entry
+                    disc_dist=bench_launches["simple_collision"]["disc_dist"],
+                    disc_dist_value=bench_launches["simple_collision"][
+                        "disc_dist_value"])
     # errors: K1-K3 the largest relative error of every check and the
     # absolute one at the main path's shape; K4, K4v, K5 the values' error
     # on every row (D_*), K4 also the Jacobian's on the untied rows and on
@@ -1503,10 +1953,69 @@ def main():
             for sfx in ("_", "_cvx_") for d in ("f32", "f64")})
     for k in ("convex_feature", "convex_fw"):
         errs[k]["sources"] = cast_sources
+    # K7 / K7v: the values' error on every row and K7's Jacobian's, worst
+    # over float32 and float64, both worlds; the arm7 table world's time
+    for k, v in disc_err.items():
+        errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
+                   "max_abs_err_of": "D, all rows",
+                   "D_max_rel_err_all_rows": max(e["D_rel_err_all_rows"]
+                                                 for e in v),
+                   "D_rows_over_tol": max(e["D_rows_over_tol"] for e in v),
+                   "worlds": ["spherebot (128 x 1 step)",
+                              "arm7 table (128 x 30 steps x 28 pairs)"],
+                   "arm7_table_world": timing[k]["arm7_table_world"],
+                   "launches_are": "simple_collision's run_benchmarks "
+                   "entry (one cold and three warm runs)",
+                   "library_ms_null_because": "no one PyTorch call computes "
+                   "FK and the pair distances",
+                   "sources": [f"trajopt_tpu_torch/csrc/{f}" for f in (
+                       "disc_dist.cu", "cast_block.cuh", "collision.cuh")],
+                   "attributes": {f"{k}_{d}": cast_attrs[f"{k}_{d}"]
+                                  for d in ("f32", "f64")}}
+        if k == "disc_dist":
+            errs[k].update({f: max(e[f] for e in v) for f in (
+                "J_rel_err_untied_rows", "J_rel_err_all_rows")})
+    # the instantiations this slice added: K4 at n_dof 9 (the rail) and
+    # K4 / K4v at n_sub 8 (planning), K6 at b 9 (the rail)
+    for k in ("cast_seg", "cast_seg_value"):
+        inst = {}
+        for label, what in (("planning_nsub8", "n_sub 8"),
+                            ("rail_nd9", "n_dof 9")):
+            if (k, label) not in new_err:
+                continue
+            v = new_err[(k, label)]
+            inst[label] = dict(
+                timing[f"{k}_{label}"], instantiation=what,
+                D_max_rel_err_all_rows=max(e["D_rel_err_all_rows"]
+                                           for e in v),
+                D_rows_over_tol=max(e["D_rows_over_tol"] for e in v),
+                launches=bench_launches[
+                    "planning" if label == "planning_nsub8"
+                    else "redundant_rail"][
+                    "cast_seg_nd9" if label == "rail_nd9" else k])
+            if k == "cast_seg":
+                inst[label].update({f: max(e[f] for e in v) for f in (
+                    "J_rel_err_untied_rows", "J_tie_rows_excluded")})
+        if k == "cast_seg":
+            inst["rail_nd9"]["attributes"] = {
+                f"cast_seg_nd9_{d}": cast_attrs[f"cast_seg_nd9_{d}"]
+                for d in ("f32", "f64")}
+        errs[k]["instantiations"] = inst
+    k6_b9 = [r for r in k6_recs if r["qp"] == "rail_qp1"]
+    errs["ipm_banded"]["instantiations"] = {"b9": dict(
+        timing["ipm_banded_b9"], launches=bench_launches["redundant_rail"][
+            "ipm_banded_b9"],
+        dx_max_rel_err_equal_lanes={r["dtype"]: r["dx_rel_err_equal_lanes"]
+                                    for r in k6_b9},
+        lanes_apart={r["dtype"]: r["lanes_apart"] for r in k6_b9},
+        attributes={d: ipm_attrs[f"{d}_b9"] for d in ("f32", "f64")})}
+    errs["ipm_banded"]["batched_qp_solves_by_path"]["benchmarks"] = sum(
+        bench_qp.values())
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],
-         "launches_by_path": {"free_slice": launches_s[name],
+         "launches_by_path": {"benchmarks": launches_b[name],
+                              "free_slice": launches_s[name],
                               "flagship": launches_f[name],
                               "pick_and_place": launches_p[name]},
          "ok": True, **errs[name],

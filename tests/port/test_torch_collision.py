@@ -12,7 +12,14 @@ pick another valid witness.  The number of skipped rows is printed.
 The cast kernels' device code (``csrc/collision.cuh``) is also compiled
 for the host (``csrc/cast_host.cpp``) and held against the port's plain
 versions to the same tolerances; that test skips where there is no C++
-compiler.
+compiler.  So are K4 at n_dof 9 (the rail world) and K4 / K4v at n_sub 8
+(the planning scene).
+
+The discrete terms (``DiscreteDistancePre``, ``discrete_collision_term``,
+cost and constraint) are held against the reference on arm7 and the
+spherebot: values to 1e-10, Jacobians to 1e-8 on every row (their closed
+forms have no witness decision to tie at these draws); K7 / K7v built for
+the host against the plain versions, float64 and float32.
 """
 
 import os
@@ -28,12 +35,14 @@ from trajopt_tpu.benchmarks import make_glass_upright as j_make
 from trajopt_tpu.collision import geometry as JG
 from trajopt_tpu.collision import world as JW
 from trajopt_tpu.models import arm7 as j_arm7
+from trajopt_tpu.models import spherebot as j_spherebot
 from trajopt_tpu.terms import collision as JC
 from trajopt_tpu_torch.benchmarks import make_glass_upright
 from trajopt_tpu_torch.collision import geometry as TG
 from trajopt_tpu_torch.collision import world as TW
 from trajopt_tpu_torch.convert import chain_from_numpy, world_from_numpy
 from trajopt_tpu_torch.models import arm7 as t_arm7
+from trajopt_tpu_torch.models import spherebot as t_spherebot
 from trajopt_tpu_torch.terms import collision as TC
 
 TOL, JTOL = 1e-12, 1e-10
@@ -331,3 +340,185 @@ def test_collision_wrappers_launch_or_raise(worlds):
                                               dtype=torch.float64,
                                               device="cpu")
     assert world.n_pairs == 28 and spec.n_x == 28
+
+
+# ---------------------------------------------------------------------------
+# the discrete terms, K7 / K7v, and K4 at n_dof 9 and n_sub 8
+# ---------------------------------------------------------------------------
+
+DISC_TOL, DISC_JTOL = 1e-10, 1e-8
+# K7 / K7v (and K4 at the new sizes) built for the host against the plain
+# versions: (values, Jacobians), absolute; float32 keeps ~7 digits of
+# distances and tangents of order 1
+HOST_TOLS = {torch.float64: (TOL, JTOL), torch.float32: (1e-5, 1e-4)}
+
+
+def _disc_scene(name):
+    """(reference world, port world, T, numpy x (3, T n_dof)): arm7 at
+    T=6 over the flagship's initial trajectories plus noise, the spherebot
+    at T=3 around its obstacle."""
+    if name == "arm7":
+        jm, jc = j_arm7()
+        tm, tc = t_arm7()
+        _, data, _, _ = j_make(LANES, n_steps=T, dtype=jnp.float64)
+        x = np.asarray(data.x0) + np.random.default_rng(8).normal(
+            0.0, 0.05, (LANES, T * 7))
+        return JW.build_collision_world(jm, jc), \
+            TW.build_collision_world(tm, tc), T, x
+    jm, jc = j_spherebot()
+    tm, tc = t_spherebot()
+    x = np.random.default_rng(9).uniform(-1.3, 1.3, (LANES, 3 * 2))
+    return JW.build_collision_world(jm, jc), \
+        TW.build_collision_world(tm, tc), 3, x
+
+
+def _host_compiler():
+    if not (os.environ.get("CXX") or shutil.which("c++")):
+        pytest.skip("no C++ compiler for the host build of the kernels")
+
+
+@pytest.mark.parametrize("scene", ["arm7", "spherebot"])
+def test_discrete_distance_pre_and_terms(scene):
+    """DiscreteDistancePre.value / value_jac, and the discrete term's fn,
+    jac_fn and jac_banded_fn as a hinge cost and as an INEQ constraint,
+    against the reference lane by lane (the reference's terms read its
+    pipeline's output as their aux; the port's run their own)."""
+    jw, tw, TT, xn = _disc_scene(scene)
+    nd = tw.chain.n_dof
+    assert tw.pair_names() == jw.pair_names()
+    jp = JC.DiscreteDistancePre(jw, TT)
+    tp = TC.DiscreteDistancePre(tw, TT)
+    x = _t(xn)
+    Dj, Jj = jax.vmap(jp.value_jac)(jnp.asarray(xn))
+    D, J = tp.value_jac(x)
+    np.testing.assert_allclose(D.numpy(), np.asarray(Dj), rtol=0,
+                               atol=DISC_TOL)
+    np.testing.assert_allclose(tp.value(x).numpy(), np.asarray(Dj), rtol=0,
+                               atol=DISC_TOL)
+    np.testing.assert_allclose(J.numpy(), np.asarray(Jj), rtol=0,
+                               atol=DISC_JTOL)
+    rng = np.random.default_rng(10)
+    margins = rng.uniform(0.05, 0.3, LANES)
+    coeffs = rng.uniform(0.5, 20.0, LANES)
+    tparams = {"margins": _t(margins), "coeffs": _t(coeffs)}
+    for is_constraint in (False, True):
+        jt = JC.discrete_collision_term("d", jw, TT, pre=jp,
+                                        is_constraint=is_constraint)
+        tt = TC.discrete_collision_term("d", tw, TT, pre=tp,
+                                        is_constraint=is_constraint)
+        assert tt.n_rows == jt.n_rows and tt.viol_groups == jt.viol_groups
+        err = tt.fn(x, tparams).numpy()
+        Jd = tt.jac_fn(x, tparams).numpy()
+        Bt, Gt = tt.jac_banded_fn(x, tparams)
+        for lane in range(LANES):
+            p = {"margins": margins[lane], "coeffs": coeffs[lane]}
+            xl = jnp.asarray(xn[lane])
+            a = (Dj[lane], Jj[lane])
+            np.testing.assert_allclose(err[lane],
+                                       np.asarray(jt.fn(xl, p, a[0])),
+                                       rtol=0, atol=DISC_TOL)
+            np.testing.assert_allclose(Jd[lane],
+                                       np.asarray(jt.jac_fn(xl, p, a)),
+                                       rtol=0, atol=DISC_JTOL)
+            if TT >= 2:  # one step has no window pair
+                Bj, Gj = jt.jac_banded_fn(xl, p, a)
+                np.testing.assert_allclose(Bt[lane].numpy(), np.asarray(Bj),
+                                           rtol=0, atol=DISC_JTOL)
+                np.testing.assert_array_equal(Gt.numpy(), np.asarray(Gj))
+            if not is_constraint:
+                np.testing.assert_allclose(
+                    tt.weights(tparams, x)[lane].numpy(),
+                    np.asarray(jt.weight_fn(p)), rtol=0, atol=DISC_TOL)
+    assert (D.numpy() < 0.3).any(), "no row near contact"
+    assert J.shape == (LANES, TT, tw.n_pairs, nd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("scene", ["arm7", "spherebot"])
+def test_disc_kernels_host_build(scene, dtype):
+    """K7 and K7v built for the host (their block body, one thread or the
+    card's 64) against the plain versions; the inv-dt column K7 writes
+    past n_dof is zero; one thread and the card's block bitwise equal."""
+    _host_compiler()
+    _, tw, TT, xn = _disc_scene(scene)
+    nd = tw.chain.n_dof
+    vt, jt = HOST_TOLS[dtype]
+    x = _t(xn).to(dtype)
+    tp = TC.DiscreteDistancePre(tw, TT)
+    D, J = tp.value_jac(x)
+    args = (TT, nd, 0, TT)
+    Dk, Jk = TC.disc_host("disc_dist", tw, x, *args)
+    Dv = TC.disc_host("disc_dist_value", tw, x, *args)[0]
+    np.testing.assert_allclose(Dk.numpy(), D.numpy(), rtol=0, atol=vt)
+    np.testing.assert_allclose(Jk.numpy(), J.numpy(), rtol=0, atol=jt)
+    assert torch.equal(Dv, Dk)
+    D1, J1 = TC.disc_host("disc_dist", tw, x, *args, threads=1)
+    assert torch.equal(D1, Dk) and torch.equal(J1, Jk)
+    # steps [1, TT) of x with an inv-dt column: the column comes back zero
+    xc = torch.cat([x.reshape(LANES, TT, nd),
+                    torch.ones((LANES, TT, 1), dtype=dtype)], -1)
+    Dc, Jc = TC.disc_host("disc_dist", tw, xc.reshape(LANES, -1).contiguous(),
+                          TT, nd + 1, 1, TT - 1)
+    assert torch.equal(Dc, Dk[:, 1:]) and torch.equal(Jc[..., :nd], Jk[:, 1:])
+    assert (Jc[..., nd] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("scene", ["rail_nd9", "planning_nsub8"])
+def test_cast_kernels_host_build_new_sizes(scene, dtype):
+    """K4 at n_dof 9 on the rail world (two prismatic joints, the gantry's
+    dofs an ancestor of every arm link), and K4 / K4v at n_sub 8 on the
+    planning scene, built for the host at the card's layout, against the
+    plain versions (Jacobians on the rows without a tied witness
+    decision)."""
+    _host_compiler()
+    if scene == "rail_nd9":
+        from trajopt_tpu_torch.benchmarks import make_redundant_rail
+        _, data, chain, tw = make_redundant_rail(
+            LANES, n_steps=5, dtype=torch.float64, device="cpu")
+        TT, n_sub = 5, 2
+    else:
+        from trajopt_tpu_torch.benchmarks import make_planning
+        _, data, chain, tw = make_planning(LANES, n_steps=T,
+                                           dtype=torch.float64, device="cpu")
+        TT, n_sub = T, 8
+    nd = chain.n_dof
+    vt, jt = HOST_TOLS[dtype]
+    noise = np.random.default_rng(12).normal(0.0, 0.05, tuple(data.x0.shape))
+    x = (data.x0 + _t(noise)).to(dtype).contiguous()
+    tp = TC.CastDistancePre(tw, TT, n_sub=n_sub)
+    D, (Ja, Jb) = tp.value_jac(x)
+    args = (TT, nd, 0, TT - 1, n_sub)
+    thr, tm = TC.CAST_BLOCKS["cast_seg", False]
+    Dk, Jak, Jbk = TC.cast_host("cast_seg", tw, x, *args, team=tm,
+                                threads=thr)
+    thr, tm = TC.CAST_BLOCKS["cast_seg_value", False]
+    Dv = TC.cast_host("cast_seg_value", tw, x, *args, team=tm,
+                      threads=thr)[0]
+    np.testing.assert_allclose(Dk.numpy(), D.numpy(), rtol=0, atol=vt)
+    np.testing.assert_allclose(Dv.numpy(), D.numpy(), rtol=0, atol=vt)
+    X = x.reshape(LANES, TT, nd)
+    rule = (1e-9, 1e-9, 0.0) if dtype == torch.float64 else (1e-3, 1e-4, 1e-5)
+    tie = tw.cast_ties(X[:, :-1], X[:, 1:], n_sub, *rule).reshape(
+        LANES, TT - 1, -1).numpy()
+    print(f"{scene} {dtype}: {int(tie.sum())} of {tie.size} tie rows skipped")
+    if dtype == torch.float64:  # float32's tie rules are coarse
+        assert tie.mean() < 0.5
+    for got, ref in ((Jak, Ja), (Jbk, Jb)):
+        np.testing.assert_allclose(got.numpy()[~tie], ref.numpy()[~tie],
+                                   rtol=0, atol=jt)
+
+
+def test_disc_wrappers_launch_or_raise():
+    """K7 / K7v refuse a CPU tensor on the card's launcher, and a world
+    with CONVEX geometry anywhere (no instantiation); K4 refuses an n_dof
+    it is not built for."""
+    _, tw, TT, xn = _disc_scene("spherebot")
+    x = _t(xn)
+    for kind in ("disc_dist", "disc_dist_value"):
+        with pytest.raises(ValueError, match="CUDA"):
+            TC.disc_launch(kind, tw, x, TT, 2, 0, TT)
+    with pytest.raises(NotImplementedError, match="n_dof"):
+        TC.cast_host("cast_seg", tw, x, TT, 2, 0, TT - 1, 2)

@@ -1,5 +1,5 @@
-"""PyTorch port vs JAX reference: the banded interior-point QP solver
-(ops.ipm_qp, banded path), float64 on the CPU.
+"""PyTorch port vs JAX reference: the interior-point QP solver
+(ops.ipm_qp, banded and dense-row paths), float64 on the CPU.
 
 Random flagship-shaped subproblems — a joint-velocity quadratic, hinge rows
 on step-gap windows, abs rows on per-step windows plus a goal block, a
@@ -12,11 +12,17 @@ K6 ``ipm_banded``'s device code runs here through its host build
 (``solve_ipm_qp_host``, csrc/ipm_host.cpp): against the plain loop it must
 give equal statuses and iteration counts and dx within 1e-10 of the
 largest |dx| (the same float64 Newton sequence, other sum orders), and
-against JAX the reference tolerance above; at block size 7, 14 and 21 (the
-fixture's rows regrouped to 2- and 3-step superblocks; against JAX with the
-hinge rows), on row groups whose windows cover a block from both halves in
-permuted order, with the rows and scratch in device memory as well as in
-the shared-memory array, and end to end through the SQP.
+against JAX the reference tolerance above; at block size 7, 9 (the 9-DoF
+rail's step width), 14 and 21 (the fixture's rows regrouped to 2- and
+3-step superblocks; against JAX with the hinge rows), on row groups whose
+windows cover a block from both halves in permuted order, with the rows
+and scratch in device memory as well as in the shared-memory array, and
+end to end through the SQP.
+
+The dense-row path (``A_h`` / ``A_a`` set) is held against JAX on both of
+its factorizations: the dense Cholesky (n < 2 kkt_block) and the block
+Cholesky of the dense K (kkt_block set), on the fixture's rows made dense
+with ``bb_to_dense``: equal statuses and iteration counts, dx within 1e-8.
 """
 
 import jax.numpy as jnp
@@ -27,7 +33,7 @@ import torch
 from trajopt_tpu.ops.ipm_qp import solve_ipm_qp as j_solve
 from trajopt_tpu.ops.prox_qp import ProxQPData as JData
 from trajopt_tpu.ops.qp import QPSettings as JSettings
-from trajopt_tpu_torch.ops.banded_rows import regroup, step_window
+from trajopt_tpu_torch.ops.banded_rows import bb_to_dense, regroup, step_window
 from trajopt_tpu_torch.ops.ipm_qp import (_finish, _setup, band_plan,
                                           check_p_band, cover_lists,
                                           ipm_banded_host, solve_ipm_qp_host)
@@ -40,8 +46,7 @@ HOST_TOL = 1e-10  # K6 host build vs the plain loop, relative to max |dx|
 B_SZ, NB = 7, 5
 
 
-def _problem(rng, lanes, with_hinge=True, nb=NB):
-    b = B_SZ
+def _problem(rng, lanes, with_hinge=True, nb=NB, b=B_SZ):
     n = b * nb
     S = np.zeros(((nb - 1) * b, n))  # joint-velocity stencil
     for t in range(nb - 1):
@@ -146,15 +151,17 @@ def test_ipm_matches_reference(with_hinge, tight):
     assert (sol.status >= 1).all()
 
 
-@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ, 3 * B_SZ])
+@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ, 3 * B_SZ, 9])
 @pytest.mark.parametrize("with_hinge", [True, False])
 @pytest.mark.parametrize("tight", [False, True])
 def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
-    """K6's device code (host build) against the plain loop and JAX."""
+    """K6's device code (host build) against the plain loop and JAX (b 9:
+    the fixture at the rail's step width)."""
     lanes = 4
     rng = np.random.default_rng(7 + 2 * tight + with_hinge)
     arrays, Bh, Gh, Ba, Ga = (
         _problem(rng, lanes, with_hinge) if b == B_SZ
+        else _problem(rng, lanes, with_hinge, b=9) if b == 9
         else _regrouped(rng, lanes, with_hinge, b // B_SZ))
     kw = _settings(tight, b)
     tdata = _tdata(arrays, Bh, Gh, Ba, Ga)
@@ -162,7 +169,7 @@ def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
     _assert_same_run(sol, t_solve(tdata, TSettings(**kw), device="cpu"),
                      HOST_TOL)
     if b != B_SZ and not with_hinge:
-        return  # JAX compiles b=14, 21 for ~25 s: the hinge fixtures hold it
+        return  # JAX compiles b=9, 14, 21 for ~25 s: the hinge fixtures hold it
     for z in range(lanes):
         jd = JData(**{k: jnp.asarray(v[z]) for k, v in arrays.items()},
                    A_h=None, A_a=None,
@@ -175,8 +182,14 @@ def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
         assert int(sol.iters[z]) == int(ref.iters), z
         np.testing.assert_allclose(sol.x[z].numpy(), np.asarray(ref.x),
                                    rtol=0, atol=TOL)
+        # b 9: u within TOL of its largest entry.  The pinned step's abs
+        # rows have no free column, scale by the 1e-8 floor, and their
+        # slacks reach ~1e8, where one ulp is 1.5e-8 (measured: 2.98e-8 on
+        # an entry of 1.3e8, the tight fixture without hinge rows)
+        u_tol = TOL * max(1.0, float(np.abs(np.asarray(ref.u)).max())) \
+            if b == 9 else TOL
         np.testing.assert_allclose(sol.u[z].numpy(), np.asarray(ref.u),
-                                   rtol=0, atol=TOL)
+                                   rtol=0, atol=u_tol)
 
 
 def test_k6_host_lanes_stop_apart():
@@ -345,3 +358,39 @@ def test_float32_flagship_qp_ends_as_the_reference(monkeypatch):
         assert apart.sum() <= F32_ITERS_APART, (it, ref_it)
         np.testing.assert_array_equal(np.isin(s, (1, 2)),
                                       np.isin(ref_st, (1, 2)))
+
+
+@pytest.mark.parametrize("kkt", ["cholesky", "btd"])
+def test_dense_rows_match_reference(kkt):
+    """The dense-row path: the fixture's hinge and abs rows as dense
+    (lanes, m, n) matrices (``bb_to_dense``).  ``cholesky``: three steps
+    with kkt_block = n (n < 2 kkt_block: the dense Cholesky and explicit
+    inverse); ``btd``: five steps at kkt_block 7 (K formed dense, factored
+    block-tridiagonally).  Against JAX lane by lane, and the same QP with
+    banded rows through the port."""
+    lanes = 4
+    nb = 3 if kkt == "cholesky" else NB
+    rng = np.random.default_rng(31 + nb)
+    arrays, Bh, Gh, Ba, Ga = _problem(rng, lanes, True, nb=nb)
+    n = B_SZ * nb
+    kw = _settings(False, n if kkt == "cholesky" else B_SZ)
+    banded = _tdata(arrays, Bh, Gh, Ba, Ga)
+    A_h = bb_to_dense(banded.Bh, banded.Gh, n, B_SZ)
+    A_a = bb_to_dense(banded.Ba, banded.Ga, n, B_SZ)
+    dense = banded._replace(A_h=A_h, A_a=A_a, Bh=(), Gh=(), Ba=(), Ga=())
+    sol = t_solve(dense, TSettings(**kw), device="cpu")
+    for z in range(lanes):
+        jd = JData(**{k: jnp.asarray(v[z]) for k, v in arrays.items()},
+                   A_h=jnp.asarray(A_h[z].numpy()),
+                   A_a=jnp.asarray(A_a[z].numpy()))
+        ref = j_solve(jd, JSettings(**kw))
+        assert int(sol.status[z]) == int(ref.status), z
+        assert int(sol.iters[z]) == int(ref.iters), z
+        np.testing.assert_allclose(sol.x[z].numpy(), np.asarray(ref.x),
+                                   rtol=0, atol=TOL)
+        np.testing.assert_allclose(sol.u[z].numpy(), np.asarray(ref.u),
+                                   rtol=0, atol=TOL)
+    assert (sol.status >= 1).all()
+    if kkt == "btd":  # the same QP with banded rows: the same run
+        _assert_same_run(t_solve(banded, TSettings(**kw), device="cpu"), sol,
+                         TOL)

@@ -10,8 +10,8 @@ parallel.  Nothing here runs at import time.
 launches its kernel, and nowhere else.  A source's library is named by a
 hash of the source, the headers of ``csrc/`` and its flags.
 
-``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' block
-code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
+``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' and
+K7's block code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
 three sources: ``ipm_banded`` float32, ``ipm_banded64`` float64 and
 ``ipm_timer`` float32 with the phase timer) for the CPU with the host's
 C++ compiler, for checking that code against the plain PyTorch version
@@ -39,6 +39,7 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
 _CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _P, _P]
 _ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
+_DISC = [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -56,6 +57,9 @@ _SIGNATURES = {
                  for s in ("f32", "f64")]
     + [(f"convex_route_{s}", _ROUTE) for s in ("f32", "f64")]
     + [("cast_cvx_attrs", [_I, _P])],
+    # K7 / K7v: the discrete terms' distances per (lane, step)
+    "disc_dist": [(f"{k}_{s}", _DISC) for k in ("disc_dist", "disc_dist_value")
+                  for s in ("f32", "f64")] + [("disc_dist_attrs", [_I, _P])],
     # K6: float32, float64, and float32 with the phase timer
     "ipm_banded": [("ipm_banded_f32", [_P, _P]),
                    ("ipm_banded_attrs", [_I, _P])],
@@ -69,6 +73,7 @@ SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # so that their argmin decisions agree wherever there is no tie; so does
 # K6 ipm_banded, whose float64 iterates are held to the plain loop's
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
+                "disc_dist": ["-fmad=false"],
                 "ipm_banded": ["-fmad=false"], "ipm_banded64": ["-fmad=false"],
                 "ipm_timer": ["-fmad=false"]}
 
@@ -76,10 +81,14 @@ _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
 # (``cast_cvx`` their CVX instantiations, with the CONVEX routes, and the
 # route probe ``convex_route``).  ``convex_feature`` / ``convex_fw`` count the launches
 # of K4, K4v and K5 that ran that CONVEX route (the generic feature
-# enumeration, Frank-Wolfe max separation)
+# enumeration, Frank-Wolfe max separation); ``cast_seg_nd9`` the launches
+# of K4 at n_dof 9 (counted in ``cast_seg`` too), ``ipm_banded_b9`` those
+# of K6 at block size 9 (counted in ``ipm_banded`` too)
 LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
                           "cast_seg_value", "cast_sweep", "convex_feature",
-                          "convex_fw", "convex_route", "ipm_banded"], 0)
+                          "convex_fw", "convex_route", "ipm_banded",
+                          "disc_dist", "disc_dist_value", "cast_seg_nd9",
+                          "ipm_banded_b9"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -107,7 +116,8 @@ def _flags(name: str) -> list:
 # the host build keeps every multiply and add separate too; unoptimised,
 # as it only checks arithmetic at small sizes (it compiles in ~1 s)
 HOST_FLAGS = ["-std=c++17", "-O0", "-shared", "-fPIC", "-ffp-contract=off"]
-_HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx")
+_HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
+                                                  "disc_dist")
                                    for sig in _SIGNATURES[src]
                                    if not sig[0].endswith("_attrs")],
                     "ipm_host": [sig for src in ("ipm_banded", "ipm_banded64")
@@ -204,10 +214,11 @@ def check(name: str, code: int) -> None:
     is not instantiated for)."""
     if code == -1:
         raise ValueError(f"{name}: size not instantiated (block size 7, 14 "
-                         "or 21; n_dof 7 for cast_seg; ipm_banded within "
+                         "or 21, and 9 for ipm_banded; n_dof 7 or 9 for "
+                         "cast_seg, 7 with CONVEX geometry; ipm_banded within "
                          "the shared-memory limit; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
-                         "on the host)")
+                         "on the host; disc_dist's of 32-128 threads)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

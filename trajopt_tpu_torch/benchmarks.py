@@ -15,9 +15,19 @@ the ``arm7_wall`` scene — the approach to the grasp without a payload, then
 the transfer over the divider wall with a convex payload attached to the
 tool, seeded by the approach's solved last step (``make_pick_and_place``,
 ``chain_transfer``).
+
+``run_benchmarks`` runs the reference's four solve benchmarks
+(``_BENCHES``; the upstream's ``BM_TRAJOPT_*_SOLVE``): ``simple_collision``
+(a 2-DoF spherebot, one step, discrete collision, the dense-row QP),
+``planning`` (arm7 around the table, T=6, swept collision at n_sub=8),
+``glass_upright`` (the flagship) and ``redundant_rail`` (BASELINE config 5:
+arm9_rail, 9 DoF, two of them prismatic, T=15).  On the CPU:
+``run_benchmarks(device="cpu")``.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,12 +35,13 @@ import torch
 from . import resolve_device
 from .collision.decompose import fit_hull
 from .collision.world import build_collision_world
-from .models import arm7, arm7_wall
+from .models import arm7, arm7_wall, arm9_rail, spherebot
 from .ops.qp import QPSettings
 from .problem.trajectory import TrajProblemBuilder, interpolated_init, stack_data
 from .solver.types import SQPParams
 from .terms.cartesian import upright_term
-from .terms.collision import CastDistancePre, cast_collision_term
+from .terms.collision import (CastDistancePre, cast_collision_term,
+                              discrete_collision_term)
 from .terms.joint import joint_pos_term, joint_vel_term
 from .utils.lanes import tree_map
 
@@ -260,3 +271,188 @@ def solve_pick_and_place(batch: int, n_steps: int = 12, dtype=torch.float32,
                                phase_qp_solves=phase_qp_solves,
                                device=scene["device"])
     return resA, resB, scene
+
+
+def _stack(datas, dtype):
+    return tree_map(lambda t: t.to(dtype) if t.is_floating_point() else t,
+                    stack_data(datas))
+
+
+def _goal(goal, D, dtype, npdt, device):
+    return {"targets": torch.as_tensor(np.asarray(goal, npdt), device=device),
+            "coeffs": torch.ones(D, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# The reference's solve benchmarks (``trajopt_tpu/benchmarks.py:147-207``)
+# ---------------------------------------------------------------------------
+
+
+def make_simple_collision(batch: int, dtype=torch.float64, seed: int = 0,
+                          device="cuda"):
+    """2-DoF spherebot vs a sphere obstacle, one step (simple_collision_test
+    semantics; BM_TRAJOPT_SIMPLE_COLLISION_SOLVE): a discrete-collision
+    hinge cost (margin 0.3) and INEQ constraint (margin 0.2) and a joint
+    position cost; each lane starts near (-0.75, 0.75).  Returns (spec,
+    batched data on ``device``, chain, world)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    model, chain = spherebot()
+    world = build_collision_world(model, chain)
+    b = TrajProblemBuilder(chain, 1, device=device)
+    b.add_cost(discrete_collision_term("coll_cost", world, 1),
+               {"margins": np.asarray(0.3, npdt),
+                "coeffs": np.asarray(1.0, npdt)})
+    b.add_cost(joint_pos_term("jpos", 1, 2),
+               {"targets": np.zeros(2, npdt), "coeffs": np.ones(2, npdt)})
+    b.add_constraint(discrete_collision_term("coll_cnt", world, 1,
+                                             is_constraint=True),
+                     {"margins": np.asarray(0.2, npdt),
+                      "coeffs": np.asarray(1.0, npdt)})
+    rng = np.random.default_rng(seed)
+    datas = []
+    for _ in range(batch):
+        q0 = np.array([-0.75, 0.75]) + rng.uniform(-0.05, 0.05, 2)
+        spec, data = b.build(np.asarray(q0, npdt)[None, :])
+        datas.append(data)
+    return spec, _stack(datas, dtype), chain, world
+
+
+def make_planning(batch: int, n_steps: int = 6, dtype=torch.float32,
+                  n_sub: int = 8, seed: int = 0, device="cuda"):
+    """arm7 moving around the table: joint_vel cost, one swept-collision
+    cost at ``n_sub`` substates (its own CastDistancePre) and a joint goal
+    constraint, step 0 fixed (arm_around_table semantics;
+    BM_TRAJOPT_PLANNING_SOLVE).  Each lane's goal is Q_GOAL perturbed by
+    up to 0.1 per joint.  Returns (spec, data, chain, world)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    model, chain = arm7()
+    world = build_collision_world(model, chain)
+    T, D = n_steps, chain.n_dof
+    b = TrajProblemBuilder(chain, T, device=device)
+    b.add_cost(joint_vel_term("jvel", T, D),
+               {"targets": np.zeros(D, npdt), "coeffs": np.ones(D, npdt)})
+    b.add_cost(cast_collision_term("coll", world, T, n_sub=n_sub),
+               {"margins": np.asarray(0.025, npdt),
+                "coeffs": np.asarray(20.0, npdt)})
+    b.add_constraint(
+        joint_pos_term("goal", T, D, first_step=T - 1, last_step=T - 1,
+                       is_constraint=True),
+        {"targets": np.asarray(Q_GOAL, npdt), "coeffs": np.ones(D, npdt)})
+    b.fix_timestep(0)
+    rng = np.random.default_rng(seed)
+    datas = []
+    for _ in range(batch):
+        goal = Q_GOAL + rng.uniform(-0.1, 0.1, D)
+        init = interpolated_init(np.asarray(Q_START, npdt),
+                                 np.asarray(goal, npdt), T)
+        spec, data = b.build(init)
+        datas.append(data._replace(
+            cnt_params=(_goal(goal, D, dtype, npdt, b.device),)))
+    return spec, _stack(datas, dtype), chain, world
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5: swept collision with redundant external axes — 9 DoF
+# (a 2-axis prismatic gantry under the 7-DoF arm), the arm carried past a
+# table the straight-line motion sweeps through
+# (``trajopt_tpu/benchmarks.py:354-401``)
+# ---------------------------------------------------------------------------
+
+Q9_START = np.array([-0.85, 0.0, -1.1, 1.6, 0.0, -0.8, 0.0, -0.8, 0.0])
+Q9_GOAL = np.array([0.85, 0.0, 1.1, 1.6, 0.0, -0.8, 0.0, -0.8, 0.0])
+
+
+def make_redundant_rail(batch: int, n_steps: int = 15, dtype=torch.float32,
+                        n_sub: int = 2, seed: int = 0, device="cuda"):
+    """The 9-DoF rail: joint_vel cost, one shared swept-collision pipeline
+    feeding a hinge cost (margin 0.025, coeff 20) and an INEQ constraint
+    (margin 0.005), a joint goal constraint, step 0 fixed; each lane's
+    start and goal perturbed on the rail-y and yaw joints.  Returns (spec,
+    data, chain, world)."""
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    model, chain = arm9_rail()
+    world = build_collision_world(model, chain)
+    T, D = n_steps, chain.n_dof
+    b = TrajProblemBuilder(chain, T, device=device)
+    b.add_cost(joint_vel_term("jvel", T, D),
+               {"targets": np.zeros(D, npdt), "coeffs": np.full(D, 5.0, npdt)})
+    cpre = CastDistancePre(world, T, n_sub=n_sub)
+    b.add_cost(cast_collision_term("coll", world, T, n_sub=n_sub, pre=cpre),
+               {"margins": np.asarray(0.025, npdt),
+                "coeffs": np.asarray(20.0, npdt)})
+    b.add_constraint(
+        cast_collision_term("coll_cnt", world, T, n_sub=n_sub,
+                            is_constraint=True, pre=cpre),
+        {"margins": np.asarray(0.005, npdt), "coeffs": np.asarray(1.0, npdt)})
+    b.add_constraint(
+        joint_pos_term("goal", T, D, first_step=T - 1, last_step=T - 1,
+                       is_constraint=True),
+        {"targets": np.asarray(Q9_GOAL, npdt), "coeffs": np.ones(D, npdt)})
+    b.fix_timestep(0)
+    rng = np.random.default_rng(seed)
+    mask = np.array([0, 1, 1, 0, 0, 0, 0, 0, 1.0])  # rail-y + yaw joints
+    datas = []
+    for _ in range(batch):
+        start = Q9_START + rng.uniform(-0.1, 0.1, D) * mask
+        goal = Q9_GOAL + rng.uniform(-0.1, 0.1, D) * mask
+        init = interpolated_init(np.asarray(start, npdt),
+                                 np.asarray(goal, npdt), T)
+        spec, data = b.build(init)
+        datas.append(data._replace(cnt_params=(
+            data.cnt_params[0], _goal(goal, D, dtype, npdt, b.device))))
+    return spec, _stack(datas, dtype), chain, world
+
+
+_BENCHES = {
+    "simple_collision": lambda batch, device: make_simple_collision(
+        batch, dtype=torch.float32, device=device),
+    "planning": lambda batch, device: make_planning(batch, device=device),
+    "glass_upright": lambda batch, device: make_glass_upright(
+        batch, device=device),
+    "redundant_rail": lambda batch, device: make_redundant_rail(
+        batch, device=device),
+}
+
+
+def run_benchmarks(names=None, batch: int = 32, repeats: int = 3,
+                   device="cuda", results: Optional[dict] = None):
+    """Run the named benchmark families: one cold solve of the batch, then
+    ``repeats`` warm ones, each through ``solve_batch`` and ending in a
+    device synchronization.  Returns a list of JSON-able dicts {name,
+    batch, wall_s, solves_per_sec, us_per_solve, converged,
+    mean_qp_solves} (the reference's keys and rounding).  ``results``, when
+    given, receives {name: (SQPResult of the last warm run, world)}."""
+    import time
+
+    from .solver.sqp import solve_batch
+    from .solver.types import CONVERGED
+
+    dev = resolve_device(device)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    out = []
+    for name in (names or list(_BENCHES)):
+        spec, data, _, world = _BENCHES[name](batch, dev)
+        params = bench_params()
+        res = solve_batch(spec, data, params, device=dev)
+        sync()  # cold
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            res = solve_batch(spec, data, params, device=dev)
+            sync()
+        dt = (time.perf_counter() - t0) / repeats
+        ok = int((res.status == CONVERGED).sum())
+        out.append({
+            "name": name, "batch": batch, "wall_s": round(dt, 4),
+            "solves_per_sec": round(ok / dt, 2),
+            "us_per_solve": round(1e6 * dt / max(ok, 1), 1),
+            "converged": ok,
+            "mean_qp_solves": round(float(
+                res.n_qp_solves.double().mean()), 2),
+        })
+        if results is not None:
+            results[name] = (res, world)
+    return out

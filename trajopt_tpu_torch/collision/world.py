@@ -470,6 +470,16 @@ class CollisionWorld:
             sorted(of("hull") + of("convex"), key=heavy)]
         return [len(x) for x in lists] + [k for x in lists for k in x]
 
+    def _disc_list(self):
+        """K7's work list (``csrc/cast_block.cuh`` disc_step): two counts,
+        then every pair of [closed form | CONVEX side], the closed forms
+        grouped by kind pair."""
+        kinds = [(self.geoms[i].kind, self.geoms[j].kind) for i, j in self.pairs]
+        lists = [sorted((k for k in range(self.n_pairs) if kinds[k][1] != CONVEX),
+                        key=lambda k: (kinds[k], k)),
+                 [k for k in range(self.n_pairs) if kinds[k][1] == CONVEX]]
+        return [len(x) for x in lists] + [k for x in lists for k in x]
+
     def _pack_tables(self):
         ch = self.chain
         L, nd, NG, P = ch.n_links, ch.n_dof, len(self.geoms), self.n_pairs
@@ -506,8 +516,8 @@ class CollisionWorld:
         directory = [at.get(("small" if n <= 2 else "generic", n), -1)
                      for n in range(G.GENERIC_FEATURE_MAX_VERTS + 1)]
         work = self._work_lists()
-        ints += [at[("small", n)] for n in (1, 2, 4, 8)] + [nv, o,
-                                                            o + len(directory)]
+        ints += [at[("small", n)] for n in (1, 2, 4, 8)] + [
+            nv, o, o + len(directory), o + len(directory) + len(work)]
         ints += [0] * (head - len(ints))
         ints += list(ch.link_of_dof)
         for l in range(L):
@@ -538,6 +548,7 @@ class CollisionWorld:
             ints += blk
         ints += directory
         ints += work
+        ints += self._disc_list()
         reals = []
         for l in range(L):
             ax = ch.axis[l] / max(np.linalg.norm(ch.axis[l]), 1e-12)

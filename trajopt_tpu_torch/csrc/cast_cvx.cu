@@ -17,8 +17,8 @@
 
 #include "cast_kernel.cuh"
 
-CAST_ENTRY(cast_seg_cvx_f32, float, ND_JAC, MODE_JAC, true, nd != ND_JAC)
-CAST_ENTRY(cast_seg_cvx_f64, double, ND_JAC, MODE_JAC, true, nd != ND_JAC)
+CAST_JAC_ENTRY(cast_seg_cvx_f32, float, true)
+CAST_JAC_ENTRY(cast_seg_cvx_f64, double, true)
 CAST_ENTRY(cast_seg_value_cvx_f32, float, 1, MODE_VALUE, true, false)
 CAST_ENTRY(cast_seg_value_cvx_f64, double, 1, MODE_VALUE, true, false)
 CAST_ENTRY(cast_sweep_cvx_f32, float, 1, MODE_SWEEP, true, false)

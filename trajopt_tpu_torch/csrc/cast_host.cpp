@@ -1,9 +1,11 @@
-// Host build of the cast kernels (cast_block.cuh over collision.cuh), for
-// checking them on a CPU against the plain PyTorch version.
+// Host build of the cast kernels and of K7 / K7v (cast_block.cuh over
+// collision.cuh), for checking them on a CPU against the plain PyTorch
+// version.
 //
-// The same entry points as cast_seg.cu / cast_cvx.cu (same arguments,
-// same output layouts), and the same block body: each (lane, gap) runs
-// cast_gap with the block played by one thread, stage by stage.  `threads`
+// The same entry points as cast_seg.cu / cast_cvx.cu / disc_dist.cu (same
+// arguments, same output layouts), and the same block body: each (lane,
+// gap) runs cast_gap (each (lane, step) disc_step) with the block played
+// by one thread, stage by stage.  `threads`
 // and `team` set the layout: team 1 is one thread that is the whole block
 // and its only team; a team of t > 1 (t dividing threads, at most
 // CAST_TEAM) runs `threads` threads in teams of t, each thread's share in
@@ -52,14 +54,43 @@ static int run(const int* I, const T* F, const T* x, long x_stride, int nc,
                                  threads, team);                              \
   }
 
-HOST_ENTRY(cast_seg_f32, float, ND_JAC, MODE_JAC, false, nd != ND_JAC)
-HOST_ENTRY(cast_seg_f64, double, ND_JAC, MODE_JAC, false, nd != ND_JAC)
+// K4: n_dof ND_JAC, and ND_RAIL without the CONVEX routes, as the card's
+template <typename T, bool CVX>
+static int run_jac(const int* I, const T* F, const T* x, long x_stride,
+                   int nc, int first, int n_gaps, const T* ss, int n_sub,
+                   T* D, T* Ja, T* Jb, int lanes, int L, int nd, int NG,
+                   int P, int threads, int team) {
+  if (nd == ND_JAC)
+    return run<T, ND_JAC, MODE_JAC, CVX>(I, F, x, x_stride, nc, first, n_gaps,
+                                         ss, n_sub, D, Ja, Jb, lanes, L, nd,
+                                         NG, P, threads, team);
+  if constexpr (!CVX) {
+    if (nd == ND_RAIL)
+      return run<T, ND_RAIL, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
+                                            n_gaps, ss, n_sub, D, Ja, Jb,
+                                            lanes, L, nd, NG, P, threads,
+                                            team);
+  }
+  return -1;
+}
+
+#define HOST_JAC_ENTRY(NAME, T, CVX)                                          \
+  extern "C" int NAME(const int* I, const T* F, const T* x, long x_stride,   \
+                      int nc, int first, int n_gaps, const T* ss, int n_sub, \
+                      T* D, T* Ja, T* Jb, int lanes, int L, int nd, int NG,  \
+                      int P, int threads, int team, long long*, void*) {     \
+    return run_jac<T, CVX>(I, F, x, x_stride, nc, first, n_gaps, ss, n_sub,  \
+                           D, Ja, Jb, lanes, L, nd, NG, P, threads, team);   \
+  }
+
+HOST_JAC_ENTRY(cast_seg_f32, float, false)
+HOST_JAC_ENTRY(cast_seg_f64, double, false)
 HOST_ENTRY(cast_seg_value_f32, float, 1, MODE_VALUE, false, false)
 HOST_ENTRY(cast_seg_value_f64, double, 1, MODE_VALUE, false, false)
 HOST_ENTRY(cast_sweep_f32, float, 1, MODE_SWEEP, false, false)
 HOST_ENTRY(cast_sweep_f64, double, 1, MODE_SWEEP, false, false)
-HOST_ENTRY(cast_seg_cvx_f32, float, ND_JAC, MODE_JAC, true, nd != ND_JAC)
-HOST_ENTRY(cast_seg_cvx_f64, double, ND_JAC, MODE_JAC, true, nd != ND_JAC)
+HOST_JAC_ENTRY(cast_seg_cvx_f32, float, true)
+HOST_JAC_ENTRY(cast_seg_cvx_f64, double, true)
 HOST_ENTRY(cast_seg_value_cvx_f32, float, 1, MODE_VALUE, true, false)
 HOST_ENTRY(cast_seg_value_cvx_f64, double, 1, MODE_VALUE, true, false)
 HOST_ENTRY(cast_sweep_cvx_f32, float, 1, MODE_SWEEP, true, false)
@@ -83,3 +114,24 @@ HOST_ENTRY(cast_sweep_cvx_f64, double, 1, MODE_SWEEP, true, false)
 
 ROUTE_ENTRY(convex_route_f32, float)
 ROUTE_ENTRY(convex_route_f64, double)
+
+// K7 disc_dist / K7v disc_dist_value of disc_dist.cu: each (lane, step)
+// runs disc_step with one thread playing the block's `threads` threads
+#define DISC_ENTRY(NAME, T, JAC)                                              \
+  extern "C" int NAME(const int* I, const T* F, const T* x, long x_stride,   \
+                      int nc, int first, int span, T* D, T* J, int lanes,    \
+                      int L, int nd, int NG, int P, int threads, void*) {    \
+    (void)P;                                                                  \
+    if (threads < 1 || threads > CAST_THREADS) return -1;                     \
+    std::vector<unsigned char> smem(sizeof(T) * slot_size_of(L, nd, NG));     \
+    for (int lane = 0; lane < lanes; ++lane)                                  \
+      for (int s = 0; s < span; ++s)                                          \
+        disc_step<T, JAC>(I, F, x, x_stride, nc, first, span, D, J, lane, s, \
+                          smem.data(), threads);                              \
+    return 0;                                                                 \
+  }
+
+DISC_ENTRY(disc_dist_f32, float, true)
+DISC_ENTRY(disc_dist_f64, double, true)
+DISC_ENTRY(disc_dist_value_f32, float, false)
+DISC_ENTRY(disc_dist_value_f64, double, false)

@@ -45,8 +45,8 @@
 
 #include "cast_kernel.cuh"
 
-CAST_ENTRY(cast_seg_f32, float, ND_JAC, MODE_JAC, false, nd != ND_JAC)
-CAST_ENTRY(cast_seg_f64, double, ND_JAC, MODE_JAC, false, nd != ND_JAC)
+CAST_JAC_ENTRY(cast_seg_f32, float, false)
+CAST_JAC_ENTRY(cast_seg_f64, double, false)
 CAST_ENTRY(cast_seg_value_f32, float, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_seg_value_f64, double, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_sweep_f32, float, 1, MODE_SWEEP, false, false)

@@ -29,6 +29,8 @@ static int dispatch(const ipm::Args* a) {
   switch (a->b) {
     case 7:
       return run<T, 7>(a);
+    case 9:
+      return run<T, 9>(a);
     case 14:
       return run<T, 14>(a);
     case 21:

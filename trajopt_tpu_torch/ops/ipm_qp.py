@@ -1,6 +1,6 @@
 """Batched primal-dual interior-point solver for the SQP subproblem
-(``trajopt_tpu/ops/ipm_qp.py``, banded path: ``:92-155``, ``:186-342``,
-``:373-559``).
+(``trajopt_tpu/ops/ipm_qp.py``: ``:92-559``, the banded and the dense-row
+paths).
 
   min  0.5 dx'P dx + q'dx + w_h'h + w_a'(p + nn)
   s.t. Jh dx + e_h <= h,  h >= 0          (hinge penalties)
@@ -8,20 +8,32 @@
        lb <= dx <= ub                      (trust region ∩ limits)
 
 A Mehrotra predictor-corrector on the condensed Newton matrix
-K = P + Jh' D_h Jh + Ja' D_a Ja + D_box.  The rows are BANDED
-(ops.banded_rows windows), so K is assembled directly in
+K = P + Jh' D_h Jh + Ja' D_a Ja + D_box.  When the rows are BANDED
+(ops.banded_rows windows; ``data.A_h`` None) K is assembled directly in
 block-tridiagonal form and factored by the block Cholesky (ops.btridiag).
+When they are dense (``data.A_h`` / ``data.A_a`` (lanes, m, n): a problem
+whose KKT matrix has no step band, e.g. a single step) K is formed dense,
+symmetrized and regularized, then factored by the block Cholesky where
+``kkt_block`` is set and the band holds (n >= 2 kkt_block), else by
+``torch.linalg.cholesky`` with an explicit inverse through
+``torch.linalg.solve_triangular``, as the reference's ``jnp.linalg``
+calls do.
 
-The loop runs in one of two ways, between a shared set-up (pinned
+The loop runs in one of three ways, between a shared set-up (pinned
 coordinates, scaling, P's blocks, f(0): ``_setup``) and teardown
 (``_finish``):
 
-* on a CUDA tensor (``kernels=True``), as ONE launch of the hand-written
-  kernel K6 ``ipm_banded`` (``csrc/ipm_banded.cu``): one CTA per lane runs
-  that lane's whole loop, with K1-K3's math as device functions;
-* otherwise, as the plain PyTorch loop ``_loop_plain`` (K6's oracle, and
-  the path of a CPU tensor or of ``kernels=False``), with the plain
-  versions of K1 ``bb_quad``, K2 ``btd_factor`` and K3 ``btd_solve``.
+* banded rows on a CUDA tensor (``kernels=True``): ONE launch of the
+  hand-written kernel K6 ``ipm_banded`` (``csrc/ipm_banded.cu``): one CTA
+  per lane runs that lane's whole loop, with K1-K3's math as device
+  functions;
+* banded rows otherwise: the plain PyTorch loop ``_loop_plain`` (K6's
+  oracle, and the path of a CPU tensor or of ``kernels=False``), with the
+  plain versions of K1 ``bb_quad``, K2 ``btd_factor`` and K3 ``btd_solve``;
+* dense rows, on any device: ``_loop_plain`` with dense matvecs; its
+  block-tridiagonal factor and solves are K2 and K3 on a CUDA tensor with
+  ``kernels=True`` (their plain versions otherwise), its dense Cholesky
+  the library's.
 
 ``solve_ipm_qp_host`` runs K6's device code built for the CPU
 (``csrc/ipm_host.cpp``), for checking it without a card.
@@ -40,8 +52,6 @@ K6 forms P dx from P's block-tridiagonal blocks: P must have nothing
 outside them.  ``band_plan`` checks that and builds K6's row tables; the
 SQP builds one plan per solve and hands it to every QP, a direct caller
 that passes none gets one built (and P checked) per call.
-
-The dense-row path (``data.A_h`` set) is not ported yet.
 """
 
 from __future__ import annotations
@@ -61,7 +71,7 @@ from .banded_rows import (
     bb_scale_cols,
     bb_scale_rows,
 )
-from .btridiag import KERNEL_BLOCKS, blocks_from_dense, btd_factor, btd_solve
+from .btridiag import blocks_from_dense, btd_factor, btd_solve
 from .prox_qp import ProxQPData
 from .qp import (
     QPSettings,
@@ -112,13 +122,15 @@ class _Setup(NamedTuple):
     mh: int
     ma: int
     bsz: int
-    nb: int
+    nb: int  # blocks of the block-tridiagonal factor (0: dense Cholesky)
     tiny: float
     dcap: float
     lb: torch.Tensor  # IPM bounds: pinned coordinates at (-1, 1)
     ub: torch.Tensor
-    BhS: tuple  # row-scaled, pinned columns masked
+    BhS: tuple  # banded rows: row-scaled, pinned columns masked
     BaS: tuple
+    Jh: Optional[torch.Tensor]  # dense rows (lanes, m, n), likewise; or None
+    Ja: Optional[torch.Tensor]
     eh: torch.Tensor
     ea: torch.Tensor
     c: torch.Tensor  # (lanes,) cost scale
@@ -126,24 +138,36 @@ class _Setup(NamedTuple):
     q: torch.Tensor
     wh: torch.Tensor
     wa: torch.Tensor
-    P_D: torch.Tensor
-    P_O: torch.Tensor
+    P_D: Optional[torch.Tensor]  # P's blocks (banded rows only)
+    P_O: Optional[torch.Tensor]
     f_zero: torch.Tensor
     n_pairs: int
+
+    @property
+    def dense(self) -> bool:
+        return self.Jh is not None
 
     def zeros_rows(self):
         return self.q.new_zeros((self.lanes, 0))
 
     def jh_mv(self, v):
+        if self.dense:
+            return _bmv(self.Jh, v)
         return bb_mv(self.BhS, self.data.Gh, v, self.bsz)
 
     def jh_rmv(self, w):
+        if self.dense:
+            return _bmv(self.Jh.transpose(1, 2), w)
         return bb_rmv(self.BhS, self.data.Gh, w, self.n, self.bsz)
 
     def ja_mv(self, v):
+        if self.dense:
+            return _bmv(self.Ja, v)
         return bb_mv(self.BaS, self.data.Ga, v, self.bsz)
 
     def ja_rmv(self, w):
+        if self.dense:
+            return _bmv(self.Ja.transpose(1, 2), w)
         return bb_rmv(self.BaS, self.data.Ga, w, self.n, self.bsz)
 
     def composite(self, dx):
@@ -156,12 +180,14 @@ def composite_objective(data: ProxQPData, dx, bsz):
     at clip(dx, lb, ub), per lane."""
     d = torch.clamp(dx, min=data.lb, max=data.ub)
     f = 0.5 * _dot(d, _bmv(data.P, d)) + _dot(data.q, d)
+    dense = data.A_h is not None
     if data.e_h.shape[1]:
-        f = f + torch.sum(data.w_h * torch.clamp(
-            data.e_h + bb_mv(data.Bh, data.Gh, d, bsz), min=0.0), dim=-1)
+        ah = _bmv(data.A_h, d) if dense else bb_mv(data.Bh, data.Gh, d, bsz)
+        f = f + torch.sum(data.w_h * torch.clamp(data.e_h + ah, min=0.0),
+                          dim=-1)
     if data.e_a.shape[1]:
-        f = f + torch.sum(data.w_a * torch.abs(
-            data.e_a + bb_mv(data.Ba, data.Ga, d, bsz)), dim=-1)
+        aa = _bmv(data.A_a, d) if dense else bb_mv(data.Ba, data.Ga, d, bsz)
+        f = f + torch.sum(data.w_a * torch.abs(data.e_a + aa), dim=-1)
     return f
 
 
@@ -185,13 +211,11 @@ def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
     dt = data.q.dtype
     f64 = dt == torch.float64
     bsz = s.kkt_block
-    if data.A_h is not None:
-        raise NotImplementedError(
-            "solve_ipm_qp: the dense-row path is not ported yet; pass rows "
-            "in the ops.banded_rows format (A_h = A_a = None)")
-    if not (bsz > 0 and n % bsz == 0 and n >= 2 * bsz):
+    dense = data.A_h is not None
+    use_btd = bsz > 0 and n % bsz == 0 and n >= 2 * bsz
+    if not (dense or use_btd):
         raise ValueError("banded rows require kkt_block to be set")
-    nb = n // bsz
+    nb = n // bsz if use_btd else 0
 
     # ---- exact elimination of pinned coordinates (lb == ub) ----
     width0 = data.ub - data.lb
@@ -205,16 +229,32 @@ def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
     ub = torch.where(free > 0, data.ub, torch.full_like(data.ub, 1.0))
 
     # ---- row normalization + cost scaling ----
-    Bh0 = bb_scale_cols(data.Bh, data.Gh, free, bsz) if mh else ()
-    Ba0 = bb_scale_cols(data.Ba, data.Ga, free, bsz) if ma else ()
-    eh0 = data.e_h + bb_mv(data.Bh, data.Gh, pin_val, bsz) if mh else data.e_h
-    ea0 = data.e_a + bb_mv(data.Ba, data.Ga, pin_val, bsz) if ma else data.e_a
-    rh = torch.clamp(bb_rowmax(Bh0).to(dt), min=1e-8) if mh \
-        else data.q.new_ones((lanes, 0))
-    ra = torch.clamp(bb_rowmax(Ba0).to(dt), min=1e-8) if ma \
-        else data.q.new_ones((lanes, 0))
-    BhS = bb_scale_rows(Bh0, 1.0 / rh) if mh else ()
-    BaS = bb_scale_rows(Ba0, 1.0 / ra) if ma else ()
+    BhS = BaS = ()
+    Jh = Ja = None
+    if dense:
+        eh0 = data.e_h + _bmv(data.A_h, pin_val) if mh else data.e_h
+        ea0 = data.e_a + _bmv(data.A_a, pin_val) if ma else data.e_a
+        Ah0 = data.A_h * free[:, None, :]
+        Aa0 = data.A_a * free[:, None, :]
+        rh = torch.clamp(torch.amax(torch.abs(Ah0), dim=-1), min=1e-8) \
+            if mh else data.q.new_ones((lanes, 0))
+        ra = torch.clamp(torch.amax(torch.abs(Aa0), dim=-1), min=1e-8) \
+            if ma else data.q.new_ones((lanes, 0))
+        Jh = Ah0 / rh[..., None] if mh else Ah0
+        Ja = Aa0 / ra[..., None] if ma else Aa0
+    else:
+        Bh0 = bb_scale_cols(data.Bh, data.Gh, free, bsz) if mh else ()
+        Ba0 = bb_scale_cols(data.Ba, data.Ga, free, bsz) if ma else ()
+        eh0 = data.e_h + bb_mv(data.Bh, data.Gh, pin_val, bsz) if mh \
+            else data.e_h
+        ea0 = data.e_a + bb_mv(data.Ba, data.Ga, pin_val, bsz) if ma \
+            else data.e_a
+        rh = torch.clamp(bb_rowmax(Bh0).to(dt), min=1e-8) if mh \
+            else data.q.new_ones((lanes, 0))
+        ra = torch.clamp(bb_rowmax(Ba0).to(dt), min=1e-8) if ma \
+            else data.q.new_ones((lanes, 0))
+        BhS = bb_scale_rows(Bh0, 1.0 / rh) if mh else ()
+        BaS = bb_scale_rows(Ba0, 1.0 / ra) if ma else ()
     eh = eh0 / rh if mh else eh0
     ea = ea0 / ra if ma else ea0
     # per-lane cost scale
@@ -226,13 +266,14 @@ def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
     q = q0 * c[:, None]
     wh = torch.clamp(data.w_h * rh * c[:, None], min=_WMIN)
     wa = torch.clamp(data.w_a * ra * c[:, None], min=_WMIN)
-    P_D, P_O = blocks_from_dense(P, nb, bsz)
+    P_D, P_O = (None, None) if dense else blocks_from_dense(P, nb, bsz)
     return _Setup(
         data=data, s=s, lanes=lanes, n=n, mh=mh, ma=ma, bsz=bsz, nb=nb,
         tiny=1e-30 if f64 else 1e-25,
         # barrier-diagonal cap (bounds the f32 Newton system's conditioning)
         dcap=1e14 if f64 else 1e10,
-        lb=lb, ub=ub, BhS=BhS, BaS=BaS, eh=eh, ea=ea, c=c, P=P, q=q,
+        lb=lb, ub=ub, BhS=BhS, BaS=BaS, Jh=Jh, Ja=Ja, eh=eh, ea=ea, c=c,
+        P=P, q=q,
         wh=wh, wa=wa, P_D=P_D, P_O=P_O,
         f_zero=composite_objective(data, torch.zeros_like(data.q), bsz),
         n_pairs=mh + mh + ma + ma + n + n)
@@ -243,7 +284,9 @@ def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
 # --------------------------------------------------------------------------
 
 
-def _loop_plain(su: _Setup) -> _St:
+def _loop_plain(su: _Setup, kernels: bool = False) -> _St:
+    """The loop in PyTorch; ``kernels``: the dense rows' block-tridiagonal
+    factor and solves take K2 / K3 on a CUDA tensor."""
     s, lanes, n, mh, ma = su.s, su.lanes, su.n, su.mh, su.ma
     bsz, nb, tiny, dcap = su.bsz, su.nb, su.tiny, su.dcap
     lb, ub, eh, ea, c = su.lb, su.ub, su.eh, su.ea, su.c
@@ -338,6 +381,8 @@ def _loop_plain(su: _Setup) -> _St:
 
     def make_kkt_solve(dh_d, da_d, dbox):
         """Factorize K = P + Jh' Dh Jh + Ja' Da Ja + Dbox; return solver."""
+        if su.dense:
+            return dense_kkt_solve(dh_d, da_d, dbox)
         D = su.P_D + torch.diag_embed(dbox.reshape(lanes, nb, bsz))
         O = su.P_O.clone()  # bb_quad accumulates in place
         if mh:
@@ -353,6 +398,41 @@ def _loop_plain(su: _Setup) -> _St:
         def kkt_solve(r):
             return btd_solve(LD, LM, r.reshape(lanes, nb, bsz),
                              kernels=False).reshape(lanes, n)
+
+        return kkt_solve
+
+    def dense_kkt_solve(dh_d, da_d, dbox):
+        """K formed dense, symmetrized and regularized per lane, factored
+        block-tridiagonally where the band holds, else by a dense Cholesky
+        and an explicit inverse (a non-PD K gives NaN, as the reference's
+        ``jnp.linalg.cholesky``, which the NaN guard catches)."""
+        K = P + torch.diag_embed(dbox)
+        if mh:
+            K = K + (su.Jh.transpose(1, 2) * dh_d[:, None, :]) @ su.Jh
+        if ma:
+            K = K + (su.Ja.transpose(1, 2) * da_d[:, None, :]) @ su.Ja
+        diag_max = torch.amax(torch.diagonal(K, dim1=-2, dim2=-1), dim=-1)
+        reg = (1e-12 * diag_max + 1e-11) if f64 else (1e-7 * diag_max + 1e-8)
+        Ksym = 0.5 * (K + K.transpose(1, 2))
+        if nb:
+            Db, Ob = blocks_from_dense(Ksym, nb, bsz)
+            LD, LM = btd_factor(Db + reg[:, None, None, None] * eye_b, Ob,
+                                kernels=kernels)
+
+            def kkt_solve(r):
+                return btd_solve(LD, LM, r.reshape(lanes, nb, bsz),
+                                 kernels=kernels).reshape(lanes, n)
+
+            return kkt_solve
+        eye = torch.eye(n, dtype=q.dtype, device=q.device)
+        L, info = torch.linalg.cholesky_ex(Ksym + reg[:, None, None] * eye)
+        L = torch.where((info == 0)[:, None, None], L,
+                        torch.full_like(L, float("nan")))
+        Linv = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+        Kinv = Linv.transpose(1, 2) @ Linv
+
+        def kkt_solve(r):
+            return _bmv(Kinv, r)
 
         return kkt_solve
 
@@ -517,6 +597,10 @@ class _K6Args(ctypes.Structure):
 
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
+# the block sizes K6 is instantiated for (csrc/ipm_launch.cuh, in its
+# attribute query's order): the step widths of the 7-DoF arms and of the
+# 9-DoF rail, and the 7-DoF superblocks of two and three steps
+K6_BLOCKS = (7, 9, 14, 21)
 # K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
 # its iterations, then the count of factors that took their fallback
 # (K6_CLK_SLOTS per lane)
@@ -608,8 +692,8 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None, smem=(1, 1)) -> _St:
     dt = su.q.dtype
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"ipm_banded: dtype {dt} is not float32/float64")
-    if b not in KERNEL_BLOCKS:
-        raise ValueError(f"ipm_banded: block size {b} not in {KERNEL_BLOCKS} "
+    if b not in K6_BLOCKS:
+        raise ValueError(f"ipm_banded: block size {b} not in {K6_BLOCKS} "
                          "(the sizes K6 is instantiated for)")
     if (plan.b, plan.nb, plan.h.shapes, plan.a.shapes) \
             != (b, su.nb, _group_shapes(d.Bh), _group_shapes(d.Ba)):
@@ -684,6 +768,8 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
                 "(ipm::smem_layout in csrc/ipm.cuh)")
         _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
+        if su.bsz == 9:
+            _native.LAUNCHES["ipm_banded_b9"] += 1
 
     if clk is not None and (su.q.dtype != torch.float32
                             or clk.shape != (su.lanes, K6_CLK_SLOTS)
@@ -698,11 +784,11 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
 def kernel_attributes() -> dict:
     """{"f32_b7": {"num_regs", "local_bytes", "max_threads",
     "static_smem_bytes"}, ...} of K6's instantiations on the card, float32
-    and float64 at b 7, 14 and 21 (``cudaFuncGetAttributes``)."""
+    and float64 at b 7, 9, 14 and 21 (``cudaFuncGetAttributes``)."""
     out = {}
     for d, src in (("f32", "ipm_banded"), ("f64", "ipm_banded64")):
         query = getattr(_native.library(src), f"{src}_attrs")
-        for which, b in enumerate(KERNEL_BLOCKS):
+        for which, b in enumerate(K6_BLOCKS):
             buf = (ctypes.c_int * 4)()
             _native.check(f"{src}_attrs", query(which, buf))
             out[f"{d}_b{b}"] = dict(zip(("num_regs", "local_bytes",
@@ -784,16 +870,23 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
 
     (u0, y0) are accepted for interface parity; the IPM re-initializes
     from a well-centered point.  ``device`` is where the data must lie
-    (raises if CUDA is asked for and absent).  On a CUDA device the loop is
-    one K6 launch; ``kernels=False`` runs the plain PyTorch loop there.
-    ``plan`` is K6's ``band_plan`` for QPs of this structure (built, and P's
-    band checked, here when None).
+    (raises if CUDA is asked for and absent).  Banded rows: on a CUDA
+    device the loop is one K6 launch (``kernels=False`` runs the plain
+    PyTorch loop there), on the CPU the plain loop.  Dense rows
+    (``data.A_h`` set): the PyTorch loop on either device, its
+    block-tridiagonal factor and solves K2 / K3 on a CUDA device unless
+    ``kernels=False``, its dense Cholesky (n < 2 kkt_block, or no
+    kkt_block) ``torch.linalg``'s.  ``plan`` is K6's ``band_plan`` for
+    banded QPs of this structure (built, and P's band checked, here when
+    None).
     """
     dev = resolve_device(device)
     if data.q.device.type != dev.type:
         raise ValueError(f"solve_ipm_qp: data on {data.q.device}, "
                          f"device={dev}")
     su = _setup(data, settings)
+    if su.dense:
+        return _finish(su, _loop_plain(su, kernels=kernels))
     if not (data.q.is_cuda and kernels):
         return _finish(su, _loop_plain(su))
     if plan is None:

@@ -10,11 +10,13 @@ is a Python ``while`` over a per-lane ``running`` mask: the body runs for
 every lane and a lane that has reached a terminal status keeps its state
 bitwise (``torch.where``), as a vmapped ``while_loop`` keeps it.
 
-Ported: the banded interior-point path (every row term provides banded
-windows, ``kkt_block`` = coupling x step width).  Not ported yet: GENERIC
-terms, the dense-row and ADMM QP paths, ``max_time``, ``callback``,
-``record_history`` and the multi-device ``mesh`` of
-``solve_batch_compact``; each raises ``NotImplementedError``.
+Ported: the interior-point QP paths, banded (every row term provides
+banded windows, ``kkt_block`` = coupling x step width: K6 on the card) and
+dense-row (the rows as (lanes, m, n) matrices, for a problem whose KKT
+matrix has no step band, e.g. a single step).  Not ported yet: GENERIC
+terms, the ADMM QP solver, ``max_time``, ``callback``, ``record_history``
+and the multi-device ``mesh`` of ``solve_batch_compact``; each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -372,6 +374,12 @@ def _band_coupling(spec: ProblemSpec):
     return max(cs)
 
 
+def _bandable(spec: ProblemSpec) -> bool:
+    """True when the KKT matrix is block-tridiagonal at the STEP block
+    size (every term couples at most adjacent steps)."""
+    return _band_coupling(spec) == 1
+
+
 def _i32(v, like):
     return torch.full_like(like, v, dtype=torch.int32)
 
@@ -411,15 +419,15 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
     blk_c = (p.qp.kkt_block // spec.n_cols
              if spec.n_cols > 0 and p.qp.kkt_block > 0
              and p.qp.kkt_block % spec.n_cols == 0 else 0)
-    banded_rows = (plan.all_rows_banded and qp_solver == "ipm"
-                   and c_band is not None and blk_c >= max(c_band, 1)
+    if qp_solver != "ipm":
+        raise NotImplementedError(
+            f"the {qp_solver!r} QP solver is not ported yet; only the "
+            "interior-point solver ('ipm') is")
+    banded_rows = (plan.all_rows_banded and c_band is not None
+                   and blk_c >= max(c_band, 1)
                    and spec.n_steps % blk_c == 0
                    and spec.n_x >= 2 * p.qp.kkt_block)
-    if not banded_rows:
-        raise NotImplementedError(
-            "only the banded interior-point path is ported: every row term "
-            "needs banded windows, and the QP solver must be 'ipm'")
-    band_c = blk_c
+    band_c = blk_c if banded_rows else 1
 
     x0 = torch.clamp(data.x0, min=data.lb, max=data.ub)
     dt = x0.dtype
@@ -453,7 +461,7 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
         w_h, w_a = _merit_row_weights(plan, cvx, st.merit)
         qp_data = _assemble_qp(plan, cvx, w_h, w_a, st.x, st.box,
                                data.lb, data.ub)
-        if qp_plan is None:
+        if qp_plan is None and banded_rows:
             # K6's plan (P's band checked, the row tables) holds for every
             # QP of the solve: the rows' step coupling and windows are the
             # terms' own

@@ -1,26 +1,31 @@
-"""Swept ("cast") collision terms and the trajectory gate
-(``trajopt_tpu/terms/collision.py``).
+"""Collision cost/constraint terms, discrete and swept ("cast"), and the
+trajectory gate (``trajopt_tpu/terms/collision.py``).
 
-Error rows are ``margin - dist`` per (step gap, sub-segment, pair): a
-hinge cost ``coeff * max(0, margin - dist)`` or INEQ constraint rows.
-:class:`CastDistancePre` owns the FK + swept distance (+ two-endpoint
-Jacobian) pipeline; every term built over the same object receives its
-output as ``aux`` from the SQP engine, so a cost and a constraint over one
-world share one distance pass and one Jacobian pass per linearization.
+Error rows are ``margin - dist``: per (step, pair) for the discrete terms,
+per (step gap, sub-segment, pair) for the cast terms; a hinge cost
+``coeff * max(0, margin - dist)`` or INEQ constraint rows.
+:class:`DiscreteDistancePre` and :class:`CastDistancePre` own the FK +
+distance (+ Jacobian) pipelines; every term built over the same object
+receives its output as ``aux`` from the SQP engine, so a cost and a
+constraint over one world share one distance pass and one Jacobian pass
+per linearization.
 
-On a CUDA tensor the pipeline runs as hand-written kernels
-(``csrc/cast_seg.cu``): K4 ``cast_seg`` (distances + Jacobian), K4v
-``cast_seg_value`` (distances) and K5 ``cast_sweep`` (the n_sub gate of
-``trajectory_in_collision``); a world with CONVEX geometry takes their
-CVX instantiations (``csrc/cast_cvx.cu``), which add the CONVEX routes
-(``convex_route`` runs one route alone, as a probe).  On a CPU tensor — or with
-``kernels=False`` — the plain PyTorch versions run: ``value_jac`` is
-``torch.func.vmap(torch.func.jacfwd(...))`` over the plain world, the
-mirror of the reference's ``jax.vmap(jax.jacfwd(...))``.
+On a CUDA tensor the pipelines run as hand-written kernels: K7
+``disc_dist`` (distances + per-step Jacobian) and K7v ``disc_dist_value``
+(``csrc/disc_dist.cu``) for the discrete terms; K4 ``cast_seg`` (distances
++ two-endpoint Jacobian, at n_dof 7 or 9), K4v ``cast_seg_value`` and K5
+``cast_sweep`` (the n_sub gate of ``trajectory_in_collision``;
+``csrc/cast_seg.cu``) for the cast terms, whose CVX instantiations
+(``csrc/cast_cvx.cu``) a world with CONVEX geometry takes; they add the
+CONVEX routes (``convex_route`` runs one route alone, as a probe).  On a
+CPU tensor — or with ``kernels=False`` — the plain PyTorch versions run:
+``value_jac`` is ``torch.func.vmap(torch.func.jacfwd(...))`` over the plain
+world, the mirror of the reference's ``jax.vmap(jax.jacfwd(...))``.
 
-Not ported yet (``NotImplementedError``): ``weighted=True``,
-``max_contacts``, and the discrete terms (``DiscreteDistancePre``,
-``discrete_collision_term``).
+Not ported yet (``NotImplementedError``): ``weighted=True`` and
+``max_contacts`` of both kinds of term; K7 on a world with CONVEX geometry
+(its plain version runs on a CPU tensor); K4 at n_dof 9 with CONVEX
+geometry.
 
 params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
 """
@@ -30,15 +35,21 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .. import _native
 from ..collision import geometry as G
 from ..collision.world import CollisionWorld
+from ..ops.banded_rows import step_window
 from ..utils.lanes import lane_broadcast
 from .base import Term, hinge_cost, ineq_constraint
 
-_JAC_NDOF = 7  # the n_dof instantiated for K4 (csrc/cast_seg.cu)
+# the n_dof K4 is instantiated for (csrc/cast_kernel.cuh): the 7-DoF arms,
+# and the 9-DoF rail without the CONVEX routes
+_JAC_NDOF = {False: (7, 9), True: (7,)}
+# K7's block (csrc/disc_dist.cu): threads per (lane, step)
+DISC_THREADS = 64
 # the cast kernels' blocks (csrc/cast_block.cuh): a CTA of 64 or 128
 # threads per (lane, gap), in teams of 4, 8, 16 or 32 lanes of a warp that
 # share one feature enumeration.  On the card each kernel runs at the
@@ -78,9 +89,11 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
     if x.dim() != 2 or x.shape[1] != n_steps * nc or not x.is_contiguous():
         raise ValueError(f"{kind}: x must be contiguous (B, {n_steps * nc})")
     nd, P = world.chain.n_dof, world.n_pairs
-    if kind == "cast_seg" and nd != _JAC_NDOF:
+    cvx = bool(world.n_convex_verts)
+    if kind == "cast_seg" and nd not in _JAC_NDOF[cvx]:
         raise NotImplementedError(
-            f"cast_seg: the Jacobian kernel is built for n_dof={_JAC_NDOF}, "
+            f"cast_seg: the Jacobian kernel is built for n_dof in "
+            f"{_JAC_NDOF[cvx]}{' with CONVEX geometry' if cvx else ''}, "
             f"not {nd}")
     if n_sub < 2 or n_gaps < 1 or first + n_gaps > n_steps - 1:
         raise ValueError(f"{kind}: bad n_sub={n_sub} or gap range")
@@ -98,7 +111,7 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
         Ja = torch.empty((lanes, n_gaps, n_seg * P, nc), dtype=x.dtype,
                          device=x.device)
         Jb = torch.empty_like(Ja)
-    sfx = ("_cvx_" if world.n_convex_verts else "_") + (
+    sfx = ("_cvx_" if cvx else "_") + (
         "f32" if x.dtype == torch.float32 else "f64")
     code = getattr(lib, f"{kind}{sfx}")(
         ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
@@ -123,6 +136,8 @@ def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
                      block=CAST_BLOCKS[kind, bool(world.n_convex_verts)],
                      clk=clk)
     _native.LAUNCHES[kind] += 1
+    if kind == "cast_seg" and world.chain.n_dof == 9:
+        _native.LAUNCHES["cast_seg_nd9"] += 1
     for route in world.kernel_routes():
         _native.LAUNCHES[route] += 1
     return out
@@ -145,17 +160,24 @@ def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
 
 def kernel_attributes():
     """{instantiation: {"num_regs", "local_bytes", "max_threads",
-    "static_smem_bytes"}} of every K4, K4v and K5 instantiation on the card
-    (``cudaFuncGetAttributes``, through each cast library's query)."""
+    "static_smem_bytes"}} of every K4, K4v, K5 and K7 instantiation on the
+    card (``cudaFuncGetAttributes``, through each library's query)."""
     out = {}
-    for src, sfx in (("cast_seg", "_"), ("cast_cvx", "_cvx_")):
-        lib = _native.library(src)
-        for which, kind in enumerate(f"{k}{sfx}{s}" for k in (
-                "cast_seg", "cast_seg_value", "cast_sweep")
-                for s in ("f32", "f64")):
+    kinds = {"cast_seg": [f"{k}_{s}" for k in ("cast_seg", "cast_seg_value",
+                                                "cast_sweep")
+                          for s in ("f32", "f64")]
+             + ["cast_seg_nd9_f32", "cast_seg_nd9_f64"],
+             "cast_cvx": [f"{k}_cvx_{s}" for k in ("cast_seg",
+                                                   "cast_seg_value",
+                                                   "cast_sweep")
+                          for s in ("f32", "f64")],
+             "disc_dist": [f"{k}_{s}" for k in ("disc_dist", "disc_dist_value")
+                           for s in ("f32", "f64")]}
+    for src, names in kinds.items():
+        query = getattr(_native.library(src), f"{src}_attrs")
+        for which, kind in enumerate(names):
             buf = (ctypes.c_int * 4)()
-            _native.check(f"{src}_attrs", getattr(lib, f"{src}_attrs")(
-                which, buf))
+            _native.check(f"{src}_attrs", query(which, buf))
             out[kind] = dict(zip(("num_regs", "local_bytes", "max_threads",
                                   "static_smem_bytes"), list(buf)))
     return out
@@ -218,6 +240,200 @@ def convex_route_host(world: CollisionWorld, V1, r1, V2, r2, fw: bool,
         raise ValueError("convex_route: the host build takes CPU tensors")
     return _route_call(_native.host_library("cast_host"), world, V1, r1, V2,
                        r2, fw, block=(CAST_THREADS, team), index=index)
+
+
+# --------------------------------------------------------------------------
+# K7 / K7v wrappers and the discrete terms
+# --------------------------------------------------------------------------
+
+
+def _disc_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
+               n_steps: int, nc: int, first: int, span: int, stream=None,
+               threads: int = DISC_THREADS):
+    """Call entry point ``kind`` (``disc_dist`` or ``disc_dist_value``) of
+    a library on ``x`` (B, n_steps * nc); the steps are [first, first +
+    span).  Returns D (B, span, P) and, for ``disc_dist``, J (B, span, P,
+    nc)."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{kind}: dtype {x.dtype} is not float32/float64")
+    if x.dim() != 2 or x.shape[1] != n_steps * nc or not x.is_contiguous():
+        raise ValueError(f"{kind}: x must be contiguous (B, {n_steps * nc})")
+    if span < 1 or first < 0 or first + span > n_steps:
+        raise ValueError(f"{kind}: bad step range")
+    if world.n_convex_verts:
+        raise NotImplementedError(
+            f"{kind}: a world with CONVEX geometry has no K7 instantiation "
+            "yet")
+    lanes, P = x.shape[0], world.n_pairs
+    ints, reals = world.kernel_tables(x.dtype, x.device)
+    D = torch.empty((lanes, span, P), dtype=x.dtype, device=x.device)
+    J = torch.empty((lanes, span, P, nc), dtype=x.dtype, device=x.device) \
+        if kind == "disc_dist" else None
+    sfx = "f32" if x.dtype == torch.float32 else "f64"
+    code = getattr(lib, f"{kind}_{sfx}")(
+        ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
+        first, span, D.data_ptr(), 0 if J is None else J.data_ptr(), lanes,
+        world.chain.n_links, world.chain.n_dof, len(world.geoms), P,
+        threads, stream)
+    _native.check(kind, code)
+    return D, J
+
+
+def disc_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
+    """Launch K7 / K7v on the card (arguments as :func:`_disc_call`)."""
+    if not x.is_cuda:
+        raise ValueError(f"{kind}: tensors must be on a CUDA device")
+    out = _disc_call(_native.library("disc_dist"), kind, world, x, *args,
+                     stream=torch.cuda.current_stream(x.device).cuda_stream)
+    _native.LAUNCHES[kind] += 1
+    return out
+
+
+def disc_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
+              threads: int = DISC_THREADS):
+    """K7 / K7v built for the host (``csrc/cast_host.cpp``: the kernels'
+    block body, its threads played in turn), on a CPU tensor (arguments as
+    :func:`_disc_call`)."""
+    if x.is_cuda:
+        raise ValueError(f"{kind}: the host build takes CPU tensors")
+    return _disc_call(_native.host_library("cast_host"), kind, world, x,
+                      *args, threads=threads)
+
+
+class DiscreteDistancePre:
+    """Shared per-step distance (+ per-step Jacobian) pipeline.
+
+    ``value(x)`` -> D (B, span, P) signed distances; ``value_jac(x)`` ->
+    (D, Js) with Js (B, span, P, nc) the raw distance Jacobian wrt that
+    step's columns (the inv-dt column zero-padded)."""
+
+    def __init__(self, world: CollisionWorld, n_steps: int,
+                 first_step: int = 0, last_step: Optional[int] = None,
+                 n_cols: Optional[int] = None):
+        self.world = world
+        self.n_steps = n_steps
+        self.first_step = first_step
+        self.last = (n_steps - 1) if last_step is None else last_step
+        self.span = self.last - first_step + 1
+        self.n_dof = world.chain.n_dof
+        self.nc = n_cols or self.n_dof
+        self.P = world.n_pairs
+
+    def _q(self, x):
+        X = x.reshape(x.shape[0], self.n_steps, self.nc)
+        return X[:, self.first_step:self.last + 1, :self.n_dof]
+
+    def _launch(self, kind, x):
+        return disc_launch(kind, self.world, x.contiguous(), self.n_steps,
+                           self.nc, self.first_step, self.span)
+
+    def value(self, x, kernels: bool = True):
+        """D (B, span, P): K7v on a CUDA tensor (``kernels=False`` takes
+        the plain version there), the plain version on the CPU."""
+        if x.is_cuda and kernels:
+            return self._launch("disc_dist_value", x)[0]
+        return self.world.pair_distances(self._q(x))
+
+    def value_jac(self, x, kernels: bool = True):
+        """(D, Js): K7 on a CUDA tensor (``kernels=False`` takes the plain
+        version there); the plain version is ``vmap(jacfwd)`` over the
+        plain world."""
+        if x.is_cuda and kernels:
+            return self._launch("disc_dist", x)
+        B = x.shape[0]
+
+        def f(q):
+            d = self.world.pair_distances(q)
+            return d, d
+
+        Js, D = torch.func.vmap(torch.func.jacfwd(f, has_aux=True))(
+            self._q(x).reshape(-1, self.n_dof))
+        Js = Js.reshape(B, self.span, self.P, self.n_dof)
+        if self.nc != self.n_dof:  # the inv-dt column has no dependence
+            Js = torch.cat([Js, Js.new_zeros(Js.shape[:-1] + (
+                self.nc - self.n_dof,))], dim=-1)
+        return D.reshape(B, self.span, self.P), Js
+
+
+def discrete_collision_term(
+    name: str,
+    world: CollisionWorld,
+    n_steps: int,
+    first_step: int = 0,
+    last_step: Optional[int] = None,
+    is_constraint: bool = False,
+    n_cols: Optional[int] = None,
+    weighted: bool = False,
+    max_contacts: Optional[int] = None,
+    buffer: float = 0.5,
+    pre: Optional[DiscreteDistancePre] = None,
+) -> Term:
+    """Discrete collision at each step in [first, last]: one hinge / INEQ
+    row per (step, pair).  ``pre``: a shared :class:`DiscreteDistancePre`
+    (cost + constraint over one world)."""
+    if weighted:
+        raise NotImplementedError("discrete_collision_term(weighted=True) "
+                                  "is not ported yet")
+    if max_contacts is not None:
+        raise NotImplementedError("discrete_collision_term(max_contacts=...) "
+                                  "is not ported yet")
+    if pre is None:
+        pre = DiscreteDistancePre(world, n_steps, first_step, last_step,
+                                  n_cols)
+    assert (pre.world is world and pre.n_steps == n_steps
+            and pre.first_step == first_step
+            and pre.last == ((n_steps - 1) if last_step is None else last_step)
+            and pre.nc == (n_cols or world.chain.n_dof))
+    span, P, nc = pre.span, pre.P, pre.nc
+    n = span * P
+
+    def _errs(x, p, aux=None):
+        D = aux if aux is not None else pre.value(x)  # (B, span, P)
+        margins = _bcast(p["margins"], P, x.dtype)
+        return margins[:, None, :] - D
+
+    def fn(x, p, aux=None):
+        return _errs(x, p, aux).reshape(x.shape[0], -1)
+
+    def _row_coeffs(p, dtype):
+        return _bcast(p["coeffs"], P, dtype).repeat(1, span)
+
+    def _jac_steps(x, p, aux=None, cf=False):
+        _, Js = aux if aux is not None else pre.value_jac(x)
+        if cf:
+            Js = Js * _bcast(p["coeffs"], P, x.dtype)[:, None, :, None]
+        return -Js  # d(margin - dist)/dq
+
+    def jac_fn(x, p, aux=None, cf=False):
+        """Each row block depends on ONE step's columns: the per-step
+        blocks scattered into the (span P, n_x) layout."""
+        Js = _jac_steps(x, p, aux, cf)
+        B = x.shape[0]
+        J = x.new_zeros((B, span, P, n_steps, nc))
+        sidx = torch.arange(span, device=x.device)
+        # advanced indices (sidx, first + sidx) are separated by a slice:
+        # they lead
+        J[:, sidx, :, first_step + sidx, :] = Js.permute(1, 0, 2, 3)
+        return J.reshape(B, n, n_steps * nc)
+
+    def jac_banded_fn(x, p, aux=None, cf=False):
+        return step_window(_jac_steps(x, p, aux, cf),
+                           first_step + np.arange(span), n_steps)
+
+    if is_constraint:
+        def cfn(x, p, aux=None):
+            return fn(x, p, aux) * _row_coeffs(p, x.dtype)
+        return ineq_constraint(
+            name, n, cfn,
+            jac_fn=lambda x, p, aux=None: jac_fn(x, p, aux, cf=True),
+            viol_groups=span,  # one reference constraint per timestep
+            step_coupling=0,
+            jac_banded_fn=lambda x, p, aux=None: jac_banded_fn(
+                x, p, aux, cf=True),
+            pre_fn=pre)
+    return hinge_cost(name, n, fn, weight_fn=lambda p: _row_coeffs(
+        p, p["coeffs"].dtype), jac_fn=jac_fn, step_coupling=0,
+        jac_banded_fn=jac_banded_fn, pre_fn=pre)
 
 
 class CastDistancePre:
