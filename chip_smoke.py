@@ -108,8 +108,41 @@ Every line printed is one JSON object.  Phases, in order:
    the rail from x0 plus seeded noise (its straight-line start sits on
    exact ties that each path resolves by its own rounding: that run, and
    the two paths' first QP solves from it, are reported);
-6. the kernel summary line, then the last line
+2f. (run after 5b) the pose kernels against their plain versions, float32
+   and float64, 128 lanes: K9 cart_pose and K9v cart_pose_value at step
+   20 of the flagship's initial trajectories plus seeded noise (a world
+   target, a moving target link, a tolerance band), values on every row,
+   Jacobians on the rows off the log map's and the band's switches
+   (``terms.cartesian.cart_pose_ties``, counted); K8 solve_ik on phase
+   6c's queries (plain and ``pos_only``): equal iteration counts and
+   convergence except on lanes with a near-tie decision (counted), q
+   within ``IK_Q_TOL`` on the lanes with equal counts; then their times,
+   their plain versions' and their bounds, and their registers and local
+   memory;
+6a. cartesian waypoints (BASELINE config 2): arm7, 128 lanes x T=30,
+   float32, ``cartesian_inputs`` (seed 0) built by
+   ``port_cartesian_problem("waypoints")`` (cart_pose EQ at three waypoint
+   steps, cart_vel INEQ, joint_vel cost, step 0 fixed) through
+   ``solve_batch(SQPParams())``: one cold run, three warm runs with the
+   counters reset before them; the dense-row QP must launch K2 and K3 and
+   never K6, the terms K9 and K9v; no lane non-finite; converged and
+   gated (CONVERGED, max violation < 1e-4) at or above ``CART_LIMITS``
+   (the JAX package's CPU counts less 5);
+6b. the IK goal: the same starts, ik_term EQ at the last step (the goal's
+   pose), joint_vel cost, from start -> goal + 0.2: as 6a, and K8 at least
+   once per batched QP solve;
+6c. ``solve_ik`` alone on ``ik_inputs`` (128 lanes, float32), plain and
+   ``pos_only``: converged at or above ``CART_LIMITS``, iterations, error
+   norms, K8's time;
+6d. 8 lanes each of 6a and 6b in float64, kernel path against plain path:
+   equal statuses and QP counts, x within 3e-5 and the plain path's own
+   one-ulp move;
+7. the kernel summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+
+``python3 chip_smoke.py --cartesian-only`` runs the setup and phases 2f
+and 6a-6d alone and prints their kernel entries, without the last line
+(a short call for the pose kernels).
 
 Any failure raises and the script exits non-zero.  It exits non-zero with
 no result when CUDA is not available.
@@ -347,6 +380,580 @@ def k6_work(qp, b, iters, es):
     return nbytes, flops
 
 
+# The cartesian slice (phases 2f and 6a-6d): the pose kernels K9
+# cart_pose / K9v cart_pose_value and K8 solve_ik against their plain
+# versions.  Values within REL_TOL of the largest |E|; Jacobians within
+# COLL_TOL's Jacobian tolerance of the largest |J| on the rows whose
+# decisions (the log map's pivot, hemisphere and Taylor switch, the band's
+# edges) are not within terms.cartesian.TIE_ULPS ulps (cart_pose_ties),
+# the others counted.  K8 (ik_compare): equal iteration counts and
+# convergence except on lanes where an accept or stop decision was within
+# kinematics.ik.TIE_ULPS ulps of a pose's scale (counted); on the lanes
+# whose counts are equal the final error norms within IK_ERR_TOL of each
+# other (relative, or tol absolute) and q within IK_Q_TOL where both
+# converged.  In float32 the 7-DoF arm's converged q is unique only up to
+# its null-space direction (a 6-D pose), along which the damped steps'
+# rounding drifts: 2.7e-3 rad on the host build's 128 lanes.  A lane that
+# runs to the iteration limit without converging wanders (its lam
+# doubling and halving on near-equal errors) at an equal error: its q is
+# reported, not held (float32 4.3e-2 on the host build, float64 1.05e-8
+# on the H100)
+IK_Q_TOL = {"float32": 1e-2, "float64": 1e-8}
+IK_ERR_TOL = {"float32": 5e-2, "float64": 1e-8}
+# phases 6a-6c at 128 lanes, float32: the JAX package's own counts on the
+# CPU (scripts/jax_reference_counts.py --cartesian, seed 0) less 5
+# (JAX: 128 / 128, 128 / 128, 119, 128)
+CART_LIMITS = {"cartesian_waypoints": {"converged": 123, "gated": 123},
+               "ik_goal": {"converged": 123, "gated": 123},
+               "solve_ik": {"converged": 114},
+               "solve_ik_pos_only": {"converged": 123}}
+
+
+def ik_compare(kr, pr, tie, name, tol=1e-6):
+    """K8's result ``kr`` against the plain loop's ``pr`` (with its near-tie
+    lanes ``tie``) by the rule above: a record with "ok"."""
+    same_it = kr.iters == pr.iters
+    same = same_it & (kr.converged == pr.converged)
+    q_lanes = same_it & kr.converged & pr.converged
+    dq = (kr.q - pr.q).abs().amax(-1)
+    de = (kr.err_norm - pr.err_norm).abs()
+    de_ok = de <= IK_ERR_TOL[name] * pr.err_norm.abs() + tol
+    rec = {"lanes": int(kr.iters.numel()),
+           "converged": int(kr.converged.sum()),
+           "converged_plain": int(pr.converged.sum()),
+           "lanes_apart": int((~same).sum()),
+           "lanes_near_tie": int(tie.sum()),
+           "apart_and_not_tied": int((~same & ~tie).sum()),
+           "q_abs_err_converged_equal": float(dq[q_lanes].max())
+           if q_lanes.any() else 0.0,
+           "q_abs_err_equal_iters": float(dq[same_it].max())
+           if same_it.any() else 0.0,
+           "err_norm_abs_err_equal_iters": float(de[same_it].max())
+           if same_it.any() else 0.0,
+           "q_tol": IK_Q_TOL[name], "err_tol": IK_ERR_TOL[name]}
+    rec["ok"] = rec["apart_and_not_tied"] == 0 \
+        and rec["q_abs_err_converged_equal"] <= IK_Q_TOL[name] \
+        and bool(de_ok[same_it].all())
+    return rec
+
+
+def cartesian_inputs(lanes, n_steps=30, seed=0):
+    """The inputs of the cartesian scenes (phases 6a, 6b, 6d), numpy
+    only (the port's float64 FK on the CPU for the poses): per lane the
+    start and goal of ``make_glass_upright`` (Q_START / Q_GOAL + U(-0.15,
+    0.15) on the yaw joints), the waypoint steps (T // 3, 2 T // 3, T - 1),
+    their configurations (the straight joint path there + U(-0.1, 0.1) per
+    joint; the goal itself at T - 1) and the tool's poses at them; the
+    initial trajectories (6a: the straight path start -> goal, 6b: start ->
+    goal + 0.2); and cart_vel's max displacement, 1.5 x the largest tool
+    step of 6a's initial trajectories over all lanes (a rule fixed before
+    the first chip run; its value at 128 x 30 in PERF.md section 4)."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch.benchmarks import Q_GOAL, Q_START
+    from trajopt_tpu_torch.models import arm7
+    from trajopt_tpu_torch.problem.trajectory import interpolated_init
+
+    _, chain = arm7()
+    tool = chain.link_index("tool")
+    T, D = n_steps, chain.n_dof
+    steps = (T // 3, 2 * T // 3, T - 1)
+    rng = np.random.default_rng(seed)
+    yaw = np.array([1.0, 0, 0, 0, 0, 0, 1.0])
+    start = np.empty((lanes, D))
+    goal = np.empty((lanes, D))
+    wq = np.empty((lanes, 3, D))
+    for i in range(lanes):
+        start[i] = Q_START + rng.uniform(-0.15, 0.15, D) * yaw
+        goal[i] = Q_GOAL + rng.uniform(-0.15, 0.15, D) * yaw
+        line = interpolated_init(start[i], goal[i], T)
+        wq[i, 0] = line[steps[0]] + rng.uniform(-0.1, 0.1, D)
+        wq[i, 1] = line[steps[1]] + rng.uniform(-0.1, 0.1, D)
+        wq[i, 2] = goal[i]
+    init_a = np.stack([interpolated_init(s, g, T) for s, g in zip(start, goal)])
+    init_b = np.stack([interpolated_init(s, g + 0.2, T)
+                       for s, g in zip(start, goal)])
+
+    def fk(q):
+        R, p = chain.fk(torch.as_tensor(q, dtype=torch.float64))
+        return R[..., tool, :, :].numpy(), p[..., tool, :].numpy()
+
+    wR, wp = fk(wq)
+    _, tp = fk(init_a)
+    vel = 1.5 * float(np.abs(np.diff(tp, axis=1)).max())
+    return {"steps": steps, "start": start, "goal": goal, "waypoint_q": wq,
+            "waypoint_R": wR, "waypoint_p": wp, "init_waypoints": init_a,
+            "init_ik_goal": init_b, "max_displacement": vel}
+
+
+def ik_inputs(lanes, seed=0):
+    """Phase 6c's IK queries, numpy only: q in the middle half of arm7's
+    joint box, the tool's float64 pose there (the target) and the seed
+    q + 0.3 (1, -1, 1, -1, 1, -1, 1) (``tests/test_ik.py``)."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch.models import arm7
+
+    _, chain = arm7()
+    tool = chain.link_index("tool")
+    rng = np.random.default_rng(seed)
+    q = chain.lb + (chain.ub - chain.lb) * (
+        0.25 + 0.5 * rng.uniform(0.0, 1.0, (lanes, chain.n_dof)))
+    R, p = chain.fk(torch.as_tensor(q, dtype=torch.float64))
+    seed_q = q + 0.3 * np.array([1, -1, 1, -1, 1, -1, 1.0])
+    return {"q": q, "target_R": R[:, tool].numpy(),
+            "target_p": p[:, tool].numpy(), "q0": seed_q, "link": tool}
+
+
+def port_cartesian_problem(kind, inp, dtype, device):
+    """(spec, batched data, chain) of a cartesian scene through the port's
+    public term API.  ``kind`` "waypoints" (BASELINE config 2, phase 6a):
+    joint_vel cost (coeffs 1), cart_pose EQ on the tool at the three
+    waypoint steps, cart_vel INEQ on the tool over every gap, step 0
+    fixed; "ik_goal" (phase 6b): joint_vel cost, ik_term EQ on the tool at
+    the last step (target: the goal's pose), step 0 fixed."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch.kinematics.ik import ik_term
+    from trajopt_tpu_torch.models import arm7
+    from trajopt_tpu_torch.problem.trajectory import (TrajProblemBuilder,
+                                                      stack_data)
+    from trajopt_tpu_torch.terms.cartesian import (cart_pose_term,
+                                                   cart_vel_term,
+                                                   default_cart_pose_params)
+    from trajopt_tpu_torch.terms.joint import joint_vel_term
+
+    _, chain = arm7()
+    T, D = inp["init_waypoints"].shape[1], chain.n_dof
+    npdt = np.float64 if dtype == torch.float64 else np.float32
+    b = TrajProblemBuilder(chain, T, device=device)
+    b.add_cost(joint_vel_term("jvel", T, D),
+               {"targets": np.zeros(D, npdt), "coeffs": np.ones(D, npdt)})
+
+    def cnt(i):
+        if kind == "waypoints":
+            out = [{k: np.asarray(v, npdt) for k, v in default_cart_pose_params(
+                inp["waypoint_R"][i, w], inp["waypoint_p"][i, w]).items()}
+                for w in range(3)]
+            return out + [{"max_displacement": np.asarray(
+                inp["max_displacement"], npdt)}]
+        return [{"target_R": np.asarray(inp["waypoint_R"][i, 2], npdt),
+                 "target_p": np.asarray(inp["waypoint_p"][i, 2], npdt),
+                 "coeffs": np.ones(D, npdt)}]
+
+    if kind == "waypoints":
+        for w, s in enumerate(inp["steps"]):
+            b.add_constraint(cart_pose_term(f"pose{w}", chain, T, s, "tool"),
+                             cnt(0)[w])
+        b.add_constraint(cart_vel_term("cart_vel", chain, T, "tool",
+                                       is_constraint=True), cnt(0)[3])
+        init = inp["init_waypoints"]
+    else:
+        b.add_constraint(ik_term("ik_goal", chain, T, T - 1, "tool"),
+                         cnt(0)[0])
+        init = inp["init_ik_goal"]
+    b.fix_timestep(0)
+    datas = []
+    for i in range(init.shape[0]):
+        spec, data = b.build(np.asarray(init[i], npdt))
+        data = data._replace(cnt_params=tuple(
+            {k: torch.as_tensor(v, device=b.device) for k, v in c.items()}
+            for c in cnt(i)))
+        datas.append(data)
+    return spec, stack_data(datas), chain
+
+
+def pose_value_flops(path_kinds, n_offsets, band):
+    """Value arithmetic of one lane's pose error, counted from
+    csrc/pose.cuh: per link of the chain paths after the root, the parent
+    compose (63: 3x3 product 45, point 15, add 3) and its joint (revolute
+    ~112: sin / cos ~30, R_axis 37, product 45; prismatic 21); per offset
+    63; the transform error with its log map ~143; the band 12 and the
+    coefficients 6."""
+    link = {"rev": 63 + 112, "pri": 63 + 21, "fixed": 63}
+    return (sum(link[k] for k in path_kinds) + 63 * n_offsets + 143
+            + (12 if band else 0) + 6)
+
+
+def pose_path_kinds(chain, link):
+    """The joint kinds along a link's chain path after the root."""
+    kinds, l = [], link
+    while chain.parent[l] >= 0:
+        jt = int(chain.jtype[l]) if chain.dof_of_link[l] >= 0 else 0
+        kinds.append({1: "rev", 2: "pri"}.get(jt, "fixed"))
+        l = int(chain.parent[l])
+    return kinds
+
+
+def pose_work(chain, lanes, src, tgt, band, jac, es):
+    """(bytes, flops) of one K9 (jac) or K9v launch: the step's joints,
+    the per-lane parameters and the chain tables read once, E (and J's
+    n_dof columns) written once; the value's arithmetic, and with the
+    Jacobian n_dof dual columns at ~1.5 times the value's each."""
+    nd = chain.n_dof
+    kinds = pose_path_kinds(chain, src) + (
+        pose_path_kinds(chain, tgt) if tgt is not None else [])
+    val = pose_value_flops(kinds, 2 if tgt is not None else 1, band)
+    flops = lanes * val * ((1 + 1.5 * nd) if jac else 1)
+    ins = nd + 9 + 3 + 9 + 3 + 6 + (12 if band else 0)
+    outs = 6 + (6 * nd if jac else 0)
+    nbytes = lanes * es * (ins + outs) + 33 * es * chain.n_links
+    return nbytes, flops
+
+
+def ik_work(chain, link, iters, ne, es):
+    """(bytes, flops) of one K8 launch at the iterations its lanes ran
+    (``iters`` (lanes,)): per iteration the Jacobian (the value and n_dof
+    dual columns), A = J J' + lam^2 I (2 ne^2 n_dof), its elimination
+    (2/3 ne^3 + 2 ne^2), dq and the clamp (2 ne n_dof + 2 n_dof), the
+    error at the new q (a value and its norm); per lane the first error."""
+    nd = chain.n_dof
+    val = pose_value_flops(pose_path_kinds(chain, link), 0, False) + 2 * ne
+    per_it = val * (1 + 1.5 * nd) + 2 * ne * ne * nd \
+        + (2 / 3) * ne ** 3 + 2 * ne * ne + 2 * ne * nd + 2 * nd + val
+    lanes = iters.numel()
+    flops = float(iters.double().sum()) * per_it + lanes * val
+    nbytes = lanes * (es * (9 + 3 + 2 * nd + 1) + 8) + es * (
+        33 * chain.n_links + 2 * nd)
+    return nbytes, flops
+
+
+def pose_attributes():
+    """numRegs / localSizeBytes of K9 (cart_pose.cu, one kernel for K9
+    and K9v) and K8 (solve_ik.cu), float32 and float64."""
+    import ctypes
+
+    from trajopt_tpu_torch import _native
+
+    out = {}
+    for src, sym in (("cart_pose", "cart_pose_attrs"),
+                     ("solve_ik", "solve_ik_attrs")):
+        fn = getattr(_native.library(src), sym)
+        for which, d in ((0, "f32"), (1, "f64")):
+            a = (ctypes.c_int * 4)()
+            _native.check(sym, fn(which, a))
+            out[f"{src}_{d}"] = {"registers": a[0], "local_bytes": a[1],
+                                 "max_threads": a[2], "static_smem": a[3]}
+    return out
+
+
+def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
+    """Phases 2f and 6a-6d (module docstring).  Returns (summary entries
+    of K9, K9v and K8, launches by path of every kernel on 6a and 6b)."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.benchmarks import make_glass_upright_free
+    from trajopt_tpu_torch.kinematics.ik import solve_ik, solve_ik_plain
+    from trajopt_tpu_torch.ops.lie import rpy_to_matrix
+    from trajopt_tpu_torch.solver.sqp import solve_batch
+    from trajopt_tpu_torch.solver.types import CONVERGED, SQPParams
+    from trajopt_tpu_torch.terms.cartesian import (cart_pose_rows,
+                                                   cart_pose_ties)
+
+    def sync():
+        torch.cuda.synchronize()
+
+    T, step = 30, 20
+    attrs = pose_attributes()
+    emit({"phase": "pose_attributes", "attributes": attrs, "card": smi})
+
+    # ---------------- phase 2f: K9 / K9v against the plain version
+    _, data64, chain = make_glass_upright_free(lanes, T, torch.float64,
+                                               device=dev)
+    nd = chain.n_dof
+    tool, l3 = chain.link_index("tool"), chain.link_index("l3")
+    x64 = data64.x0 + torch.as_tensor(np.random.default_rng(12).normal(
+        0.0, 0.05, tuple(data64.x0.shape)), device=dev)
+    Rw, pw = chain.fk(x64.reshape(lanes, T, nd)[:, 25])
+    rpy = torch.tensor([[0.05, -0.05, 0.1], [0.1, 0.2, 0.3]],
+                       dtype=torch.float64)
+    offR = rpy_to_matrix(rpy).to(dev)
+
+    def lanes_of(t):
+        return t.expand((lanes,) + tuple(t.shape)).contiguous()
+
+    common = {"source_off_R": lanes_of(offR[0]),
+              "source_off_p": lanes_of(torch.tensor([0.0, 0.0, 0.1],
+                                                    device=dev,
+                                                    dtype=torch.float64)),
+              "coeffs": lanes_of(torch.tensor([1, 1, 1, 0.5, 0.5, 0.5],
+                                              device=dev,
+                                              dtype=torch.float64))}
+    world = dict(common, target_R=Rw[:, tool], target_p=pw[:, tool])
+    moving = dict(common, target_R=lanes_of(offR[1]),
+                  target_p=lanes_of(torch.tensor([0.1, 0.0, 0.2], device=dev,
+                                                 dtype=torch.float64)))
+    tol = torch.tensor([0.05] * 3 + [0.1] * 3, device=dev,
+                       dtype=torch.float64)
+    band = dict(world, lower_tols=lanes_of(-tol), upper_tols=lanes_of(tol))
+    configs = {"world": (world, None), "moving_target": (moving, l3),
+               "band": (band, None)}
+    k9_recs, k9_err = [], {"cart_pose": [], "cart_pose_value": []}
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        x = x64.to(dt)
+        for label, (p64, tgt) in configs.items():
+            p = {k: v.to(dt) for k, v in p64.items()}
+            Ev = cart_pose_rows(chain, x, p, T, step, tool, tgt)
+            Ek, Jk = cart_pose_rows(chain, x, p, T, step, tool, tgt,
+                                    jac=True)
+            Ep, Jp = cart_pose_rows(chain, x, p, T, step, tool, tgt,
+                                    jac=True, kernels=False)
+            sync()
+            ties = cart_pose_ties(chain, x, p, T, step, tool, tgt)
+            escale = float(Ep.abs().max())
+            jscale = float(Jp.abs().max())
+            untied = ~ties[..., None].expand_as(Jk)
+            dv = float((Ev - Ep).abs().max())
+            de = float((Ek - Ep).abs().max())
+            dj = float((Jk - Jp)[untied].abs().max()) if untied.any() else 0.0
+            rec = {"phase": "pose_kernels", "config": label, "dtype": name,
+                   "rows": int(Ep.numel()),
+                   "E_value_abs_err": dv, "E_abs_err": de,
+                   "E_rel_err": max(dv, de) / escale,
+                   "J_rel_err_untied_rows": dj / jscale,
+                   "J_rel_err_all_rows": float((Jk - Jp).abs().max()) / jscale,
+                   "tie_rows": int(ties.sum()),
+                   "value_bitwise_equal_K9_K9v": bool(torch.equal(Ev, Ek)),
+                   "rows_in_band": int((Ep == 0).sum()) if label == "band"
+                   else None}
+            rec["ok"] = rec["E_rel_err"] <= REL_TOL[name] \
+                and rec["J_rel_err_untied_rows"] <= COLL_TOL[name][1]
+            emit(rec)
+            k9_recs.append(rec)
+            k9_err["cart_pose"].append(max(de, dj))
+            k9_err["cart_pose_value"].append(dv)
+            assert rec["ok"], rec
+    # K8 against the plain loop on phase 6c's queries
+    ik = ik_inputs(lanes)
+    link = ik["link"]
+    tR64, tp64, q064 = (torch.as_tensor(ik[k], device=dev)
+                        for k in ("target_R", "target_p", "q0"))
+    k8_recs = []
+    for dt in (torch.float32, torch.float64):
+        name = str(dt).split(".")[-1]
+        for po in (False, True):
+            tR, tp, q0 = tR64.to(dt), tp64.to(dt), q064.to(dt)
+            kr = solve_ik(chain, link, tR, tp, q0=q0, pos_only=po)
+            pr, tie = solve_ik_plain(chain, link, tR, tp, q0=q0,
+                                     pos_only=po, ties=True)
+            sync()
+            rec = {"phase": "ik_kernel", "dtype": name, "pos_only": po,
+                   **ik_compare(kr, pr, tie, name),
+                   "iters_mean": float(kr.iters.double().mean())}
+            emit(rec)
+            k8_recs.append(rec)
+            assert rec["ok"], rec
+
+    # times (float32): K9 / K9v on the world target, K8 on 6c's queries
+    x = x64.float()
+    pw32 = {k: v.float() for k, v in world.items()}
+    timing = {}
+    for key, jac in (("cart_pose", True), ("cart_pose_value", False)):
+        ms = time_ms(lambda: cart_pose_rows(chain, x, pw32, T, step, tool,
+                                            None, jac=jac))
+        plain = time_ms(lambda: cart_pose_rows(chain, x, pw32, T, step, tool,
+                                               None, jac=jac, kernels=False),
+                        reps=5)
+        nb, fl = pose_work(chain, lanes, tool, None, False, jac, 4)
+        timing[key] = {"ms": ms, "plain_ms": plain,
+                       "bound_ms": 1e3 * max(nb / PEAK_BYTES,
+                                             fl / PEAK_FLOPS["float32"]),
+                       "bound_by": "bytes" if nb / PEAK_BYTES
+                       > fl / PEAK_FLOPS["float32"] else "operations",
+                       "work": {"bytes": nb, "flops": fl}}
+    tR, tp, q0 = tR64.float(), tp64.float(), q064.float()
+    ik_runs = {}
+    for po in (False, True):
+        key = "solve_ik_pos_only" if po else "solve_ik"
+        r = solve_ik(chain, link, tR, tp, q0=q0, pos_only=po)
+        ms = time_ms(lambda: solve_ik(chain, link, tR, tp, q0=q0,
+                                      pos_only=po), reps=20)
+        plain = time_ms(lambda: solve_ik(chain, link, tR, tp, q0=q0,
+                                         pos_only=po, kernels=False), reps=2)
+        nb, fl = ik_work(chain, link, r.iters, 3 if po else 6, 4)
+        ik_runs[key] = r
+        timing[key] = {"ms": ms, "plain_ms": plain,
+                       "bound_ms": 1e3 * max(nb / PEAK_BYTES,
+                                             fl / PEAK_FLOPS["float32"]),
+                       "bound_by": "bytes" if nb / PEAK_BYTES
+                       > fl / PEAK_FLOPS["float32"] else "operations",
+                       "work": {"bytes": nb, "flops": fl}}
+    emit({"phase": "pose_timing", "timing": timing, "card": smi})
+
+    # ---------------- phase 6c: solve_ik alone, 128 lanes, float32
+    for key, r in ik_runs.items():
+        rec = {"phase": "solve_ik", "variant": key, "lanes": lanes,
+               "dtype": "float32", "converged": int(r.converged.sum()),
+               "iters_mean": float(r.iters.double().mean()),
+               "iters_max": int(r.iters.max()),
+               "err_norm_max": float(r.err_norm.max()),
+               "err_norm_median": float(r.err_norm.median()),
+               "finite": bool(torch.isfinite(r.q).all()),
+               "ms": timing[key]["ms"], "limits": CART_LIMITS[key],
+               "card": smi}
+        emit(rec)
+        assert rec["finite"] and rec["converged"] >= \
+            CART_LIMITS[key]["converged"], rec
+
+    # ---------------- phases 6a and 6b: the SQP, 128 lanes x T=30, float32
+    params = SQPParams()
+    inp = cartesian_inputs(lanes, T)
+    by_path = {}
+    for kind, key in (("waypoints", "cartesian_waypoints"),
+                      ("ik_goal", "ik_goal")):
+        spec, data, _ = port_cartesian_problem(kind, inp, torch.float32, dev)
+        t0 = time.perf_counter()
+        res = solve_batch(spec, data, params, device=dev)
+        sync()
+        cold = time.perf_counter() - t0
+        reset_counts()
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = solve_batch(spec, data, params, device=dev)
+            sync()
+            walls.append(time.perf_counter() - t0)
+        launches = dict(_native.LAUNCHES)
+        nqp = qp_calls[0]
+        by_path[key] = launches
+        st = res.status.cpu().numpy()
+        v = res.cnt_viols.max(dim=1).values.cpu().numpy()
+        conv = st == CONVERGED
+        rec = {"phase": key, "batch": lanes, "n_steps": T,
+               "dtype": "float32", "cold_wall_s": cold, "warm_walls_s": walls,
+               "warm_wall_s": float(np.mean(walls)), "runs": 3,
+               "converged": int(conv.sum()),
+               "gated": int((conv & (v < 1e-4)).sum()),
+               "mean_qp_solves": float(res.n_qp_solves.double().mean()),
+               "max_viol": float(v.max()),
+               "finite": bool(torch.isfinite(res.x).all()),
+               "status_counts": np.bincount(st, minlength=5).tolist(),
+               "batched_qp_solves": nqp, "launches": launches,
+               "launches_per_batched_qp_solve": {
+                   k: n / nqp for k, n in launches.items() if n},
+               "limits": CART_LIMITS[key], "card": smi}
+        if kind == "waypoints":
+            rec["max_displacement"] = inp["max_displacement"]
+        emit(rec)
+        assert rec["finite"], rec
+        assert rec["converged"] >= CART_LIMITS[key]["converged"] \
+            and rec["gated"] >= CART_LIMITS[key]["gated"], rec
+        # the dense-row QP: K2 / K3 factor and solve, K6 never
+        assert nqp > 0 and launches["ipm_banded"] == 0 \
+            and launches["btd_factor"] > 0 and launches["btd_solve"] > 0, rec
+        if kind == "waypoints":
+            assert launches["cart_pose"] > 0 \
+                and launches["cart_pose_value"] > 0, rec
+        else:
+            assert launches["solve_ik"] >= nqp, rec
+
+    # ---------------- phase 6d: float64 kernel path against plain path
+    inp8 = cartesian_inputs(8, T)
+    for kind in ("waypoints", "ik_goal"):
+        spec, data, _ = port_cartesian_problem(kind, inp8, torch.float64, dev)
+        rk = solve_batch(spec, data, params, device=dev, kernels=True)
+        rp = solve_batch(spec, data, params, device=dev, kernels=False)
+        u = torch.as_tensor(np.random.default_rng(14).integers(
+            -1, 2, tuple(data.x0.shape)), device=dev).to(torch.float64)
+        ru = solve_batch(spec, data._replace(
+            x0=data.x0 * (1 + u * torch.finfo(torch.float64).eps)), params,
+            device=dev, kernels=False)
+        dx = (rk.x - rp.x).abs().amax(-1)
+        du = (ru.x - rp.x).abs().amax(-1)
+        rec = {"phase": f"f64_{kind}_kernel_vs_plain", "lanes": 8,
+               "status": rk.status.tolist(),
+               "status_plain": rp.status.tolist(),
+               "n_qp": rk.n_qp_solves.tolist(),
+               "n_qp_plain": rp.n_qp_solves.tolist(),
+               "same_status": bool((rk.status == rp.status).all()),
+               "same_n_qp": bool((rk.n_qp_solves == rp.n_qp_solves).all()),
+               "max_abs_dx": float(dx.max()), "dx_per_lane": dx.tolist(),
+               "plain_x0_ulp_dx_per_lane": du.tolist(),
+               "tol": FLAGSHIP_DX_TOL}
+        rec["ok"] = rec["same_status"] and rec["same_n_qp"] \
+            and rec["max_abs_dx"] < FLAGSHIP_DX_TOL \
+            and rec["max_abs_dx"] <= max(float(du.max()), 1e-10)
+        emit(rec)
+        assert rec["ok"], rec
+
+    # the summary's entries
+    k9a, k8a = by_path["cartesian_waypoints"], by_path["ik_goal"]
+    entries = {}
+    for key, src, rep, label in (
+            ("cart_pose", "cart_pose.cu", "trajopt_tpu/terms/cartesian.py:100",
+             "K9"),
+            ("cart_pose_value", "cart_pose.cu",
+             "trajopt_tpu/terms/cartesian.py:96", "K9v"),
+            ("solve_ik", "solve_ik.cu", "trajopt_tpu/kinematics/ik.py:34",
+             "K8")):
+        t = timing[key]
+        if key == "solve_ik":
+            err = max(r["q_abs_err_converged_equal"] for r in k8_recs
+                      if r["dtype"] == "float32")
+            extra = {"max_abs_err_of": "q, float32, lanes converged with "
+                     "equal iteration counts (phase 2f)",
+                     "q_abs_err_equal_iters": {
+                         f"{r['dtype']}_{'pos' if r['pos_only'] else 'full'}":
+                         r["q_abs_err_equal_iters"] for r in k8_recs},
+                     "lanes_apart": {f"{r['dtype']}_{'pos' if r['pos_only'] else 'full'}":
+                                     r["lanes_apart"] for r in k8_recs},
+                     "pos_only": timing["solve_ik_pos_only"],
+                     "launches_are": "phase 6b's three warm runs (ik_term's "
+                     "fn, every convexify and evaluate)",
+                     "library_ms_null_because": "no one PyTorch call runs "
+                     "the damped-least-squares loop",
+                     "attributes": {d: attrs[f"solve_ik_{d}"]
+                                    for d in ("f32", "f64")}}
+            launches = k8a[key]
+        else:
+            err = max(k9_err[key])
+            extra = {"max_abs_err_of": "E (and J on the untied rows), "
+                     "float32 and float64, phase 2f",
+                     "J_tie_rows_excluded": max(r["tie_rows"]
+                                                for r in k9_recs),
+                     "launches_are": "phase 6a's three warm runs",
+                     "library_ms_null_because": "no one PyTorch call computes "
+                     "FK and the pose error",
+                     "attributes": {d: attrs[f"cart_pose_{d}"]
+                                    for d in ("f32", "f64")}}
+            launches = k9a[key]
+        entries[key] = {
+            "name": key, "route": "cuda",
+            "source": f"trajopt_tpu_torch/csrc/{src}", "replaces": rep,
+            "kernel": label, "launches": launches, "ok": True,
+            "max_abs_err": err, **extra, "sources": [
+                f"trajopt_tpu_torch/csrc/{f}" for f in (src, "pose.cuh",
+                                                        "collision.cuh")],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None}
+    return entries, by_path
+
+
+def count_qp_calls(sqp_mod, native):
+    """Count the SQP's batched QP solves (``sqp_mod.solve_ipm_qp`` wrapped):
+    (calls, reset), calls[0] the count since reset(), which also sets every
+    kernel's launch counter to 0."""
+    calls = [0]
+    solve_qp = sqp_mod.solve_ipm_qp
+
+    def counted_qp(*a, **k):
+        calls[0] += 1
+        return solve_qp(*a, **k)
+    sqp_mod.solve_ipm_qp = counted_qp
+
+    def reset():
+        native.reset_launches()
+        calls[0] = 0
+    return calls, reset
+
+
 def max0(t):
     """The largest entry of t, 0 when t is empty (no such rows)."""
     return float(t.max()) if t.numel() else 0.0
@@ -437,6 +1044,14 @@ def main():
     def rel_err(got, ref):
         scale = float(ref.abs().max().clamp(min=1e-30))
         return float((got - ref).abs().max()), float((got - ref).abs().max()) / scale
+
+    if "--cartesian-only" in sys.argv[1:]:
+        # the cartesian slice's phases alone (2f, 6a-6d), for a short
+        # call: their records and kernel entries, and no result line
+        calls, reset0 = count_qp_calls(sqp_mod, _native)
+        entries, _ = cartesian_phases(dev, smi, time_ms, reset0, calls)
+        emit({"kernels": list(entries.values())})
+        return
 
     # ------------------------------------------------------------------
     # phase 2: kernels vs plain versions
@@ -1271,17 +1886,7 @@ def main():
 
     # the SQP's batched QP solves (its calls of solve_ipm_qp), counted from
     # here on beside the launch counters
-    qp_calls = [0]
-    solve_qp = sqp_mod.solve_ipm_qp
-
-    def counted_qp(*a, **k):
-        qp_calls[0] += 1
-        return solve_qp(*a, **k)
-    sqp_mod.solve_ipm_qp = counted_qp
-
-    def reset_counts():
-        _native.reset_launches()
-        qp_calls[0] = 0
+    qp_calls, reset_counts = count_qp_calls(sqp_mod, _native)
 
     def path_ok(launches, n_qp):
         """K6 once per batched QP solve; K1-K3 never."""
@@ -1841,6 +2446,13 @@ def main():
                    data9._replace(x0=data9.x0 + noise9))
 
     # ------------------------------------------------------------------
+    # phases 2f and 6a-6d: the cartesian slice (K9 / K9v, K8; the
+    # dense-row QP's K2 / K3)
+    # ------------------------------------------------------------------
+    cart_entries, cart_paths = cartesian_phases(dev, smi, time_ms,
+                                                reset_counts, qp_calls)
+
+    # ------------------------------------------------------------------
     # summary (launches: the full flagship's run, phase 3b, for K1-K6; the
     # pick-and-place run, phase 3c, for the CONVEX routes; every path's
     # counts in launches_by_path; K1-K3 run on no path, their math inside
@@ -2011,19 +2623,26 @@ def main():
         attributes={d: ipm_attrs[f"{d}_b9"] for d in ("f32", "f64")})}
     errs["ipm_banded"]["batched_qp_solves_by_path"]["benchmarks"] = sum(
         bench_qp.values())
+    def by_path(name):
+        return {"benchmarks": launches_b[name],
+                "free_slice": launches_s[name],
+                "flagship": launches_f[name],
+                "pick_and_place": launches_p[name],
+                "cartesian_waypoints": cart_paths["cartesian_waypoints"][name],
+                "ik_goal": cart_paths["ik_goal"][name]}
+
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],
-         "launches_by_path": {"benchmarks": launches_b[name],
-                              "free_slice": launches_s[name],
-                              "flagship": launches_f[name],
-                              "pick_and_place": launches_p[name]},
+         "launches_by_path": by_path(name),
          "ok": True, **errs[name],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"]}
-        for name in replaces]})
+        for name in replaces] + [
+        dict(entry, launches_by_path=by_path(name))
+        for name, entry in cart_entries.items()]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": card,
                                  "count": torch.cuda.device_count()}})
 

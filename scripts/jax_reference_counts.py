@@ -9,6 +9,12 @@ chip_smoke phase on the same entries are these counts less 5.
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_counts.py \\
         [--batch 128] [--names planning redundant_rail] [--out FILE]
 
+``--names cartesian_waypoints ik_goal solve_ik`` counts chip_smoke's
+cartesian phases instead (6a, 6b: converged and gated at T=30, ``SQPParams()``;
+6c: converged, plain and ``pos_only``), from the same numpy inputs
+(``chip_smoke.cartesian_inputs`` / ``ik_inputs``, seed 0) built into the
+JAX package's terms by :func:`jax_cartesian_problem`.
+
 Each entry runs in a child process of its own (XLA:CPU compiles are
 large; a fresh process per program, as the repo's test orchestrator
 does).  Prints one JSON line per entry.
@@ -23,7 +29,112 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+CARTESIAN = ("cartesian_waypoints", "ik_goal", "solve_ik")
+
+
+def jax_cartesian_problem(kind, inp, dtype):
+    """(spec, batched data, chain) of chip_smoke's cartesian scene ``kind``
+    ("waypoints" or "ik_goal") through the JAX package's public term API,
+    from ``chip_smoke.cartesian_inputs``' numpy inputs: the scene of
+    ``chip_smoke.port_cartesian_problem``, term for term."""
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from trajopt_tpu.kinematics.ik import ik_term
+    from trajopt_tpu.models import arm7
+    from trajopt_tpu.problem.trajectory import TrajProblemBuilder, stack_data
+    from trajopt_tpu.terms.cartesian import (cart_pose_term, cart_vel_term,
+                                             default_cart_pose_params)
+    from trajopt_tpu.terms.joint import joint_vel_term
+
+    _, chain = arm7()
+    T, D = inp["init_waypoints"].shape[1], chain.n_dof
+    npdt = np.dtype(dtype)
+    b = TrajProblemBuilder(chain, T)
+    b.add_cost(joint_vel_term("jvel", T, D),
+               {"targets": np.zeros(D, npdt), "coeffs": np.ones(D, npdt)})
+
+    def cnt(i):
+        if kind == "waypoints":
+            out = [{k: np.asarray(v, npdt) for k, v in default_cart_pose_params(
+                inp["waypoint_R"][i, w], inp["waypoint_p"][i, w]).items()}
+                for w in range(3)]
+            return out + [{"max_displacement": np.asarray(
+                inp["max_displacement"], npdt)}]
+        return [{"target_R": np.asarray(inp["waypoint_R"][i, 2], npdt),
+                 "target_p": np.asarray(inp["waypoint_p"][i, 2], npdt),
+                 "coeffs": np.ones(D, npdt)}]
+
+    if kind == "waypoints":
+        for w, s in enumerate(inp["steps"]):
+            b.add_constraint(cart_pose_term(f"pose{w}", chain, T, s, "tool"),
+                             cnt(0)[w])
+        b.add_constraint(cart_vel_term("cart_vel", chain, T, "tool",
+                                       is_constraint=True), cnt(0)[3])
+        init = inp["init_waypoints"]
+    else:
+        b.add_constraint(ik_term("ik_goal", chain, T, T - 1, "tool"),
+                         cnt(0)[0])
+        init = inp["init_ik_goal"]
+    b.fix_timestep(0)
+    datas = []
+    for i in range(init.shape[0]):
+        spec, data = b.build(np.asarray(init[i], npdt))
+        datas.append(data._replace(cnt_params=tuple(cnt(i))))
+    return spec, stack_data(datas), chain
+
+
+def one_cartesian(name, batch):
+    """chip_smoke phase 6a / 6b / 6c's counts in float32 (JAX's default)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import cartesian_inputs, ik_inputs
+    from trajopt_tpu.kinematics.ik import solve_ik
+    from trajopt_tpu.models import arm7
+    from trajopt_tpu.solver.sqp import _solve
+    from trajopt_tpu.solver.types import CONVERGED, SQPParams
+
+    rec = {"name": name, "batch": batch, "dtype": "float32"}
+    if name == "solve_ik":
+        _, chain = arm7()
+        inp = ik_inputs(batch)
+        args = [jnp.asarray(inp[k], jnp.float32)
+                for k in ("target_R", "target_p", "q0")]
+        for po in (False, True):
+            res = jax.jit(jax.vmap(lambda R, p, q0: solve_ik(
+                chain, inp["link"], R, p, q0=q0, pos_only=po)))(*args)
+            it = np.asarray(res.iters)
+            rec["pos_only" if po else "full"] = {
+                "converged": int(np.asarray(res.converged).sum()),
+                "mean_iters": float(it.mean()), "max_iters": int(it.max()),
+                "max_err_norm": float(np.asarray(res.err_norm).max())}
+        return rec
+    inp = cartesian_inputs(batch)
+    spec, data, chain = jax_cartesian_problem(
+        "waypoints" if name == "cartesian_waypoints" else "ik_goal", inp,
+        np.float32)
+    res = jax.jit(jax.vmap(lambda d: _solve(spec, SQPParams(), d)))(data)
+    jax.block_until_ready(res)
+    status = np.asarray(res.status)
+    viol = np.asarray(res.cnt_viols).max(axis=1)
+    conv = status == CONVERGED
+    rec.update(converged=int(conv.sum()),
+               gated=int((conv & (viol < 1e-4)).sum()),
+               mean_qp_solves=float(np.asarray(res.n_qp_solves).mean()),
+               finite=bool(np.isfinite(np.asarray(res.x)).all()),
+               status_counts={int(k): int(v) for k, v in
+                              zip(*np.unique(status, return_counts=True))})
+    return rec
+
+
 def one(name, batch):
+    if name in CARTESIAN:
+        return one_cartesian(name, batch)
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
-    python3 scripts/torch_profile_slice.py [--scene free|full|pnp]
+    python3 scripts/torch_profile_slice.py [--scene free|full|pnp|
+                                            cartesian|ik_goal]
                                            [--batch 128] [--steps T]
 
 Runs a scene through ``solve_batch_compact`` (float32, ``bench_params()``,
@@ -10,7 +11,12 @@ Runs a scene through ``solve_batch_compact`` (float32, ``bench_params()``,
 (cast collision, n_sub=2), both at T=30 by default; ``--scene pnp`` is
 pick-and-place at T=12 by default, its two chained problems measured one
 after the other (the approach from ``make_pick_and_place``, then the
-transfer from ``chain_transfer`` of the approach's solution).  For each
+transfer from ``chain_transfer`` of the approach's solution);
+``--scene cartesian`` and ``--scene ik_goal`` are chip_smoke's phases 6a
+and 6b (``chip_smoke.cartesian_inputs`` built by
+``port_cartesian_problem``, T=30), run as chip_smoke runs them, through
+``solve_batch`` with ``SQPParams()``, their pose kernels K9 / K9v and K8
+in ranges of their own.  For each
 problem: one warm-up run, one run timed without the profiler (with the
 wall of each compaction phase), then one run under ``torch.profiler`` with
 each layer of the path wrapped in a ``record_function`` range (convexify,
@@ -48,8 +54,8 @@ def _dev_time(evt, self_only=False):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--scene", choices=("free", "full", "pnp"),
-                    default="free")
+    ap.add_argument("--scene", choices=("free", "full", "pnp", "cartesian",
+                                        "ik_goal"), default="free")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args()
@@ -81,6 +87,16 @@ def main():
             args.batch, steps, -1)[:, -1].cpu().numpy())
         measure(spec, data, params, dev, smi, args, steps, "transfer")
         return
+    if args.scene in ("cartesian", "ik_goal"):
+        from chip_smoke import cartesian_inputs, port_cartesian_problem
+        from trajopt_tpu_torch.solver.types import SQPParams
+
+        spec, data, _ = port_cartesian_problem(
+            "waypoints" if args.scene == "cartesian" else "ik_goal",
+            cartesian_inputs(args.batch, steps), torch.float32, dev)
+        measure(spec, data, SQPParams(), dev, smi, args, steps, None,
+                compact=False)
+        return
     make = make_glass_upright if args.scene == "full" \
         else make_glass_upright_free
     spec, data = make(args.batch, n_steps=steps, dtype=torch.float32,
@@ -88,15 +104,19 @@ def main():
     measure(spec, data, params, dev, smi, args, steps, None)
 
 
-def measure(spec, data, params, dev, smi, args, steps, problem):
-    """Warm-up, unprofiled and profiled runs of one problem; prints its
-    JSON line and returns the unprofiled run's result."""
+def measure(spec, data, params, dev, smi, args, steps, problem,
+            compact=True):
+    """Warm-up, unprofiled and profiled runs of one problem (through
+    ``solve_batch_compact``, or ``solve_batch`` without ``compact``); prints
+    its JSON line and returns the unprofiled run's result."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.kinematics import ik
     from trajopt_tpu_torch.ops import ipm_qp
     from trajopt_tpu_torch.solver import sqp
+    from trajopt_tpu_torch.terms import cartesian
     from trajopt_tpu_torch.terms.collision import CastDistancePre
 
     # the SQP's batched QP solves: each call's per-lane IPM iterations
@@ -112,8 +132,11 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
     sqp.solve_ipm_qp = counted_qp
 
     def run():
-        res = sqp.solve_batch_compact(spec, data, params, phase_qp_solves=8,
-                                      device=dev)
+        if compact:
+            res = sqp.solve_batch_compact(spec, data, params,
+                                          phase_qp_solves=8, device=dev)
+        else:
+            res = sqp.solve_batch(spec, data, params, device=dev)
         torch.cuda.synchronize()
         return res
 
@@ -156,6 +179,8 @@ def measure(spec, data, params, dev, smi, args, steps, problem):
         (ipm_qp, "ipm_banded_cuda"): "K:ipm_banded",
         (CastDistancePre, "value_jac"): "K:cast_seg",
         (CastDistancePre, "value"): "K:cast_seg_value",
+        (cartesian, "cart_pose_rows"): "K:cart_pose",
+        (ik, "solve_ik"): "K:solve_ik",
     }
     saved = {}
     for (mod, name), label in layers.items():

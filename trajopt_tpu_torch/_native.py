@@ -11,7 +11,8 @@ launches its kernel, and nowhere else.  A source's library is named by a
 hash of the source, the headers of ``csrc/`` and its flags.
 
 ``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' and
-K7's block code) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
+K7's block code), ``csrc/pose_host.cpp`` (K9 cart_pose's and K8
+solve_ik's) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
 three sources: ``ipm_banded`` float32, ``ipm_banded64`` float64 and
 ``ipm_timer`` float32 with the phase timer) for the CPU with the host's
 C++ compiler, for checking that code against the plain PyTorch version
@@ -40,6 +41,9 @@ _CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _P, _P]
 _ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 _DISC = [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_POSE = [_P, _P, _P, _L, _I, _I, _I, _I] + [_P] * 9 + [_L, _I, _I, _P]
+_IK = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P, _P, _P, _P,
+       _I, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -60,6 +64,12 @@ _SIGNATURES = {
     # K7 / K7v: the discrete terms' distances per (lane, step)
     "disc_dist": [(f"{k}_{s}", _DISC) for k in ("disc_dist", "disc_dist_value")
                   for s in ("f32", "f64")] + [("disc_dist_attrs", [_I, _P])],
+    # K9 / K9v: a cart_pose term's error rows (and Jacobian) per lane
+    "cart_pose": [(f"cart_pose_{s}", _POSE) for s in ("f32", "f64")]
+    + [("cart_pose_attrs", [_I, _P])],
+    # K8: damped-least-squares IK, a lane's loop per warp
+    "solve_ik": [(f"solve_ik_{s}", _IK) for s in ("f32", "f64")]
+    + [("solve_ik_attrs", [_I, _P])],
     # K6: float32, float64, and float32 with the phase timer
     "ipm_banded": [("ipm_banded_f32", [_P, _P]),
                    ("ipm_banded_attrs", [_I, _P])],
@@ -73,7 +83,8 @@ SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # so that their argmin decisions agree wherever there is no tie; so does
 # K6 ipm_banded, whose float64 iterates are held to the plain loop's
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
-                "disc_dist": ["-fmad=false"],
+                "disc_dist": ["-fmad=false"], "cart_pose": ["-fmad=false"],
+                "solve_ik": ["-fmad=false"],
                 "ipm_banded": ["-fmad=false"], "ipm_banded64": ["-fmad=false"],
                 "ipm_timer": ["-fmad=false"]}
 
@@ -83,12 +94,14 @@ _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
 # of K4, K4v and K5 that ran that CONVEX route (the generic feature
 # enumeration, Frank-Wolfe max separation); ``cast_seg_nd9`` the launches
 # of K4 at n_dof 9 (counted in ``cast_seg`` too), ``ipm_banded_b9`` those
-# of K6 at block size 9 (counted in ``ipm_banded`` too)
+# of K6 at block size 9 (counted in ``ipm_banded`` too); ``cart_pose`` and
+# ``cart_pose_value`` count K9 and K9v (one source), ``solve_ik`` K8
 LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
                           "cast_seg_value", "cast_sweep", "convex_feature",
                           "convex_fw", "convex_route", "ipm_banded",
                           "disc_dist", "disc_dist_value", "cast_seg_nd9",
-                          "ipm_banded_b9"], 0)
+                          "ipm_banded_b9", "cart_pose", "cart_pose_value",
+                          "solve_ik"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -120,6 +133,9 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                                                   "disc_dist")
                                    for sig in _SIGNATURES[src]
                                    if not sig[0].endswith("_attrs")],
+                    "pose_host": [sig for src in ("cart_pose", "solve_ik")
+                                  for sig in _SIGNATURES[src]
+                                  if not sig[0].endswith("_attrs")],
                     "ipm_host": [sig for src in ("ipm_banded", "ipm_banded64")
                                  for sig in _SIGNATURES[src]
                                  if not sig[0].endswith("_attrs")]}
@@ -219,6 +235,7 @@ def check(name: str, code: int) -> None:
                          "the shared-memory limit; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
-                         "on the host; disc_dist's of 32-128 threads)")
+                         "on the host; disc_dist's of 32-128 threads; solve_ik at "
+                         "most 9 dofs)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

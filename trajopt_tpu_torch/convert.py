@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import resolve_device
 from .collision.world import CollisionWorld, GeomSpec, _make_world
 from .kinematics.chain import Chain
 from .solver.types import ProblemData
@@ -27,10 +28,12 @@ def _tensors(tree, device, dtype):
     return tree_map(leaf, tree)
 
 
-def problem_data_from_numpy(tree, device="cpu",
+def problem_data_from_numpy(tree, device="cuda",
                             dtype=torch.float64) -> ProblemData:
     """A (batched) JAX ``ProblemData`` with numpy leaves -> the port's
-    ``ProblemData`` on ``device``, floating leaves cast to ``dtype``."""
+    ``ProblemData`` on ``device`` (the card unless ``device="cpu"``),
+    floating leaves cast to ``dtype``."""
+    device = resolve_device(device)
     return ProblemData(
         x0=_tensors(tree.x0, device, dtype),
         lb=_tensors(tree.lb, device, dtype),

@@ -83,6 +83,40 @@ class Chain:
             self._consts[key] = c
         return c
 
+    def kernel_tables(self, dtype, device):
+        """(ints (int32), reals (dtype)) device tensors describing the
+        chain for the pose kernels K8 / K9 (layout in ``csrc/pose.cuh``):
+        per link its parent, joint type, dof and chain path from the root,
+        and its 33 reals (off_R, off_p, axis, K, K^2)."""
+        key = ("tables", dtype, str(device))
+        t = self._consts.get(key)
+        if t is None:
+            L = self.n_links
+            ints = [L, self.n_dof] + [0] * (4 * L)
+            for l in range(L):
+                path, a = [], l
+                while a >= 0:
+                    path.append(a)
+                    a = int(self.parent[a])
+                ints[2 + 4 * l:6 + 4 * l] = [int(self.parent[l]),
+                                             int(self.jtype[l]),
+                                             int(self.dof_of_link[l]),
+                                             len(ints)]
+                ints += [len(path)] + path[::-1]
+            reals = []
+            for l in range(L):
+                ax = self.axis[l] / max(np.linalg.norm(self.axis[l]), 1e-12)
+                K = np.array([[0.0, -ax[2], ax[1]], [ax[2], 0.0, -ax[0]],
+                              [-ax[1], ax[0], 0.0]])
+                reals += list(self.off_R[l].reshape(-1)) \
+                    + list(self.off_p[l]) + list(self.axis[l]) \
+                    + list(K.reshape(-1)) + list((K @ K).reshape(-1))
+            t = (torch.as_tensor(ints, dtype=torch.int32, device=device),
+                 torch.as_tensor(reals, dtype=torch.float64,
+                                 device=device).to(dtype))
+            self._consts[key] = t
+        return t
+
     # ---------------- forward kinematics ----------------
 
     def fk(self, q: torch.Tensor):

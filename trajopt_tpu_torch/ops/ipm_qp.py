@@ -420,7 +420,8 @@ def _loop_plain(su: _Setup, kernels: bool = False) -> _St:
                                 kernels=kernels)
 
             def kkt_solve(r):
-                return btd_solve(LD, LM, r.reshape(lanes, nb, bsz),
+                return btd_solve(LD, LM,
+                                 r.reshape(lanes, nb, bsz).contiguous(),
                                  kernels=kernels).reshape(lanes, n)
 
             return kkt_solve

@@ -11,6 +11,9 @@ return ``(B, n_rows)`` error rows.  Kinds and their exact values:
 - ``GENERIC``   scalar cost (not ported yet)
 - ``EQ``        constraint rows err_i = 0;   violation = sum_i |err_i|
 - ``INEQ``      constraint rows err_i <= 0;  violation = sum_i max(0, err_i)
+
+A term without ``jac_fn`` is linearized by autodiff, as in the JAX
+package: ``torch.func.jacfwd`` over x under ``torch.func.vmap`` over lanes.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import enum
 from typing import Any, Callable, Optional
 
 import torch
+
+from ..utils.lanes import tree_map
 
 
 class TermKind(enum.IntEnum):
@@ -77,11 +82,19 @@ class Term:
         return e.reshape(x.shape[0], self.n_rows)
 
     def jac(self, x: torch.Tensor, params: Any, aux: Any = None) -> torch.Tensor:
-        """Linearization (B, n_rows, n_x)."""
+        """Linearization (B, n_rows, n_x): ``jac_fn``, else forward-mode
+        autodiff of ``err`` per lane (as the JAX package, without ``aux``)."""
         if self.jac_fn is None:
-            raise NotImplementedError(
-                f"{self.name}: autodiff linearization is not ported; "
-                "give the term a jac_fn")
+            def lane(a, keep):
+                return a if keep is None else a[None]
+
+            dims = tree_map(lambda a: 0 if torch.is_tensor(a) else None,
+                            params)
+
+            def one(xx, pp):
+                return self.err(xx[None], tree_map(lane, pp, dims))[0]
+            return torch.func.vmap(torch.func.jacfwd(one),
+                                   in_dims=(0, dims))(x, params)
         j = self.jac_fn(x, params) if self.pre_fn is None \
             else self.jac_fn(x, params, aux)
         return j.reshape(x.shape[0], self.n_rows, x.shape[1])
@@ -126,16 +139,40 @@ class Term:
         return torch.sum(v.reshape(x.shape[0], self.viol_groups, -1), dim=-1)
 
 
+class KernelChoice:
+    """A ``pre_fn`` that precomputes nothing: it hands the SQP's
+    ``kernels`` choice to a term whose own functions launch a kernel
+    (``cart_pose_term``: K9, ``ik_term``: K8).  ``fn`` receives it as
+    ``aux`` (``None`` from a direct caller: the kernel on a CUDA tensor),
+    ``jac_fn`` as ``aux[1]``."""
+
+    def value(self, x, kernels: bool = True):
+        return kernels
+
+    def value_jac(self, x, kernels: bool = True):
+        return kernels, kernels
+
+
+def kernels_of(aux) -> bool:
+    """The ``kernels`` choice a :class:`KernelChoice` handed a term's
+    function (``aux``: None, a bool, or value_jac's pair)."""
+    if aux is None:
+        return True
+    return bool(aux[1]) if isinstance(aux, tuple) else bool(aux)
+
+
 def squared_cost(name, n_rows, fn, weight_fn=None, jac_fn=None,
-                 step_coupling=None, jac_banded_fn=None) -> Term:
+                 step_coupling=None, jac_banded_fn=None, pre_fn=None) -> Term:
     return Term(name, TermKind.SQUARED, n_rows, fn, weight_fn, jac_fn,
-                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn)
+                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn,
+                pre_fn=pre_fn)
 
 
 def abs_cost(name, n_rows, fn, weight_fn=None, jac_fn=None,
-             step_coupling=None, jac_banded_fn=None) -> Term:
+             step_coupling=None, jac_banded_fn=None, pre_fn=None) -> Term:
     return Term(name, TermKind.ABS, n_rows, fn, weight_fn, jac_fn,
-                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn)
+                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn,
+                pre_fn=pre_fn)
 
 
 def hinge_cost(name, n_rows, fn, weight_fn=None, jac_fn=None,
@@ -151,9 +188,10 @@ def generic_cost(name, fn) -> Term:
 
 
 def eq_constraint(name, n_rows, fn, jac_fn=None, viol_groups=1,
-                  step_coupling=None, jac_banded_fn=None) -> Term:
+                  step_coupling=None, jac_banded_fn=None, pre_fn=None) -> Term:
     return Term(name, TermKind.EQ, n_rows, fn, None, jac_fn, viol_groups,
-                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn)
+                step_coupling=step_coupling, jac_banded_fn=jac_banded_fn,
+                pre_fn=pre_fn)
 
 
 def ineq_constraint(name, n_rows, fn, jac_fn=None, viol_groups=1,
