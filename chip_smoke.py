@@ -113,12 +113,16 @@ Every line printed is one JSON object.  Phases, in order:
    20 of the flagship's initial trajectories plus seeded noise (a world
    target, a moving target link, a tolerance band), values on every row,
    Jacobians on the rows off the log map's and the band's switches
-   (``terms.cartesian.cart_pose_ties``, counted); K8 solve_ik on phase
-   6c's queries (plain and ``pos_only``): equal iteration counts and
-   convergence except on lanes with a near-tie decision (counted), q
-   within ``IK_Q_TOL`` on the lanes with equal counts; then their times,
-   their plain versions' and their bounds, and their registers and local
-   memory;
+   (``cart_pose_ties``, counted); K8 solve_ik on phase 6c's queries
+   (plain and ``pos_only``) against the plain loop
+   (``solve_ik_plain_ties``): equal iteration counts and convergence
+   except on lanes with a near-tie decision (counted), and on the lanes
+   with equal counts q and the error norms within ``IK_Q_TOL`` /
+   ``IK_ERR_CONV_TOL`` where both converged and ``IK_Q_STUCK_TOL`` /
+   ``IK_ERR_TOL`` where both ran to the iteration limit (``ik_compare``);
+   then their times (the bare launch on the device clock, ``device_ms``,
+   and the whole wrapper), their plain versions' and their bounds, and
+   their registers and local memory;
 6a. cartesian waypoints (BASELINE config 2): arm7, 128 lanes x T=30,
    float32, ``cartesian_inputs`` (seed 0) built by
    ``port_cartesian_problem("waypoints")`` (cart_pose EQ at three waypoint
@@ -139,10 +143,6 @@ Every line printed is one JSON object.  Phases, in order:
    one-ulp move;
 7. the kernel summary line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
-
-``python3 chip_smoke.py --cartesian-only`` runs the setup and phases 2f
-and 6a-6d alone and prints their kernel entries, without the last line
-(a short call for the pose kernels).
 
 Any failure raises and the script exits non-zero.  It exits non-zero with
 no result when CUDA is not available.
@@ -384,21 +384,36 @@ def k6_work(qp, b, iters, es):
 # cart_pose / K9v cart_pose_value and K8 solve_ik against their plain
 # versions.  Values within REL_TOL of the largest |E|; Jacobians within
 # COLL_TOL's Jacobian tolerance of the largest |J| on the rows whose
-# decisions (the log map's pivot, hemisphere and Taylor switch, the band's
-# edges) are not within terms.cartesian.TIE_ULPS ulps (cart_pose_ties),
-# the others counted.  K8 (ik_compare): equal iteration counts and
-# convergence except on lanes where an accept or stop decision was within
-# kinematics.ik.TIE_ULPS ulps of a pose's scale (counted); on the lanes
-# whose counts are equal the final error norms within IK_ERR_TOL of each
-# other (relative, or tol absolute) and q within IK_Q_TOL where both
-# converged.  In float32 the 7-DoF arm's converged q is unique only up to
-# its null-space direction (a 6-D pose), along which the damped steps'
-# rounding drifts: 2.7e-3 rad on the host build's 128 lanes.  A lane that
-# runs to the iteration limit without converging wanders (its lam
-# doubling and halving on near-equal errors) at an equal error: its q is
-# reported, not held (float32 4.3e-2 on the host build, float64 1.05e-8
-# on the H100)
-IK_Q_TOL = {"float32": 1e-2, "float64": 1e-8}
+# decisions (the log map's pivot, hemisphere, clip and Taylor switch, the
+# band's edges) are not within POSE_TIE_ULPS ulps of a unit scale
+# (cart_pose_ties), the others counted: two roundings may take either
+# side there (the value is continuous, its tangent is not).
+POSE_TIE_ULPS = 64
+# K8 (ik_compare): equal iteration counts and convergence except on lanes
+# where an accept (err_new < err) or stop (err > tol) decision had sides
+# within IK_TIE_ULPS ulps of the larger side or of 1 (a pose's scale,
+# metres and radians: the pose error's rounding is absolute, ~an ulp of
+# the poses it subtracts), counted by solve_ik_plain_ties.  On the lanes
+# whose counts are equal:
+# - both converged: q within IK_Q_TOL (in float32 the 7-DoF arm's
+#   converged q is unique only up to its null-space direction, a 6-D
+#   pose, along which the damped steps' rounding drifts) and the error
+#   norms, both at most tol, within IK_ERR_CONV_TOL of each other (in
+#   float32 they sit at the pose error's rounding floor, a few ulps of 1);
+# - both ran to the iteration limit without converging (stuck: lam
+#   doubling and halving on near-equal errors, q often at a joint bound):
+#   q within IK_Q_STUCK_TOL and the error norms within IK_ERR_TOL of the
+#   plain one's, relative.
+# Each limit is set from this phase's readings on an H100 (the worst lane
+# of the plain and pos_only runs; PERF.md section 6), float32 / float64:
+#   q converged     1.57e-3 / 2.46e-12
+#   err converged   2.77e-7 / 6.71e-16
+#   q stuck         3.85e-2 / 1.05e-8
+#   err stuck, rel  1.12e-2 / 1.08e-10
+IK_TIE_ULPS = 4
+IK_Q_TOL = {"float32": 1e-2, "float64": 1e-10}
+IK_ERR_CONV_TOL = {"float32": 6e-7, "float64": 1e-13}
+IK_Q_STUCK_TOL = {"float32": 2e-1, "float64": 1e-6}
 IK_ERR_TOL = {"float32": 5e-2, "float64": 1e-8}
 # phases 6a-6c at 128 lanes, float32: the JAX package's own counts on the
 # CPU (scripts/jax_reference_counts.py --cartesian, seed 0) less 5
@@ -409,31 +424,121 @@ CART_LIMITS = {"cartesian_waypoints": {"converged": 123, "gated": 123},
                "solve_ik_pos_only": {"converged": 123}}
 
 
-def ik_compare(kr, pr, tie, name, tol=1e-6):
+def rot_log_margins(R):
+    """How far each decision of ``lie.rot_log(R)`` is from switching, each
+    (...,): the gap between its two largest pivots (the candidate), |w|
+    (the hemisphere), 1 - |w| (the clip to [-1, 1], whose tangent splits at
+    a tie) and |vn - 1e-8| (the Taylor switch)."""
+    import torch
+
+    from trajopt_tpu_torch.ops.lie import _quaternion
+
+    m00, m11, m22 = R[..., 0, 0], R[..., 1, 1], R[..., 2, 2]
+    pivots = torch.stack([m00 + m11 + m22, m00 - m11 - m22,
+                          -m00 + m11 - m22, -m00 - m11 + m22], -1)
+    top = torch.topk(pivots, 2, dim=-1).values
+    q = _quaternion(R)
+    w = q[..., 0].abs()
+    vn = torch.linalg.norm(q[..., 1:], dim=-1)
+    return top[..., 0] - top[..., 1], w, 1.0 - w, (vn - 1e-8).abs()
+
+
+def cart_pose_ties(chain, x, p, n_steps, step, src, tgt=None, n_cols=None):
+    """(B, 6) bool: the rows of ``cart_pose_rows`` whose Jacobian sits at
+    a decision within POSE_TIE_ULPS ulps (of a unit scale) of switching, in
+    x's dtype: the log map's decisions (``rot_log_margins``) flag the three
+    rotation rows; each band edge its own row."""
+    import torch
+
+    from trajopt_tpu_torch.ops.lie import transform_error
+    from trajopt_tpu_torch.terms.cartesian import _poses
+    from trajopt_tpu_torch.utils.lanes import lane_broadcast
+
+    nc = n_cols or chain.n_dof
+    B = x.shape[0]
+    q = x.reshape(B, n_steps, nc)[:, step, :chain.n_dof]
+    Rt, pt, Rs, ps = _poses(chain, q, p, src, tgt)
+    k = POSE_TIE_ULPS * torch.finfo(x.dtype).eps
+    dR = torch.einsum("...ji,...jk->...ik", Rt, Rs)
+    rot = torch.stack(rot_log_margins(dR), -1).le(k).any(-1)
+    ties = torch.zeros((B, 6), dtype=torch.bool, device=x.device)
+    ties[:, 3:] = rot[:, None]
+    if "lower_tols" in p and "upper_tols" in p:
+        err = transform_error(Rt, pt, Rs, ps)
+        for key in ("lower_tols", "upper_tols"):
+            edge = lane_broadcast(p[key].to(x.dtype), (6,))
+            ties |= (err - edge).abs() <= k * torch.clamp(edge.abs(), min=1.0)
+    return ties
+
+
+def solve_ik_plain_ties(chain, link, target_R, target_p, q0, pos_only,
+                        max_iters=60, tol=1e-6, damping=1e-3):
+    """``kinematics.ik.solve_ik_plain``'s loop, step for step (its start,
+    step and accept), noting per lane whether any of its decisions
+    (``err_new < err``, ``err > tol``) had sides within IK_TIE_ULPS ulps
+    (of the larger side or of 1): (IKResult, ties (B,) bool)."""
+    import torch
+
+    from trajopt_tpu_torch.kinematics import ik
+    from trajopt_tpu_torch.utils.lanes import lane_select
+
+    q, err, lam, step = ik._plain_start(chain, link, target_R, target_p,
+                                        damping, pos_only, q0)
+    eps = torch.finfo(err.dtype).eps
+    tol_t = torch.full((), tol, dtype=err.dtype, device=err.device)
+
+    def near(a, b):
+        scale = torch.clamp(torch.maximum(a.abs(), b.abs()), min=1.0)
+        return (a - b).abs() <= IK_TIE_ULPS * eps * scale
+
+    it = torch.zeros(err.shape, dtype=torch.int32, device=err.device)
+    act = (it < max_iters) & (err > tol)
+    tie = near(err, tol_t)
+    while bool(act.any()):
+        q_new, err_new = step(q, lam)
+        new = ik._plain_accept(q, lam, it, err, q_new, err_new)
+        tie = tie | (act & (near(err_new, err) | near(new[3], tol_t)))
+        q, lam, it, err = [lane_select(act, a, b)
+                           for a, b in zip(new, (q, lam, it, err))]
+        act = (it < max_iters) & (err > tol)
+    return ik.IKResult(q=q, err_norm=err, converged=err <= tol,
+                       iters=it), tie
+
+
+def ik_compare(kr, pr, tie, name):
     """K8's result ``kr`` against the plain loop's ``pr`` (with its near-tie
     lanes ``tie``) by the rule above: a record with "ok"."""
     same_it = kr.iters == pr.iters
     same = same_it & (kr.converged == pr.converged)
-    q_lanes = same_it & kr.converged & pr.converged
+    conv = same_it & kr.converged & pr.converged
+    stuck = same_it & ~kr.converged & ~pr.converged
     dq = (kr.q - pr.q).abs().amax(-1)
     de = (kr.err_norm - pr.err_norm).abs()
-    de_ok = de <= IK_ERR_TOL[name] * pr.err_norm.abs() + tol
+    de_rel = de / pr.err_norm.abs()
+
+    def worst(v, lanes):
+        return float(v[lanes].max()) if lanes.any() else 0.0
+
     rec = {"lanes": int(kr.iters.numel()),
            "converged": int(kr.converged.sum()),
            "converged_plain": int(pr.converged.sum()),
            "lanes_apart": int((~same).sum()),
            "lanes_near_tie": int(tie.sum()),
            "apart_and_not_tied": int((~same & ~tie).sum()),
-           "q_abs_err_converged_equal": float(dq[q_lanes].max())
-           if q_lanes.any() else 0.0,
-           "q_abs_err_equal_iters": float(dq[same_it].max())
-           if same_it.any() else 0.0,
-           "err_norm_abs_err_equal_iters": float(de[same_it].max())
-           if same_it.any() else 0.0,
-           "q_tol": IK_Q_TOL[name], "err_tol": IK_ERR_TOL[name]}
+           "lanes_converged_equal": int(conv.sum()),
+           "lanes_stuck_equal": int(stuck.sum()),
+           "q_abs_err_converged_equal": worst(dq, conv),
+           "err_norm_abs_err_converged_equal": worst(de, conv),
+           "q_abs_err_stuck_equal": worst(dq, stuck),
+           "err_norm_rel_err_stuck_equal": worst(de_rel, stuck),
+           "q_tol": IK_Q_TOL[name], "err_conv_tol": IK_ERR_CONV_TOL[name],
+           "q_stuck_tol": IK_Q_STUCK_TOL[name], "err_tol": IK_ERR_TOL[name]}
     rec["ok"] = rec["apart_and_not_tied"] == 0 \
         and rec["q_abs_err_converged_equal"] <= IK_Q_TOL[name] \
-        and bool(de_ok[same_it].all())
+        and rec["err_norm_abs_err_converged_equal"] \
+        <= IK_ERR_CONV_TOL[name] \
+        and rec["q_abs_err_stuck_equal"] <= IK_Q_STUCK_TOL[name] \
+        and rec["err_norm_rel_err_stuck_equal"] <= IK_ERR_TOL[name]
     return rec
 
 
@@ -640,6 +745,34 @@ def pose_attributes():
     return out
 
 
+def device_ms(fn, reps=50):
+    """Per-launch device time of ``fn`` (one bare kernel launch, its
+    arguments built beforehand): the launches are queued behind a
+    sleeping kernel, so the card runs them back to back and the events
+    between them hold no host time.  Returns (ms, queue), ``queue`` the
+    host's time to queue them against the sleep's device time; the
+    reading holds only if the queueing ended before the sleep did
+    (checked)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's 1.98 GHz
+    ev[1].record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    ev[2].record()
+    torch.cuda.synchronize()
+    queue = {"host_queue_ms": host_ms,
+             "sleep_ms": ev[0].elapsed_time(ev[1])}
+    assert host_ms < queue["sleep_ms"], queue
+    return ev[1].elapsed_time(ev[2]) / reps, queue
+
+
 def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
     """Phases 2f and 6a-6d (module docstring).  Returns (summary entries
     of K9, K9v and K8, launches by path of every kernel on 6a and 6b)."""
@@ -648,12 +781,11 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
 
     from trajopt_tpu_torch import _native
     from trajopt_tpu_torch.benchmarks import make_glass_upright_free
-    from trajopt_tpu_torch.kinematics.ik import solve_ik, solve_ik_plain
+    from trajopt_tpu_torch.kinematics.ik import _ik_args, solve_ik
     from trajopt_tpu_torch.ops.lie import rpy_to_matrix
     from trajopt_tpu_torch.solver.sqp import solve_batch
     from trajopt_tpu_torch.solver.types import CONVERGED, SQPParams
-    from trajopt_tpu_torch.terms.cartesian import (cart_pose_rows,
-                                                   cart_pose_ties)
+    from trajopt_tpu_torch.terms.cartesian import _pose_args, cart_pose_rows
 
     def sync():
         torch.cuda.synchronize()
@@ -740,8 +872,7 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
         for po in (False, True):
             tR, tp, q0 = tR64.to(dt), tp64.to(dt), q064.to(dt)
             kr = solve_ik(chain, link, tR, tp, q0=q0, pos_only=po)
-            pr, tie = solve_ik_plain(chain, link, tR, tp, q0=q0,
-                                     pos_only=po, ties=True)
+            pr, tie = solve_ik_plain_ties(chain, link, tR, tp, q0, po)
             sync()
             rec = {"phase": "ik_kernel", "dtype": name, "pos_only": po,
                    **ik_compare(kr, pr, tie, name),
@@ -750,40 +881,51 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
             k8_recs.append(rec)
             assert rec["ok"], rec
 
-    # times (float32): K9 / K9v on the world target, K8 on 6c's queries
+    # times (float32): K9 / K9v on the world target, K8 on 6c's queries.
+    # ms: the bare launch on the card (its arguments built once, the
+    # launches queued behind a sleeping kernel, device_ms); wrapper_ms: the
+    # whole entry point, argument building included, one call after another
     x = x64.float()
     pw32 = {k: v.float() for k, v in world.items()}
     timing = {}
+
+    def bound(nb, fl):
+        b_bytes, b_ops = nb / PEAK_BYTES, fl / PEAK_FLOPS["float32"]
+        return {"bound_ms": 1e3 * max(b_bytes, b_ops),
+                "bound_by": "bytes" if b_bytes > b_ops else "operations",
+                "work": {"bytes": nb, "flops": fl}}
+
     for key, jac in (("cart_pose", True), ("cart_pose_value", False)):
-        ms = time_ms(lambda: cart_pose_rows(chain, x, pw32, T, step, tool,
-                                            None, jac=jac))
+        fn, args, *_keep = _pose_args(_native.library("cart_pose"), chain, x,
+                                      pw32, step, nd, tool, None, jac)
+        ms, enq = device_ms(lambda: _native.check("cart_pose", fn(*args)))
+        wrapper = time_ms(lambda: cart_pose_rows(chain, x, pw32, T, step,
+                                                 tool, None, jac=jac))
         plain = time_ms(lambda: cart_pose_rows(chain, x, pw32, T, step, tool,
                                                None, jac=jac, kernels=False),
                         reps=5)
-        nb, fl = pose_work(chain, lanes, tool, None, False, jac, 4)
-        timing[key] = {"ms": ms, "plain_ms": plain,
-                       "bound_ms": 1e3 * max(nb / PEAK_BYTES,
-                                             fl / PEAK_FLOPS["float32"]),
-                       "bound_by": "bytes" if nb / PEAK_BYTES
-                       > fl / PEAK_FLOPS["float32"] else "operations",
-                       "work": {"bytes": nb, "flops": fl}}
+        timing[key] = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
+                       "queue": enq,
+                       **bound(*pose_work(chain, lanes, tool, None, False,
+                                          jac, 4))}
     tR, tp, q0 = tR64.float(), tp64.float(), q064.float()
     ik_runs = {}
     for po in (False, True):
         key = "solve_ik_pos_only" if po else "solve_ik"
         r = solve_ik(chain, link, tR, tp, q0=q0, pos_only=po)
-        ms = time_ms(lambda: solve_ik(chain, link, tR, tp, q0=q0,
-                                      pos_only=po), reps=20)
+        fn, args, *_keep = _ik_args(_native.library("solve_ik"), chain, link,
+                                    tR, tp, 60, 1e-6, 1e-3, po, q0)
+        ms, enq = device_ms(lambda: _native.check("solve_ik", fn(*args)),
+                            reps=20)
+        wrapper = time_ms(lambda: solve_ik(chain, link, tR, tp, q0=q0,
+                                           pos_only=po), reps=20)
         plain = time_ms(lambda: solve_ik(chain, link, tR, tp, q0=q0,
                                          pos_only=po, kernels=False), reps=2)
-        nb, fl = ik_work(chain, link, r.iters, 3 if po else 6, 4)
         ik_runs[key] = r
-        timing[key] = {"ms": ms, "plain_ms": plain,
-                       "bound_ms": 1e3 * max(nb / PEAK_BYTES,
-                                             fl / PEAK_FLOPS["float32"]),
-                       "bound_by": "bytes" if nb / PEAK_BYTES
-                       > fl / PEAK_FLOPS["float32"] else "operations",
-                       "work": {"bytes": nb, "flops": fl}}
+        timing[key] = {"ms": ms, "wrapper_ms": wrapper, "plain_ms": plain,
+                       "queue": enq,
+                       **bound(*ik_work(chain, link, r.iters, 3 if po else 6,
+                                        4))}
     emit({"phase": "pose_timing", "timing": timing, "card": smi})
 
     # ---------------- phase 6c: solve_ik alone, 128 lanes, float32
@@ -898,9 +1040,9 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
                       if r["dtype"] == "float32")
             extra = {"max_abs_err_of": "q, float32, lanes converged with "
                      "equal iteration counts (phase 2f)",
-                     "q_abs_err_equal_iters": {
+                     "q_abs_err_stuck_equal": {
                          f"{r['dtype']}_{'pos' if r['pos_only'] else 'full'}":
-                         r["q_abs_err_equal_iters"] for r in k8_recs},
+                         r["q_abs_err_stuck_equal"] for r in k8_recs},
                      "lanes_apart": {f"{r['dtype']}_{'pos' if r['pos_only'] else 'full'}":
                                      r["lanes_apart"] for r in k8_recs},
                      "pos_only": timing["solve_ik_pos_only"],
@@ -1044,14 +1186,6 @@ def main():
     def rel_err(got, ref):
         scale = float(ref.abs().max().clamp(min=1e-30))
         return float((got - ref).abs().max()), float((got - ref).abs().max()) / scale
-
-    if "--cartesian-only" in sys.argv[1:]:
-        # the cartesian slice's phases alone (2f, 6a-6d), for a short
-        # call: their records and kernel entries, and no result line
-        calls, reset0 = count_qp_calls(sqp_mod, _native)
-        entries, _ = cartesian_phases(dev, smi, time_ms, reset0, calls)
-        emit({"kernels": list(entries.values())})
-        return
 
     # ------------------------------------------------------------------
     # phase 2: kernels vs plain versions

@@ -254,7 +254,8 @@ def test_pose_kernels_host_build(dtype):
     with phase 2f's tolerances: values on every row, Jacobians on the rows
     off the log map's and the band's switches; K8 by phase 2f's
     ``ik_compare`` (iteration counts and convergence equal off near-tie
-    lanes, error norms and converged q within its tolerances)."""
+    lanes; q and the error norms within its tolerances on the lanes both
+    converged and on those both stopped unconverged at the limit)."""
     name = "float64" if dtype == torch.float64 else "float32"
     T, B, step = 6, 16, 4
     rng = np.random.default_rng(6)
@@ -262,11 +263,10 @@ def test_pose_kernels_host_build(dtype):
     for tgt, band in ((None, False), (TCH.link_index("l3"), False),
                       (None, True)):
         p = _tp(_pose_params(B, band, seed=7), dtype)
-        E, J = TC.cart_pose_rows(TCH, x, p, T, step, TOOL, tgt, jac=True,
-                                 host=True)
-        Ev = TC.cart_pose_rows(TCH, x, p, T, step, TOOL, tgt, host=True)
+        E, J = TC.cart_pose_host(TCH, x, p, T, step, TOOL, tgt, jac=True)
+        Ev = TC.cart_pose_host(TCH, x, p, T, step, TOOL, tgt)
         Ep, Jp = TC.cart_pose_rows(TCH, x, p, T, step, TOOL, tgt, jac=True)
-        ties = TC.cart_pose_ties(TCH, x, p, T, step, TOOL, tgt)
+        ties = CS.cart_pose_ties(TCH, x, p, T, step, TOOL, tgt)
         assert torch.equal(E, Ev)  # the Jacobian's value is K9v's, bit for bit
         scale = float(Ep.abs().max())
         assert float((E - Ep).abs().max()) <= CS.REL_TOL[name] * scale
@@ -280,8 +280,12 @@ def test_pose_kernels_host_build(dtype):
     for po in (False, True):
         kh = TIK.solve_ik_host(TCH, TOOL, tR.to(dtype), tp.to(dtype),
                                q0=q0.to(dtype), pos_only=po)
-        kp, tie = TIK.solve_ik_plain(TCH, TOOL, tR.to(dtype), tp.to(dtype),
-                                     q0=q0.to(dtype), pos_only=po, ties=True)
+        kp, tie = CS.solve_ik_plain_ties(TCH, TOOL, tR.to(dtype),
+                                         tp.to(dtype), q0.to(dtype), po)
+        # the tie tracker runs the plain loop itself, step for step
+        plain = TIK.solve_ik_plain(TCH, TOOL, tR.to(dtype), tp.to(dtype),
+                                   q0=q0.to(dtype), pos_only=po)
+        assert all(torch.equal(a, b) for a, b in zip(kp, plain))
         rec = CS.ik_compare(kh, kp, tie, name)
         assert rec["ok"], rec
         if dtype == torch.float64:

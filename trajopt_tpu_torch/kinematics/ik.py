@@ -29,12 +29,6 @@ from ..terms.base import KernelChoice, eq_constraint, kernels_of, squared_cost
 from ..utils.lanes import lane_broadcast, lane_select
 from .chain import Chain
 
-# a decision of the plain loop is "within a few ulps" (solve_ik_plain's
-# ties) when its two sides differ by at most this many ulps of the larger
-# side or of 1 (a pose's scale, metres and radians: the pose error's own
-# rounding is absolute, ~an ulp of the poses it subtracts)
-TIE_ULPS = 4
-
 
 class IKResult(NamedTuple):
     q: torch.Tensor  # (B, n_dof) solution configuration
@@ -55,19 +49,15 @@ def _q_init(chain: Chain, target_p, q0):
     return q0.to(target_p.dtype)
 
 
-def solve_ik_plain(chain: Chain, link: int, target_R, target_p,
-                   max_iters: int = 60, tol: float = 1e-6,
-                   damping: float = 1e-3, pos_only: bool = False,
-                   q0: Optional[torch.Tensor] = None, ties: bool = False):
-    """The plain PyTorch loop (arguments as :func:`solve_ik`).  With
-    ``ties`` it also returns, per lane, whether any of its decisions
-    (``err_new < err``, ``err > tol``) had sides within ``TIE_ULPS`` ulps:
-    (IKResult, ties (B,) bool)."""
+def _plain_start(chain: Chain, link: int, target_R, target_p,
+                 damping: float, pos_only: bool, q0):
+    """The plain loop's start (q, err, lam) and its damped step
+    ``step(q, lam) -> (q_new, err_new)``: the new q, clamped to the
+    chain's bounds, and the error norm there."""
     dt, dev = target_p.dtype, target_p.device
     lb, ub = _bounds(chain, dt, dev)
     ne = 3 if pos_only else 6
-    B = target_p.shape[0]
-    eps = torch.finfo(dt).eps
+    eye = torch.eye(ne, dtype=dt, device=dev)
 
     def pose_err(q, tR, tp):
         R, p = chain.fk(q)
@@ -82,49 +72,57 @@ def solve_ik_plain(chain: Chain, link: int, target_R, target_p,
     def clip(v):
         return torch.minimum(torch.maximum(v, lb), ub)
 
-    def near(a, b):
-        scale = torch.clamp(torch.maximum(a.abs(), b.abs()), min=1.0)
-        return (a - b).abs() <= TIE_ULPS * eps * scale
+    def step(q, lam):
+        e = pose_err(q, target_R, target_p)
+        J = jac(q, target_R, target_p)  # (B, ne, n_dof)
+        A = J @ J.transpose(1, 2) + (lam * lam)[:, None, None] * eye
+        y = torch.linalg.solve_ex(A, -e[..., None])[0]
+        q_new = clip(q + (J.transpose(1, 2) @ y)[..., 0])
+        return q_new, torch.linalg.norm(pose_err(q_new, target_R, target_p),
+                                        dim=-1)
 
     q = clip(_q_init(chain, target_p, q0))
     err = torch.linalg.norm(pose_err(q, target_R, target_p), dim=-1)
-    lam = torch.full((B,), damping, dtype=dt, device=dev)
-    it = torch.zeros((B,), dtype=torch.int32, device=dev)
-    tie = torch.zeros((B,), dtype=torch.bool, device=dev)
-    tol_t = torch.full((), tol, dtype=dt, device=dev)
-    eye = torch.eye(ne, dtype=dt, device=dev)
+    lam = torch.full((target_p.shape[0],), damping, dtype=dt, device=dev)
+    return q, err, lam, step
+
+
+def _plain_accept(q, lam, it, err, q_new, err_new):
+    """The accept test and the damping's update: the next (q, lam, it,
+    err) of a lane that ran a step."""
+    improved = err_new < err
+    return (torch.where(improved[:, None], q_new, q),
+            torch.where(improved, torch.clamp(lam * 0.5, min=1e-5),
+                        lam * 2.0),
+            it + 1, torch.minimum(err, err_new))
+
+
+def solve_ik_plain(chain: Chain, link: int, target_R, target_p,
+                   max_iters: int = 60, tol: float = 1e-6,
+                   damping: float = 1e-3, pos_only: bool = False,
+                   q0: Optional[torch.Tensor] = None) -> IKResult:
+    """The plain PyTorch loop (arguments as :func:`solve_ik`)."""
+    q, err, lam, step = _plain_start(chain, link, target_R, target_p,
+                                     damping, pos_only, q0)
+    it = torch.zeros(err.shape, dtype=torch.int32, device=err.device)
 
     def running(it, err):
         return (it < max_iters) & (err > tol)
 
     act = running(it, err)
-    if ties:
-        tie = tie | near(err, tol_t)
     while bool(act.any()):
-        e = pose_err(q, target_R, target_p)
-        J = jac(q, target_R, target_p)  # (B, ne, n_dof)
-        A = J @ J.transpose(1, 2) + (lam * lam)[:, None, None] * eye
-        y = torch.linalg.solve_ex(A, -e[..., None])[0]
-        dq = (J.transpose(1, 2) @ y)[..., 0]
-        q_new = clip(q + dq)
-        err_new = torch.linalg.norm(pose_err(q_new, target_R, target_p),
-                                    dim=-1)
-        improved = err_new < err
-        new = (torch.where(improved[:, None], q_new, q),
-               torch.where(improved, torch.clamp(lam * 0.5, min=1e-5),
-                           lam * 2.0),
-               it + 1, torch.minimum(err, err_new))
-        if ties:
-            tie = tie | (act & (near(err_new, err) | near(new[3], tol_t)))
+        new = _plain_accept(q, lam, it, err, *step(q, lam))
         q, lam, it, err = [lane_select(act, a, b)
                            for a, b in zip(new, (q, lam, it, err))]
         act = running(it, err)
-    res = IKResult(q=q, err_norm=err, converged=err <= tol, iters=it)
-    return (res, tie) if ties else res
+    return IKResult(q=q, err_norm=err, converged=err <= tol, iters=it)
 
 
-def _ik_call(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
+def _ik_args(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
              damping, pos_only, q0):
+    """K8 from ``lib`` (the card's library or the host build) with its
+    arguments, and the result it writes: (fn, args, IKResult, tensors the
+    arguments point into)."""
     dt, dev = target_p.dtype, target_p.device
     B, nd = target_p.shape[0], chain.n_dof
     I, F = chain.kernel_tables(dt, dev)
@@ -139,13 +137,21 @@ def _ik_call(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
     fn = lib.solve_ik_f32 if dt == torch.float32 else lib.solve_ik_f64
     stream = torch.cuda.current_stream(dev).cuda_stream \
         if target_p.is_cuda else None
-    code = fn(I.data_ptr(), F.data_ptr(), link, tR.data_ptr(), tp.data_ptr(),
-              qi.data_ptr(), lb.data_ptr(), ub.data_ptr(), max_iters,
-              float(tol), float(damping), 3 if pos_only else 6, nd,
-              q.data_ptr(), err.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-              B, stream)
-    _native.check("solve_ik", code)
-    return IKResult(q=q, err_norm=err, converged=conv != 0, iters=iters)
+    args = (I.data_ptr(), F.data_ptr(), link, tR.data_ptr(), tp.data_ptr(),
+            qi.data_ptr(), lb.data_ptr(), ub.data_ptr(), max_iters,
+            float(tol), float(damping), 3 if pos_only else 6, nd,
+            q.data_ptr(), err.data_ptr(), conv.data_ptr(), iters.data_ptr(),
+            B, stream)
+    res = IKResult(q=q, err_norm=err, converged=conv, iters=iters)
+    return fn, args, res, (I, F, lb, ub, tR, tp, qi)
+
+
+def _ik_call(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
+             damping, pos_only, q0):
+    fn, args, res, _keep = _ik_args(lib, chain, link, target_R, target_p,
+                                    max_iters, tol, damping, pos_only, q0)
+    _native.check("solve_ik", fn(*args))
+    return res._replace(converged=res.converged != 0)
 
 
 def solve_ik(chain: Chain, link: int, target_R: torch.Tensor,

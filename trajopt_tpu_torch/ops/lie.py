@@ -70,7 +70,7 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 
 def _quaternion(R: torch.Tensor):
     """rot_log's quaternion of R, normalized (before the hemisphere
-    flip), and its four pivots."""
+    flip)."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
     m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
     m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
@@ -99,14 +99,14 @@ def _quaternion(R: torch.Tensor):
     idx = torch.argmax(pivots, dim=-1)  # the first index on ties
     q = torch.take_along_dim(
         cands, idx[..., None, None].expand(idx.shape + (1, 4)), -2)[..., 0, :]
-    return q / torch.linalg.norm(q, dim=-1, keepdim=True), pivots
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
 def rot_log(R: torch.Tensor) -> torch.Tensor:
     """Matrix log of a rotation: angle*axis vector, safe near 0 and pi
     (the quaternion route, not the trace formula, which is singular at
     pi)."""
-    q, _ = _quaternion(R)
+    q = _quaternion(R)
     # canonical hemisphere (w >= 0) so the angle is in [0, pi]
     q = torch.where(q[..., :1] < 0, -q, q)
     w = torch.minimum(torch.maximum(q[..., 0], _const(-1.0, R)),
@@ -118,18 +118,6 @@ def rot_log(R: torch.Tensor) -> torch.Tensor:
     scale = torch.where(vn > 1e-8, angle / torch.maximum(vn, _const(_EPS, R)),
                         2.0 / torch.maximum(w, _const(0.5, R)))
     return v * scale[..., None]
-
-
-def rot_log_margins(R: torch.Tensor):
-    """How far each decision of ``rot_log(R)`` is from switching, each
-    (...,): the gap between its two largest pivots (the candidate), |w|
-    (the hemisphere), 1 - |w| (the clip to [-1, 1], whose tangent splits at
-    a tie) and |vn - 1e-8| (the Taylor switch)."""
-    q, pivots = _quaternion(R)
-    top = torch.topk(pivots, 2, dim=-1).values
-    w = q[..., 0].abs()
-    vn = torch.linalg.norm(q[..., 1:], dim=-1)
-    return top[..., 0] - top[..., 1], w, 1.0 - w, (vn - 1e-8).abs()
 
 
 def transform_error(R_t: torch.Tensor, p_t: torch.Tensor, R_s: torch.Tensor,

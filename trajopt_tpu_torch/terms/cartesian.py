@@ -10,7 +10,8 @@ velocity and upright (``trajopt_tpu/terms/cartesian.py``).
   tensor, or with ``kernels=False`` from the SQP (the term's
   ``KernelChoice``), the plain versions: the torch ops of the JAX
   package's ``_err_q`` and ``torch.func.jacfwd`` of it over the step's
-  joints.  :func:`cart_pose_rows` is the three routes' one entry.
+  joints.  :func:`cart_pose_host` runs the kernels' device code built for
+  the host on CPU tensors, a check of the kernels on a CPU.
 - ``cart_line_term`` (a link on a segment with an orientation target) and
   ``cart_vel_term`` (a two-sided bound on the link's displacement between
   consecutive steps): plain torch, linearized by autodiff (``Term.jac``),
@@ -29,14 +30,10 @@ import torch
 from .. import _native
 from ..kinematics.chain import Chain
 from ..ops.banded_rows import step_window
-from ..ops.lie import rot_log_margins, transform_error
+from ..ops.lie import transform_error
 from ..utils.lanes import lane_broadcast, tree_map
 from .base import (KernelChoice, abs_cost, eq_constraint, hinge_cost,
                    ineq_constraint, kernels_of, squared_cost)
-
-# cart_pose_ties: a decision within this many ulps (of a unit scale) of
-# switching may be taken either way by two roundings
-TIE_ULPS = 64
 
 
 def _link_pose_with_offset(chain: Chain, q, link: int, off_R, off_p):
@@ -85,9 +82,10 @@ def _per_lane_jacfwd(f, q, p):
     return torch.func.vmap(torch.func.jacfwd(one))(q, p)
 
 
-def _pose_call(lib, chain: Chain, x, p, step, nc, src, tgt, jac):
-    """Run K9 (jac) or K9v from ``lib`` (the card's library or the host
-    build): E (B, 6) and J (B, 6, n_x) (zeros beside the step's columns)."""
+def _pose_args(lib, chain: Chain, x, p, step, nc, src, tgt, jac):
+    """K9 (jac) or K9v from ``lib`` (the card's library or the host build)
+    with its arguments, and the outputs it writes: (fn, args, E (B, 6),
+    J (B, 6, n_x) or None; J zeros beside the step's columns)."""
     B, n_x = x.shape
     dt, dev = x.dtype, x.device
     nd = chain.n_dof
@@ -108,36 +106,40 @@ def _pose_call(lib, chain: Chain, x, p, step, nc, src, tgt, jac):
     J = torch.zeros((B, 6, n_x), dtype=dt, device=dev) if jac else None
     fn = lib.cart_pose_f32 if dt == torch.float32 else lib.cart_pose_f64
     stream = torch.cuda.current_stream(dev).cuda_stream if x.is_cuda else None
-    code = fn(I.data_ptr(), F.data_ptr(), xc.data_ptr(), xc.stride(0),
-              step * nc, nd, src, -1 if tgt is None else tgt,
-              *[None if t is None else t.data_ptr() for t in prm],
-              E.data_ptr(), None if J is None else J.data_ptr(), n_x,
-              step * nc, B, stream)
-    _native.check("cart_pose", code)
+    # the tensors stay referenced by the returned tuple while fn runs
+    keep = (I, F, xc, prm)
+    args = (I.data_ptr(), F.data_ptr(), xc.data_ptr(), xc.stride(0),
+            step * nc, nd, src, -1 if tgt is None else tgt,
+            *[None if t is None else t.data_ptr() for t in prm],
+            E.data_ptr(), None if J is None else J.data_ptr(), n_x,
+            step * nc, B, stream)
+    return fn, args, E, J, keep
+
+
+def _pose_call(lib, chain: Chain, x, p, step, nc, src, tgt, jac):
+    """Run K9 (jac) or K9v from ``lib``: E (B, 6) and J (B, 6, n_x)."""
+    fn, args, E, J, _keep = _pose_args(lib, chain, x, p, step, nc, src, tgt,
+                                       jac)
+    _native.check("cart_pose", fn(*args))
     return E, J
 
 
 def cart_pose_rows(chain: Chain, x: torch.Tensor, p, n_steps: int,
                    step: int, src: int, tgt: Optional[int] = None,
                    n_cols: Optional[int] = None, jac: bool = False,
-                   kernels: bool = True, host: bool = False):
+                   kernels: bool = True):
     """A cart_pose term's error rows E (B, 6) at ``step`` of x (B, n_x)
     and, with ``jac``, its Jacobian (B, 6, n_x); ``src`` / ``tgt`` link
     indices (``tgt`` None: a world target).  Returns E, or (E, J).
 
     On a CUDA tensor K9 (``jac``) or K9v, counted; ``kernels=False`` (or a
-    CPU tensor) the plain version; ``host=True`` on a CPU tensor the
-    kernels' device code built for the host (``csrc/pose_host.cpp``)."""
+    CPU tensor) the plain version."""
     nc = n_cols or chain.n_dof
     nd = chain.n_dof
-    if (x.is_cuda and kernels) or host:
-        if host and x.is_cuda:
-            raise ValueError("cart_pose_rows: host=True takes CPU tensors")
-        lib = _native.library("cart_pose") if x.is_cuda \
-            else _native.host_library("pose_host")
-        E, J = _pose_call(lib, chain, x, p, step, nc, src, tgt, jac)
-        if x.is_cuda:
-            _native.LAUNCHES["cart_pose" if jac else "cart_pose_value"] += 1
+    if x.is_cuda and kernels:
+        E, J = _pose_call(_native.library("cart_pose"), chain, x, p, step,
+                          nc, src, tgt, jac)
+        _native.LAUNCHES["cart_pose" if jac else "cart_pose_value"] += 1
         return (E, J) if jac else E
     B = x.shape[0]
     q = x.reshape(B, n_steps, nc)[:, step, :nd]
@@ -153,30 +155,17 @@ def cart_pose_rows(chain: Chain, x: torch.Tensor, p, n_steps: int,
     return E, J.reshape(B, 6, n_steps * nc)
 
 
-def cart_pose_ties(chain: Chain, x: torch.Tensor, p, n_steps: int,
+def cart_pose_host(chain: Chain, x: torch.Tensor, p, n_steps: int,
                    step: int, src: int, tgt: Optional[int] = None,
-                   n_cols: Optional[int] = None):
-    """(B, 6) bool: the rows of :func:`cart_pose_rows` whose Jacobian sits
-    at a decision within ``TIE_ULPS`` ulps (of a unit scale) of switching, in
-    x's dtype: the log map's pivot, hemisphere, clip and Taylor switch
-    (``lie.rot_log_margins``) flag the three rotation rows; each band edge
-    its own row.  Two roundings may take different sides there (the value
-    is continuous, its tangent is not)."""
-    nc = n_cols or chain.n_dof
-    B = x.shape[0]
-    q = x.reshape(B, n_steps, nc)[:, step, :chain.n_dof]
-    Rt, pt, Rs, ps = _poses(chain, q, p, src, tgt)
-    k = TIE_ULPS * torch.finfo(x.dtype).eps
-    dR = torch.einsum("...ji,...jk->...ik", Rt, Rs)
-    rot = torch.stack(rot_log_margins(dR), -1).le(k).any(-1)
-    ties = torch.zeros((B, 6), dtype=torch.bool, device=x.device)
-    ties[:, 3:] = rot[:, None]
-    if "lower_tols" in p and "upper_tols" in p:
-        err = transform_error(Rt, pt, Rs, ps)
-        for key in ("lower_tols", "upper_tols"):
-            edge = lane_broadcast(p[key].to(x.dtype), (6,))
-            ties |= (err - edge).abs() <= k * torch.clamp(edge.abs(), min=1.0)
-    return ties
+                   n_cols: Optional[int] = None, jac: bool = False):
+    """:func:`cart_pose_rows` by K9 / K9v's device code built for the host
+    (``csrc/pose_host.cpp``), on CPU tensors: a check of the kernels on a
+    CPU."""
+    if x.is_cuda:
+        raise ValueError("cart_pose_host takes CPU tensors")
+    E, J = _pose_call(_native.host_library("pose_host"), chain, x, p, step,
+                      n_cols or chain.n_dof, src, tgt, jac)
+    return (E, J) if jac else E
 
 
 def cart_pose_term(
