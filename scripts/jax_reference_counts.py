@@ -9,6 +9,14 @@ chip_smoke phase on the same entries are these counts less 5.
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_counts.py \\
         [--batch 128] [--names planning redundant_rail] [--out FILE]
 
+``--names json_table json_table_time json_timed_vel json_timed_vel_total``
+counts chip_smoke's phases 7a, 7b and 7c(i) / (ii): 128 lanes x T=30 of
+``chip_smoke.json_docs`` (one reference-format document per lane), each
+loaded by the JAX package's ``load_problem`` with its defaults, stacked,
+and solved with the documents' own ``SQPParams`` in float32: converged,
+gated (CONVERGED, max violation < 1e-4, for the table scenes the n_sub=16
+swept check >= 0 on the full table world) and the mean QP solves.
+
 ``--names cartesian_waypoints ik_goal solve_ik`` counts chip_smoke's
 cartesian phases instead (6a, 6b: converged and gated at T=30, ``SQPParams()``;
 6c: converged, plain and ``pos_only``), from the same numpy inputs
@@ -30,6 +38,64 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 CARTESIAN = ("cartesian_waypoints", "ik_goal", "solve_ik")
+JSON = ("json_table", "json_table_time", "json_timed_vel",
+        "json_timed_vel_total")
+
+
+def jax_json_problem(docs):
+    """(spec, stacked data, params, chain, world) of chip_smoke's phase-7
+    documents through the JAX package's ``load_problem`` (arm7 and its
+    table world, the loader's defaults), lane 0's spec and parameters: the
+    twin of ``chip_smoke.port_json_problem``."""
+    sys.path.insert(0, ROOT)
+    from trajopt_tpu.collision.world import build_collision_world
+    from trajopt_tpu.models import arm7
+    from trajopt_tpu.problem.json_io import load_problem
+    from trajopt_tpu.problem.trajectory import stack_data
+
+    model, chain = arm7()
+    world = build_collision_world(model, chain)
+    loaded = [load_problem(d, chain, world) for d in docs]
+    spec, _, params = loaded[0]
+    return spec, stack_data([d for _, d, _ in loaded]), params, chain, world
+
+
+def one_json(name, batch):
+    """chip_smoke phase 7a / 7b / 7c's counts in float32 (JAX's default)."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import json_docs
+    from trajopt_tpu.solver.sqp import _solve
+    from trajopt_tpu.solver.types import CONVERGED
+    from trajopt_tpu.terms.collision import trajectory_in_collision
+
+    kind = name[len("json_"):]
+    spec, data, params, chain, world = jax_json_problem(json_docs(kind, batch))
+    res = jax.jit(jax.vmap(lambda d: _solve(spec, params, d)))(data)
+    jax.block_until_ready(res)
+    status = np.asarray(res.status)
+    viol = np.asarray(res.cnt_viols).max(axis=1)
+    conv = status == CONVERGED
+    gated = conv & (viol < 1e-4)
+    X = np.asarray(res.x).reshape(batch, spec.n_steps, -1)
+    rec = {"name": name, "batch": batch, "dtype": str(X.dtype),
+           "n_x": spec.n_x, "converged": int(conv.sum()),
+           "mean_qp_solves": float(np.asarray(res.n_qp_solves).mean()),
+           "finite": bool(np.isfinite(X).all())}
+    if kind.startswith("table"):
+        swept = np.asarray(jax.jit(jax.vmap(
+            lambda q: trajectory_in_collision(world, q)))(
+                X[:, :, :chain.n_dof]))
+        gated = gated & (swept >= 0.0)
+        rec["min_swept_distance"] = float(swept.min())
+    rec["gated"] = int(gated.sum())
+    rec["status_counts"] = {int(k): int(v) for k, v in
+                            zip(*np.unique(status, return_counts=True))}
+    return rec
 
 
 def jax_cartesian_problem(kind, inp, dtype):
@@ -135,6 +201,8 @@ def one_cartesian(name, batch):
 def one(name, batch):
     if name in CARTESIAN:
         return one_cartesian(name, batch)
+    if name in JSON:
+        return one_json(name, batch)
     import jax
 
     jax.config.update("jax_platforms", "cpu")

@@ -2,7 +2,8 @@
 """Where the time goes in the PyTorch port's main path, on one CUDA card.
 
     python3 scripts/torch_profile_slice.py [--scene free|full|pnp|
-                                            cartesian|ik_goal]
+                                            cartesian|ik_goal|
+                                            json_table|json_time]
                                            [--batch 128] [--steps T]
 
 Runs a scene through ``solve_batch_compact`` (float32, ``bench_params()``,
@@ -16,7 +17,11 @@ transfer from ``chain_transfer`` of the approach's solution);
 and 6b (``chip_smoke.cartesian_inputs`` built by
 ``port_cartesian_problem``, T=30), run as chip_smoke runs them, through
 ``solve_batch`` with ``SQPParams()``, their pose kernels K9 / K9v and K8
-in ranges of their own.  For each
+in ranges of their own; ``--scene json_table`` and ``--scene json_time``
+are chip_smoke's phases 7a and 7b (``chip_smoke.json_docs("table")`` /
+``("table_time")``, one document per lane through ``load_problem``,
+``port_json_problem``), through ``solve_batch`` with the documents' own
+``SQPParams``, K10's calls in a range of their own.  For each
 problem: one warm-up run, one run timed without the profiler (with the
 wall of each compaction phase), then one run under ``torch.profiler`` with
 each layer of the path wrapped in a ``record_function`` range (convexify,
@@ -55,7 +60,8 @@ def _dev_time(evt, self_only=False):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--scene", choices=("free", "full", "pnp", "cartesian",
-                                        "ik_goal"), default="free")
+                                        "ik_goal", "json_table", "json_time"),
+                    default="free")
     ap.add_argument("--batch", type=int, default=128)
     ap.add_argument("--steps", type=int, default=None)
     args = ap.parse_args()
@@ -97,6 +103,14 @@ def main():
         measure(spec, data, SQPParams(), dev, smi, args, steps, None,
                 compact=False)
         return
+    if args.scene in ("json_table", "json_time"):
+        from chip_smoke import json_docs, port_json_problem
+
+        kind = "table" if args.scene == "json_table" else "table_time"
+        spec, data, par = port_json_problem(
+            json_docs(kind, args.batch, steps), torch.float32, dev)[:3]
+        measure(spec, data, par, dev, smi, args, steps, None, compact=False)
+        return
     make = make_glass_upright if args.scene == "full" \
         else make_glass_upright_free
     spec, data = make(args.batch, n_steps=steps, dtype=torch.float32,
@@ -117,6 +131,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem,
     from trajopt_tpu_torch.ops import ipm_qp
     from trajopt_tpu_torch.solver import sqp
     from trajopt_tpu_torch.terms import cartesian
+    from trajopt_tpu_torch.terms import collision
     from trajopt_tpu_torch.terms.collision import CastDistancePre
 
     # the SQP's batched QP solves: each call's per-lane IPM iterations
@@ -181,6 +196,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem,
         (CastDistancePre, "value"): "K:cast_seg_value",
         (cartesian, "cart_pose_rows"): "K:cart_pose",
         (ik, "solve_ik"): "K:solve_ik",
+        (collision, "contact_select"): "K:contact_select",
     }
     saved = {}
     for (mod, name), label in layers.items():

@@ -151,17 +151,17 @@ def test_ipm_matches_reference(with_hinge, tight):
     assert (sol.status >= 1).all()
 
 
-@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ, 3 * B_SZ, 9])
+@pytest.mark.parametrize("b", [B_SZ, 2 * B_SZ, 3 * B_SZ, 9, 8])
 @pytest.mark.parametrize("with_hinge", [True, False])
 @pytest.mark.parametrize("tight", [False, True])
 def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
     """K6's device code (host build) against the plain loop and JAX (b 9:
-    the fixture at the rail's step width)."""
+    the fixture at the rail's step width; b 8: at the 1/dt grid's)."""
     lanes = 4
     rng = np.random.default_rng(7 + 2 * tight + with_hinge)
     arrays, Bh, Gh, Ba, Ga = (
         _problem(rng, lanes, with_hinge) if b == B_SZ
-        else _problem(rng, lanes, with_hinge, b=9) if b == 9
+        else _problem(rng, lanes, with_hinge, b=b) if b in (8, 9)
         else _regrouped(rng, lanes, with_hinge, b // B_SZ))
     kw = _settings(tight, b)
     tdata = _tdata(arrays, Bh, Gh, Ba, Ga)
@@ -169,7 +169,7 @@ def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
     _assert_same_run(sol, t_solve(tdata, TSettings(**kw), device="cpu"),
                      HOST_TOL)
     if b != B_SZ and not with_hinge:
-        return  # JAX compiles b=9, 14, 21 for ~25 s: the hinge fixtures hold it
+        return  # JAX compiles b=8, 9, 14, 21 for ~25 s: the hinge fixtures hold it
     for z in range(lanes):
         jd = JData(**{k: jnp.asarray(v[z]) for k, v in arrays.items()},
                    A_h=None, A_a=None,
@@ -187,7 +187,7 @@ def test_k6_host_matches_plain_and_reference(with_hinge, tight, b):
         # slacks reach ~1e8, where one ulp is 1.5e-8 (measured: 2.98e-8 on
         # an entry of 1.3e8, the tight fixture without hinge rows)
         u_tol = TOL * max(1.0, float(np.abs(np.asarray(ref.u)).max())) \
-            if b == 9 else TOL
+            if b in (8, 9) else TOL
         np.testing.assert_allclose(sol.u[z].numpy(), np.asarray(ref.u),
                                    rtol=0, atol=u_tol)
 

@@ -167,7 +167,9 @@ def test_import_loads_neither_jax_nor_reference():
             "trajopt_tpu_torch.collision.world, "
             "trajopt_tpu_torch.collision.geometry, "
             "trajopt_tpu_torch.collision.decompose, "
-            "trajopt_tpu_torch.terms.collision\n"
+            "trajopt_tpu_torch.terms.collision, "
+            "trajopt_tpu_torch.__main__, "
+            "trajopt_tpu_torch.problem.json_io\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'trajopt_tpu' or m.startswith('trajopt_tpu.')]\n"
             "assert not bad, bad\n"

@@ -12,7 +12,7 @@ hash of the source, the headers of ``csrc/`` and its flags.
 
 ``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' and
 K7's block code), ``csrc/pose_host.cpp`` (K9 cart_pose's and K8
-solve_ik's) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
+solve_ik's), ``csrc/contact_select_host.cpp`` (K10 contact_select's) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
 three sources: ``ipm_banded`` float32, ``ipm_banded64`` float64 and
 ``ipm_timer`` float32 with the phase timer) for the CPU with the host's
 C++ compiler, for checking that code against the plain PyTorch version
@@ -44,6 +44,7 @@ _DISC = [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
 _POSE = [_P, _P, _P, _L, _I, _I, _I, _I] + [_P] * 9 + [_L, _I, _I, _P]
 _IK = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P, _P, _P, _P,
        _I, _P]
+_CSEL = [_P] * 7 + [_I] * 7 + [_D, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
     "bb_quad": [(f"bb_quad_{s}", [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
@@ -70,6 +71,9 @@ _SIGNATURES = {
     # K8: damped-least-squares IK, a lane's loop per warp
     "solve_ik": [(f"solve_ik_{s}", _IK) for s in ("f32", "f64")]
     + [("solve_ik_attrs", [_I, _P])],
+    # K10 / K10v: the collision terms' worst-contact selection
+    "contact_select": [(f"contact_select_{s}", _CSEL) for s in ("f32", "f64")]
+    + [("contact_select_attrs", [_I, _P])],
     # K6: float32, float64, and float32 with the phase timer
     "ipm_banded": [("ipm_banded_f32", [_P, _P]),
                    ("ipm_banded_attrs", [_I, _P])],
@@ -84,7 +88,7 @@ SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 # K6 ipm_banded, whose float64 iterates are held to the plain loop's
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
                 "disc_dist": ["-fmad=false"], "cart_pose": ["-fmad=false"],
-                "solve_ik": ["-fmad=false"],
+                "solve_ik": ["-fmad=false"], "contact_select": ["-fmad=false"],
                 "ipm_banded": ["-fmad=false"], "ipm_banded64": ["-fmad=false"],
                 "ipm_timer": ["-fmad=false"]}
 
@@ -94,14 +98,19 @@ _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
 # of K4, K4v and K5 that ran that CONVEX route (the generic feature
 # enumeration, Frank-Wolfe max separation); ``cast_seg_nd9`` the launches
 # of K4 at n_dof 9 (counted in ``cast_seg`` too), ``ipm_banded_b9`` those
-# of K6 at block size 9 (counted in ``ipm_banded`` too); ``cart_pose`` and
-# ``cart_pose_value`` count K9 and K9v (one source), ``solve_ik`` K8
+# of K6 at block size 9 (counted in ``ipm_banded`` too), ``ipm_banded_b8``,
+# ``btd_factor_b8`` and ``btd_solve_b8`` those of K6, K2 and K3 at block
+# size 8 (the 1/dt grid of a 7-DoF arm); ``cart_pose`` and
+# ``cart_pose_value`` count K9 and K9v (one source), ``solve_ik`` K8,
+# ``contact_select`` and ``contact_select_value`` K10 and K10v
 LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
                           "cast_seg_value", "cast_sweep", "convex_feature",
                           "convex_fw", "convex_route", "ipm_banded",
                           "disc_dist", "disc_dist_value", "cast_seg_nd9",
                           "ipm_banded_b9", "cart_pose", "cart_pose_value",
-                          "solve_ik"], 0)
+                          "solve_ik", "ipm_banded_b8", "btd_factor_b8",
+                          "btd_solve_b8", "contact_select",
+                          "contact_select_value"], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -138,7 +147,11 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                                   if not sig[0].endswith("_attrs")],
                     "ipm_host": [sig for src in ("ipm_banded", "ipm_banded64")
                                  for sig in _SIGNATURES[src]
-                                 if not sig[0].endswith("_attrs")]}
+                                 if not sig[0].endswith("_attrs")],
+                    # the team size in place of the stream
+                    "contact_select_host": [
+                        (f"contact_select_{s}", _CSEL[:-1] + [_I])
+                        for s in ("f32", "f64")]}
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:
@@ -229,13 +242,14 @@ def check(name: str, code: int) -> None:
     """Raise if a launcher returned a CUDA error (or -1: a size the kernel
     is not instantiated for)."""
     if code == -1:
-        raise ValueError(f"{name}: size not instantiated (block size 7, 14 "
-                         "or 21, and 9 for ipm_banded; n_dof 7 or 9 for "
+        raise ValueError(f"{name}: size not instantiated (block size 7, 8, "
+                         "14 or 21, and 9 for ipm_banded; n_dof 7 or 9 for "
                          "cast_seg, 7 with CONVEX geometry; ipm_banded within "
                          "the shared-memory limit; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
                          "on the host; disc_dist's of 32-128 threads; solve_ik at "
-                         "most 9 dofs)")
+                         "most 9 dofs; contact_select 1 <= K <= P with its "
+                         "keys within 48 KB of shared memory)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

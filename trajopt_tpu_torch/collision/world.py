@@ -133,6 +133,37 @@ class CollisionWorld:
         return tuple(
             (self.geoms[i].name, self.geoms[j].name) for i, j in self.pairs)
 
+    def pair_link_names(self):
+        """Per-pair (link_name_i, link_name_j): geometry names are
+        "link/idx"; this strips the geometry index."""
+        return tuple((a.split("/")[0], b.split("/")[0])
+                     for a, b in self.pair_names())
+
+    def pair_value_array(self, default, per_pair: Optional[dict] = None,
+                         dtype=np.float64) -> np.ndarray:
+        """(n_pairs,) array from a default and link-pair overrides:
+        ``per_pair`` maps ("linkA", "linkB") (order-insensitive) or the
+        string "linkA,linkB" to a value (the reference's
+        ``CollisionCoeffData``, trajopt_common/collision_types.h:124-163).
+        Unknown link pairs raise."""
+        out = np.full(self.n_pairs, float(default), dtype)
+        if not per_pair:
+            return out
+        names = self.pair_link_names()
+        keyed = {tuple(sorted(k.split(",") if isinstance(k, str) else k)): v
+                 for k, v in per_pair.items()}
+        known = {tuple(sorted(nm)) for nm in names}
+        unknown = set(keyed) - known
+        if unknown:
+            raise ValueError(
+                f"per-pair collision override names unknown pairs "
+                f"{sorted(unknown)}; known link pairs: {sorted(known)}")
+        for k, (a, b) in enumerate(names):
+            v = keyed.get(tuple(sorted((a, b))))
+            if v is not None:
+                out[k] = float(v)
+        return out
+
     def pair_routes(self):
         """Per pair: ``("sphere", None)`` (exact sphere sweep, set),
         ``("hull", (na, nb))`` (two-pose hull feature distance, min),

@@ -74,6 +74,10 @@ static int launch(const void* D, const void* O, void* LD, void* LM, int lanes,
       btd_factor_kernel<T, 7><<<lanes, 32, 0, s>>>(
           (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
       break;
+    case 8:
+      btd_factor_kernel<T, 8><<<lanes, 32, 0, s>>>(
+          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
+      break;
     case 14:
       btd_factor_kernel<T, 14><<<lanes, 32, 0, s>>>(
           (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);

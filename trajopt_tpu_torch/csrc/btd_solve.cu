@@ -75,6 +75,10 @@ static int launch(const void* LD, const void* LM, const void* r, void* x,
       btd_solve_kernel<T, 7><<<lanes, 32, 0, s>>>(
           (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
       break;
+    case 8:
+      btd_solve_kernel<T, 8><<<lanes, 32, 0, s>>>(
+          (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
+      break;
     case 14:
       btd_solve_kernel<T, 14><<<lanes, 32, 0, s>>>(
           (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);

@@ -29,6 +29,8 @@ static int dispatch(const ipm::Args* a) {
   switch (a->b) {
     case 7:
       return run<T, 7>(a);
+    case 8:
+      return run<T, 8>(a);
     case 9:
       return run<T, 9>(a);
     case 14:

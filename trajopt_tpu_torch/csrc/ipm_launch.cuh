@@ -58,6 +58,8 @@ static int launch(ipm::Args* a, void* stream) {
   switch (a->b) {
     case 7:
       return launch_bs<T, 7, TIMED>(a, s);
+    case 8:
+      return launch_bs<T, 8, TIMED>(a, s);
     case 9:
       return launch_bs<T, 9, TIMED>(a, s);
     case 14:
@@ -70,7 +72,7 @@ static int launch(ipm::Args* a, void* stream) {
 }
 
 // the registers and local memory of an instantiation
-// (cudaFuncGetAttributes): which = 0, 1, 2, 3 for b 7, 9, 14, 21; out =
+// (cudaFuncGetAttributes): which = 0..4 for b 7, 8, 9, 14, 21; out =
 // [numRegs, localSizeBytes, maxThreadsPerBlock, sharedSizeBytes]
 template <typename T, int BS>
 static int attrs_bs(int* out) {
@@ -89,9 +91,10 @@ template <typename T>
 static int attrs(int which, int* out) {
   switch (which) {
     case 0: return attrs_bs<T, 7>(out);
-    case 1: return attrs_bs<T, 9>(out);
-    case 2: return attrs_bs<T, 14>(out);
-    case 3: return attrs_bs<T, 21>(out);
+    case 1: return attrs_bs<T, 8>(out);
+    case 2: return attrs_bs<T, 9>(out);
+    case 3: return attrs_bs<T, 14>(out);
+    case 4: return attrs_bs<T, 21>(out);
     default: return -1;
   }
 }

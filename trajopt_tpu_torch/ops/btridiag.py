@@ -27,7 +27,9 @@ import torch
 
 from .. import _native
 
-KERNEL_BLOCKS = (7, 14, 21)  # block sizes the CUDA kernels instantiate
+# block sizes the CUDA kernels instantiate: a 7-DoF step, its 1/dt grid (8)
+# and superblocks of two and three steps
+KERNEL_BLOCKS = (7, 8, 14, 21)
 
 
 def _tiny(dtype) -> float:
@@ -141,6 +143,8 @@ def btd_factor_cuda(D: torch.Tensor, O: torch.Tensor):
               lanes, T, b, _tiny(D.dtype), stream)
     _native.check("btd_factor", code)
     _native.LAUNCHES["btd_factor"] += 1
+    if b == 8:
+        _native.LAUNCHES["btd_factor_b8"] += 1
     return LD, LM
 
 
@@ -159,6 +163,8 @@ def btd_solve_cuda(LD: torch.Tensor, LM: torch.Tensor,
               lanes, T, b, stream)
     _native.check("btd_solve", code)
     _native.LAUNCHES["btd_solve"] += 1
+    if b == 8:
+        _native.LAUNCHES["btd_solve_b8"] += 1
     return x
 
 

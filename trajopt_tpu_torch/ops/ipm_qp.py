@@ -599,9 +599,10 @@ class _K6Args(ctypes.Structure):
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
 # the block sizes K6 is instantiated for (csrc/ipm_launch.cuh, in its
-# attribute query's order): the step widths of the 7-DoF arms and of the
-# 9-DoF rail, and the 7-DoF superblocks of two and three steps
-K6_BLOCKS = (7, 9, 14, 21)
+# attribute query's order): the step widths of the 7-DoF arms, of their
+# 1/dt grid and of the 9-DoF rail, and the 7-DoF superblocks of two and
+# three steps
+K6_BLOCKS = (7, 8, 9, 14, 21)
 # K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
 # its iterations, then the count of factors that took their fallback
 # (K6_CLK_SLOTS per lane)
@@ -769,8 +770,8 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
                 "(ipm::smem_layout in csrc/ipm.cuh)")
         _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
-        if su.bsz == 9:
-            _native.LAUNCHES["ipm_banded_b9"] += 1
+        if su.bsz in (8, 9):
+            _native.LAUNCHES[f"ipm_banded_b{su.bsz}"] += 1
 
     if clk is not None and (su.q.dtype != torch.float32
                             or clk.shape != (su.lanes, K6_CLK_SLOTS)
@@ -785,7 +786,7 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
 def kernel_attributes() -> dict:
     """{"f32_b7": {"num_regs", "local_bytes", "max_threads",
     "static_smem_bytes"}, ...} of K6's instantiations on the card, float32
-    and float64 at b 7, 9, 14 and 21 (``cudaFuncGetAttributes``)."""
+    and float64 at b 7, 8, 9, 14 and 21 (``cudaFuncGetAttributes``)."""
     out = {}
     for d, src in (("f32", "ipm_banded"), ("f64", "ipm_banded64")):
         query = getattr(_native.library(src), f"{src}_attrs")

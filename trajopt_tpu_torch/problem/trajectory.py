@@ -27,6 +27,11 @@ from ..terms.base import Term
 from ..utils.lanes import tree_map
 
 
+def stationary_init(q0, n_steps: int) -> np.ndarray:
+    """Every step at q0 (numpy, host side)."""
+    return np.tile(np.asarray(q0)[None, :], (n_steps, 1))
+
+
 def interpolated_init(q0, q1, n_steps: int) -> np.ndarray:
     a = np.linspace(0.0, 1.0, n_steps)[:, None]
     return (1 - a) * np.asarray(q0)[None, :] + a * np.asarray(q1)[None, :]

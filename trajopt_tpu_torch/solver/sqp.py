@@ -13,15 +13,18 @@ bitwise (``torch.where``), as a vmapped ``while_loop`` keeps it.
 Ported: the interior-point QP paths, banded (every row term provides
 banded windows, ``kkt_block`` = coupling x step width: K6 on the card) and
 dense-row (the rows as (lanes, m, n) matrices, for a problem whose KKT
-matrix has no step band, e.g. a single step).  Not ported yet: GENERIC
-terms, the ADMM QP solver, ``max_time``, ``callback``, ``record_history``
-and the multi-device ``mesh`` of ``solve_batch_compact``; each raises
-``NotImplementedError``.
+matrix has no step band, e.g. a single step).  ``max_time`` stops the
+lanes still running with ``TIME_LIMIT``: ``solve_batch`` (and ``solve``)
+checks the host clock after every QP solve, ``solve_batch_compact`` at its
+phase boundaries.  Not ported yet: GENERIC terms, the ADMM QP solver,
+``callback``, ``record_history`` and the multi-device ``mesh`` of
+``solve_batch_compact``; each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -40,6 +43,7 @@ from .types import (
     PENALTY_ITERATION_LIMIT,
     RUNNING,
     SCO_ITERATION_LIMIT,
+    TIME_LIMIT,
     ProblemData,
     ProblemSpec,
     SQPParams,
@@ -385,8 +389,6 @@ def _i32(v, like):
 
 
 def _check_unported(p: SQPParams) -> None:
-    if p.max_time != float("inf"):
-        raise NotImplementedError("SQPParams.max_time is not ported yet")
     if p.callback is not None:
         raise NotImplementedError("SQPParams.callback is not ported yet")
     if p.record_history > 0 or p.record_history_x:
@@ -569,8 +571,19 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
             n_fev=st.n_fev + 1, status=status2)
 
     act = cond(st)
+    t_wall0 = None
     while bool(act.any()):
         new = body(st)
+        if p.max_time != float("inf"):
+            # the reference's wall-clock cutoff (optimizers.cpp:735), from
+            # the end of the first QP solve, as the JAX package reads it
+            now = time.monotonic()
+            if t_wall0 is None:
+                t_wall0 = now
+            elif now - t_wall0 > p.max_time:
+                new = new._replace(status=torch.where(
+                    new.status == RUNNING, _i32(TIME_LIMIT, new.status),
+                    new.status))
         st = _State(*[lane_select(act, a, b) for a, b in zip(new, st)])
         act = cond(st)
 
@@ -597,6 +610,16 @@ def _solve(spec: ProblemSpec, params: SQPParams, data: ProblemData,
 def _on_device(data: ProblemData, device) -> ProblemData:
     dev = resolve_device(device)
     return tree_map(lambda t: t.to(dev), data)
+
+
+def solve(spec: ProblemSpec, data: ProblemData,
+          params: SQPParams = SQPParams(), device="cuda",
+          kernels: bool = True) -> SQPResult:
+    """Solve one problem instance: ``data`` without a lane axis, the
+    result's fields without one either (``solve_batch`` for many)."""
+    one = tree_map(lambda t: t[None] if torch.is_tensor(t) else t, data)
+    res = _solve(spec, params, _on_device(one, device), kernels)
+    return SQPResult(*[t[0] for t in res])
 
 
 def solve_batch(spec: ProblemSpec, data: ProblemData,
@@ -642,6 +665,10 @@ def solve_batch_compact(spec: ProblemSpec, data: ProblemData,
     data = _on_device(data, device)
     batch = data.x0.shape[0]
     total_budget = params.max_total_qp_solves
+    t_start = time.monotonic()
+    # max_time is enforced HERE, at phase boundaries (the JAX package's
+    # place), so the phases themselves run without it
+    run_params = dataclasses.replace(params, max_time=float("inf"))
 
     def _resumable(res, spent):
         # resumable = exhausted every phase budget so far while still
@@ -652,13 +679,21 @@ def solve_batch_compact(spec: ProblemSpec, data: ProblemData,
                         & (sqp_it < params.max_iter))[0]
 
     budget = min(phase_qp_solves, total_budget)
-    p1 = dataclasses.replace(params, max_total_qp_solves=budget)
+    p1 = dataclasses.replace(run_params, max_total_qp_solves=budget)
     res = _solve(spec, p1, data, kernels)
     spent = budget
     prev_bucket = batch
 
     while spent < total_budget:
         idx = _resumable(res, spent)
+        if (params.max_time != float("inf")
+                and time.monotonic() - t_start > params.max_time):
+            if idx.size:  # the lanes still running stop on the clock
+                live = torch.as_tensor(idx, device=res.status.device)
+                status = res.status.clone()
+                status[live] = TIME_LIMIT
+                res = res._replace(status=status)
+            return res
         if idx.size == 0:
             return res
 
@@ -681,7 +716,7 @@ def solve_batch_compact(spec: ProblemSpec, data: ProblemData,
                 "penalty_it": res.penalty_it[pad],
                 "it": res.sqp_it[pad],
             })
-        p2 = dataclasses.replace(params, max_total_qp_solves=budget)
+        p2 = dataclasses.replace(run_params, max_total_qp_solves=budget)
         res2 = _solve(spec, p2, d2, kernels)
         spent += budget
         prev_bucket = bucket

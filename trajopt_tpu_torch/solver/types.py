@@ -61,8 +61,8 @@ class SQPParams:
     max_trust_box_size: float = float("inf")
     # backstop cap on total QP solves per lane
     max_total_qp_solves: int = 3000
-    # the three below are not ported yet: the solver raises
-    # NotImplementedError when they are set
+    # wall-clock limit in seconds (TIME_LIMIT); the three below it are not
+    # ported yet: the solver raises NotImplementedError when they are set
     max_time: float = float("inf")
     record_history: int = 0
     record_history_x: bool = False

@@ -22,10 +22,21 @@ CPU tensor — or with ``kernels=False`` — the plain PyTorch versions run:
 ``value_jac`` is ``torch.func.vmap(torch.func.jacfwd(...))`` over the plain
 world, the mirror of the reference's ``jax.vmap(jax.jacfwd(...))``.
 
-Not ported yet (``NotImplementedError``): ``weighted=True`` and
-``max_contacts`` of both kinds of term; K7 on a world with CONVEX geometry
-(its plain version runs on a CPU tensor); K4 at n_dof 9 with CONVEX
-geometry.
+``max_contacts`` (the reference's ``max_num_cnt``) keeps the K worst
+contacts of each group: pair-level for the cast terms (a pair ranked by its
+worst segment, all its segments kept), row-level for the discrete terms.
+On a CUDA tensor the selection is K10 ``contact_select`` (with the banded
+rows) and K10v ``contact_select_value`` (the values; ``csrc/
+contact_select.cu``), on the distances K4 / K7 wrote; the plain version
+(``contact_select_plain``) takes the K largest keys by a stable descending
+sort, which keeps ``jax.lax.top_k``'s order (the lower index first among
+equal keys).  ``max_contacts >= n_pairs`` selects nothing, as in the JAX
+package.  ``weighted=True`` (use_weighted_sum) aggregates a group's rows
+into one, in plain PyTorch.
+
+Not ported yet (``NotImplementedError``): K7 on a world with CONVEX
+geometry (its plain version runs on a CPU tensor); K4 at n_dof 9 with
+CONVEX geometry.
 
 params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
 """
@@ -41,7 +52,7 @@ import torch
 from .. import _native
 from ..collision import geometry as G
 from ..collision.world import CollisionWorld
-from ..ops.banded_rows import step_window
+from ..ops.banded_rows import bb_to_dense, step_window
 from ..utils.lanes import lane_broadcast
 from .base import Term, hinge_cost, ineq_constraint
 
@@ -69,6 +80,146 @@ CAST_BLOCKS = {("cast_seg", False): (64, 8), ("cast_seg_value", False): (64, 8),
 
 def _bcast(v, n, dtype):
     return lane_broadcast(v.to(dtype), (n,))
+
+
+def _coeff_scalar(p, dtype):
+    """Per-lane scalar coefficient (B,) of a weighted (use_weighted_sum)
+    term: the loader rejects per-pair coeff overrides there, so the
+    (B, n_pairs) coeffs are uniform and element 0 is THE coefficient."""
+    c = p["coeffs"].to(dtype)
+    return c.reshape(c.shape[0], -1)[:, 0]
+
+
+def _weighted_rows(errs, Js):
+    """Error-weighted average of per-pair gradients (the reference's
+    use_weighted_sum, weighted_average_methods.cpp:31-68): a group's row
+    grad = sum_p w_p grad_p / sum_p w_p, w_p = max(err_p, 0) / max_err (its
+    err is max_err, the largest over its rows).  errs (B, G, R), Js (B, G,
+    R, w) -> (B, G, w)."""
+    max_err = torch.amax(errs, dim=2)
+    w = torch.clamp(errs, min=0.0) / torch.clamp(max_err[..., None],
+                                                 min=1e-12)
+    tot = torch.clamp(torch.sum(w, dim=2), min=1e-12)
+    return torch.einsum("bgp,bgpw->bgw", w, Js) / tot[..., None]
+
+
+# --------------------------------------------------------------------------
+# K10 / K10v: the worst-contact selection
+# --------------------------------------------------------------------------
+
+
+def contact_select_plain(D, margins, coeffs, buffer: float, K: int, Ja=None,
+                         Jb=None, right_group: int = -1):
+    """The worst-contact selection (K10's plain version; see
+    ``csrc/contact_select.cuh`` for the layouts).  D (B, G, S, P) with
+    margins, coeffs (B, P): a pair's key is its largest ``margin - D`` over
+    the group's S segments, and the K largest keys are kept (a stable
+    descending sort: the lower index first among equal keys, as
+    ``jax.lax.top_k``).  Returns the selected value rows (B, G S K),
+    ``where(act, coeff err, -1)`` with act = err >= -buffer, and, given Ja
+    (B, G, S P, nc), the banded window rows (B, G, S K, 2 nc) scaled by
+    ``where(act, coeff, 0)``: cast ``[-Ja, -Jb]``; discrete (Jb None, S 1)
+    ``-Ja`` in the first half, or in the second for group ``right_group``."""
+    B, G, S, P = D.shape
+    errs = margins[:, None, None, :] - D
+    key = torch.amax(errs, dim=2)  # (B, G, P)
+    idx = torch.sort(key, dim=-1, descending=True, stable=True).indices[
+        ..., :K]
+    vals = torch.gather(errs, 3, idx[:, :, None, :].expand(B, G, S, K))
+    act = vals >= -torch.as_tensor(buffer, dtype=D.dtype)
+    cof = torch.gather(coeffs, 1, idx.reshape(B, G * K)).reshape(B, G, 1, K)
+    out = torch.where(act, cof * vals, torch.full_like(vals, -1.0)).reshape(
+        B, -1)
+    if Ja is None:
+        return out
+    sc = torch.where(act, cof, torch.zeros_like(vals))[..., None]
+    nc = Ja.shape[-1]
+    gidx = idx[:, :, None, :, None].expand(B, G, S, K, nc)
+
+    def rows(J):
+        Js = torch.gather(J.reshape(B, G, S, P, nc), 3, gidx)
+        return ((-Js) * sc).reshape(B, G, S * K, nc)
+
+    Ra = rows(Ja)
+    if Jb is not None:
+        return out, torch.cat([Ra, rows(Jb)], dim=-1)
+    z = torch.zeros_like(Ra)
+    right = (torch.arange(G, device=D.device) == right_group)[
+        None, :, None, None]
+    return out, torch.where(right, torch.cat([z, Ra], -1),
+                            torch.cat([Ra, z], -1))
+
+
+def _select_call(fn, D, margins, coeffs, buffer, K, Ja, Jb, right_group,
+                 last):
+    """Check the selection's arguments, allocate its outputs and call
+    ``fn`` (a K10 entry point) with ``last`` (the stream, or the host
+    build's team size)."""
+    dt = D.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"contact_select: dtype {dt} is not float32/float64")
+    if D.dim() != 4:
+        raise ValueError("contact_select: D must be (B, G, S, P)")
+    B, G, S, P = D.shape
+    if not 1 <= K <= P:
+        raise ValueError(f"contact_select: K={K} outside [1, {P}]")
+    ins = [D, margins, coeffs] + [J for J in (Ja, Jb) if J is not None]
+    for t in ins:
+        if t.dtype != dt or t.device != D.device or not t.is_contiguous():
+            raise ValueError("contact_select: every input must be contiguous "
+                             "and of D's dtype and device")
+    if margins.shape != (B, P) or coeffs.shape != (B, P):
+        raise ValueError("contact_select: margins and coeffs must be (B, P)")
+    nc = 0 if Ja is None else Ja.shape[-1]
+    for J in (Ja, Jb):
+        if J is not None and J.shape != (B, G, S * P, nc):
+            raise ValueError(f"contact_select: J must be {(B, G, S * P, nc)}")
+    if Jb is not None and Ja is None:
+        raise ValueError("contact_select: Jb needs Ja")
+    vals = D.new_empty((B, G * S * K))
+    rows = D.new_empty((B, G, S * K, 2 * nc)) if Ja is not None else None
+    code = fn(D.data_ptr(), 0 if Ja is None else Ja.data_ptr(),
+              0 if Jb is None else Jb.data_ptr(), margins.data_ptr(),
+              coeffs.data_ptr(), vals.data_ptr(),
+              0 if rows is None else rows.data_ptr(), B, G, S, P, K, nc,
+              right_group, float(buffer), last)
+    _native.check("contact_select", code)
+    return vals if rows is None else (vals, rows)
+
+
+def _select_fn(lib, dt):
+    return lib.contact_select_f32 if dt == torch.float32 \
+        else lib.contact_select_f64
+
+
+def contact_select(D, margins, coeffs, buffer: float, K: int, Ja=None,
+                   Jb=None, right_group: int = -1, kernels: bool = True):
+    """The worst-contact selection (arguments and outputs as
+    :func:`contact_select_plain`): K10 (with Ja) or K10v (without) on a
+    CUDA tensor, the plain version on a CPU tensor or with
+    ``kernels=False``."""
+    if not (D.is_cuda and kernels):
+        return contact_select_plain(D, margins, coeffs, buffer, K, Ja, Jb,
+                                    right_group)
+    fn = _select_fn(_native.library("contact_select"), D.dtype)
+    out = _select_call(fn, D, margins, coeffs, buffer, K, Ja, Jb,
+                       right_group,
+                       torch.cuda.current_stream(D.device).cuda_stream)
+    _native.LAUNCHES["contact_select" if Ja is not None
+                     else "contact_select_value"] += 1
+    return out
+
+
+def contact_select_host(D, margins, coeffs, buffer: float, K: int, Ja=None,
+                        Jb=None, right_group: int = -1, team: int = 32):
+    """K10 / K10v built for the host (``csrc/contact_select_host.cpp``), on
+    CPU tensors: each group run by ``team`` threads in turn, the round's
+    arg-max by the warp's butterfly (``team`` a power of two up to 32)."""
+    if D.is_cuda:
+        raise ValueError("contact_select: the host build takes CPU tensors")
+    fn = _select_fn(_native.host_library("contact_select_host"), D.dtype)
+    return _select_call(fn, D, margins, coeffs, buffer, K, Ja, Jb,
+                        right_group, team)
 
 
 # --------------------------------------------------------------------------
@@ -160,8 +311,8 @@ def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
 
 def kernel_attributes():
     """{instantiation: {"num_regs", "local_bytes", "max_threads",
-    "static_smem_bytes"}} of every K4, K4v, K5 and K7 instantiation on the
-    card (``cudaFuncGetAttributes``, through each library's query)."""
+    "static_smem_bytes"}} of every K4, K4v, K5, K7 and K10 instantiation on
+    the card (``cudaFuncGetAttributes``, through each library's query)."""
     out = {}
     kinds = {"cast_seg": [f"{k}_{s}" for k in ("cast_seg", "cast_seg_value",
                                                 "cast_sweep")
@@ -172,7 +323,8 @@ def kernel_attributes():
                                                    "cast_sweep")
                           for s in ("f32", "f64")],
              "disc_dist": [f"{k}_{s}" for k in ("disc_dist", "disc_dist_value")
-                           for s in ("f32", "f64")]}
+                           for s in ("f32", "f64")],
+             "contact_select": ["contact_select_f32", "contact_select_f64"]}
     for src, names in kinds.items():
         query = getattr(_native.library(src), f"{src}_attrs")
         for which, kind in enumerate(names):
@@ -305,7 +457,9 @@ class DiscreteDistancePre:
 
     ``value(x)`` -> D (B, span, P) signed distances; ``value_jac(x)`` ->
     (D, Js) with Js (B, span, P, nc) the raw distance Jacobian wrt that
-    step's columns (the inv-dt column zero-padded)."""
+    step's columns (the inv-dt column zero-padded).  ``kernels`` holds the
+    choice of the last ``value`` / ``value_jac`` call: the terms' selection
+    on that output follows it (K10 or its plain version)."""
 
     def __init__(self, world: CollisionWorld, n_steps: int,
                  first_step: int = 0, last_step: Optional[int] = None,
@@ -318,6 +472,7 @@ class DiscreteDistancePre:
         self.n_dof = world.chain.n_dof
         self.nc = n_cols or self.n_dof
         self.P = world.n_pairs
+        self.kernels = True
 
     def _q(self, x):
         X = x.reshape(x.shape[0], self.n_steps, self.nc)
@@ -330,6 +485,7 @@ class DiscreteDistancePre:
     def value(self, x, kernels: bool = True):
         """D (B, span, P): K7v on a CUDA tensor (``kernels=False`` takes
         the plain version there), the plain version on the CPU."""
+        self.kernels = kernels
         if x.is_cuda and kernels:
             return self._launch("disc_dist_value", x)[0]
         return self.world.pair_distances(self._q(x))
@@ -338,6 +494,7 @@ class DiscreteDistancePre:
         """(D, Js): K7 on a CUDA tensor (``kernels=False`` takes the plain
         version there); the plain version is ``vmap(jacfwd)`` over the
         plain world."""
+        self.kernels = kernels
         if x.is_cuda and kernels:
             return self._launch("disc_dist", x)
         B = x.shape[0]
@@ -369,14 +526,13 @@ def discrete_collision_term(
     pre: Optional[DiscreteDistancePre] = None,
 ) -> Term:
     """Discrete collision at each step in [first, last]: one hinge / INEQ
-    row per (step, pair).  ``pre``: a shared :class:`DiscreteDistancePre`
-    (cost + constraint over one world)."""
-    if weighted:
-        raise NotImplementedError("discrete_collision_term(weighted=True) "
-                                  "is not ported yet")
-    if max_contacts is not None:
-        raise NotImplementedError("discrete_collision_term(max_contacts=...) "
-                                  "is not ported yet")
+    row per (step, pair).  ``max_contacts`` < n_pairs keeps the K worst
+    rows of each step within the ``buffer`` window (row-level selection,
+    K10; per-pair coeffs folded into the kept rows, deactivated rows the
+    constant -1 with a zero Jacobian); ``weighted=True`` aggregates a
+    step's pairs into ONE row (error-weighted average gradient).  ``pre``:
+    a shared :class:`DiscreteDistancePre` (cost + constraint over one
+    world)."""
     if pre is None:
         pre = DiscreteDistancePre(world, n_steps, first_step, last_step,
                                   n_cols)
@@ -386,6 +542,7 @@ def discrete_collision_term(
             and pre.nc == (n_cols or world.chain.n_dof))
     span, P, nc = pre.span, pre.P, pre.nc
     n = span * P
+    steps = first_step + np.arange(span)
 
     def _errs(x, p, aux=None):
         D = aux if aux is not None else pre.value(x)  # (B, span, P)
@@ -404,21 +561,89 @@ def discrete_collision_term(
             Js = Js * _bcast(p["coeffs"], P, x.dtype)[:, None, :, None]
         return -Js  # d(margin - dist)/dq
 
-    def jac_fn(x, p, aux=None, cf=False):
-        """Each row block depends on ONE step's columns: the per-step
-        blocks scattered into the (span P, n_x) layout."""
-        Js = _jac_steps(x, p, aux, cf)
-        B = x.shape[0]
-        J = x.new_zeros((B, span, P, n_steps, nc))
-        sidx = torch.arange(span, device=x.device)
+    def _dense(Js):
+        """The per-step blocks Js (B, span, r, nc) scattered into the
+        (span r, n_x) layout: each row block depends on ONE step."""
+        B, r = Js.shape[0], Js.shape[2]
+        J = Js.new_zeros((B, span, r, n_steps, nc))
+        sidx = torch.arange(span, device=Js.device)
         # advanced indices (sidx, first + sidx) are separated by a slice:
         # they lead
         J[:, sidx, :, first_step + sidx, :] = Js.permute(1, 0, 2, 3)
-        return J.reshape(B, n, n_steps * nc)
+        return J.reshape(B, span * r, n_steps * nc)
+
+    def jac_fn(x, p, aux=None, cf=False):
+        return _dense(_jac_steps(x, p, aux, cf))
 
     def jac_banded_fn(x, p, aux=None, cf=False):
-        return step_window(_jac_steps(x, p, aux, cf),
-                           first_step + np.arange(span), n_steps)
+        return step_window(_jac_steps(x, p, aux, cf), steps, n_steps)
+
+    if max_contacts is not None and max_contacts < P:
+        K = max_contacts
+        # step_window's windows: the last trajectory step sits in the
+        # second half of window n_steps - 2 (group ``right``)
+        G = torch.as_tensor(np.minimum(steps, n_steps - 2), dtype=torch.int32)
+        right = n_steps - 1 - first_step
+
+        def _sel(x, p, aux, jac):
+            args = (_bcast(p["margins"], P, x.dtype).contiguous(),
+                    _bcast(p["coeffs"], P, x.dtype).contiguous(), buffer, K)
+            if not jac:
+                D = aux if aux is not None else pre.value(x)
+                return contact_select(D[:, :, None, :].contiguous(), *args,
+                                      kernels=pre.kernels)
+            D, Js = aux if aux is not None else pre.value_jac(x)
+            return contact_select(D[:, :, None, :].contiguous(), *args,
+                                  Js.contiguous(), None, right,
+                                  kernels=pre.kernels)[1]
+
+        def sfn(x, p, aux=None):
+            return _sel(x, p, aux, False)
+
+        def sjac(x, p, aux=None):
+            Bw = _sel(x, p, aux, True)  # one half of each row is zero
+            return _dense(Bw[..., :nc] + Bw[..., nc:])
+
+        def sjac_banded(x, p, aux=None):
+            return _sel(x, p, aux, True), G.to(x.device)
+
+        if is_constraint:
+            return ineq_constraint(name, span * K, sfn, jac_fn=sjac,
+                                   viol_groups=span, step_coupling=0,
+                                   jac_banded_fn=sjac_banded, pre_fn=pre)
+        return hinge_cost(name, span * K, sfn, jac_fn=sjac, step_coupling=0,
+                          jac_banded_fn=sjac_banded, pre_fn=pre)
+
+    if weighted:
+        def wfn(x, p, aux=None):
+            werr = torch.amax(_errs(x, p, aux), dim=2)  # (B, span)
+            if is_constraint:
+                werr = werr * _coeff_scalar(p, x.dtype)[:, None]
+            return werr
+
+        def wjac_banded(x, p, aux=None):
+            if aux is None:
+                aux = pre.value_jac(x)
+            Jrow = _weighted_rows(_errs(x, p, aux[0]), _jac_steps(x, p, aux))
+            if is_constraint:
+                Jrow = Jrow * _coeff_scalar(p, x.dtype)[:, None, None]
+            return step_window(Jrow[:, :, None, :], steps, n_steps)
+
+        def wjac(x, p, aux=None):
+            Bw, Gw = wjac_banded(x, p, aux)
+            return bb_to_dense([Bw], [Gw], n_steps * nc, nc)
+
+        def wwf(p):
+            c = _coeff_scalar(p, p["coeffs"].dtype)
+            return c[:, None].expand(c.shape[0], span)
+
+        if is_constraint:
+            return ineq_constraint(name, span, wfn, jac_fn=wjac,
+                                   viol_groups=span, step_coupling=0,
+                                   jac_banded_fn=wjac_banded, pre_fn=pre)
+        return hinge_cost(name, span, wfn, weight_fn=wwf, jac_fn=wjac,
+                          step_coupling=0, jac_banded_fn=wjac_banded,
+                          pre_fn=pre)
 
     if is_constraint:
         def cfn(x, p, aux=None):
@@ -441,7 +666,8 @@ class CastDistancePre:
 
     ``value(x)`` -> D (B, n_gaps, n_seg, P); ``value_jac(x)`` -> (D, (Ja,
     Jb)) with Ja / Jb (B, n_gaps, n_seg * P, nc) the raw distance Jacobians
-    wrt the gap's two endpoint steps."""
+    wrt the gap's two endpoint steps.  ``kernels``: as
+    :class:`DiscreteDistancePre`."""
 
     def __init__(self, world: CollisionWorld, n_steps: int,
                  first_step: int = 0, last_step: Optional[int] = None,
@@ -457,6 +683,7 @@ class CastDistancePre:
         self.P = world.n_pairs
         self.n_seg = max(n_sub - 1, 1)
         self.R = self.n_seg * self.P
+        self.kernels = True
 
     def _qab(self, x):
         X = x.reshape(x.shape[0], self.n_steps, self.nc)[..., :self.n_dof]
@@ -471,6 +698,7 @@ class CastDistancePre:
     def value(self, x, kernels: bool = True):
         """D (B, n_gaps, n_seg, P): K4v on a CUDA tensor (``kernels=False``
         takes the plain version there), the plain version on the CPU."""
+        self.kernels = kernels
         if x.is_cuda and kernels:
             return self._launch("cast_seg_value", x)[0]
         qa, qb = self._qab(x)
@@ -480,6 +708,7 @@ class CastDistancePre:
         """(D, (Ja, Jb)): K4 on a CUDA tensor (``kernels=False`` takes the
         plain version there); the plain version is ``vmap(jacfwd)`` over
         the plain world."""
+        self.kernels = kernels
         if x.is_cuda and kernels:
             D, Ja, Jb = self._launch("cast_seg", x)
             return D, (Ja, Jb)
@@ -517,14 +746,11 @@ def cast_collision_term(
     pre: Optional[CastDistancePre] = None,
 ) -> Term:
     """Swept-volume collision over each step gap in [first, last-1]: one
-    hinge / INEQ row per (gap, sub-segment, pair).  ``pre``: a shared
+    hinge / INEQ row per (gap, sub-segment, pair).  ``max_contacts`` <
+    n_pairs keeps the K worst PAIRS of each gap (ranked by their worst
+    segment) with all their segments' rows (pair-level selection, K10);
+    ``weighted=True`` aggregates a gap's rows into ONE.  ``pre``: a shared
     :class:`CastDistancePre` (cost + constraint over one world)."""
-    if weighted:
-        raise NotImplementedError("cast_collision_term(weighted=True) is "
-                                  "not ported yet")
-    if max_contacts is not None:
-        raise NotImplementedError("cast_collision_term(max_contacts=...) is "
-                                  "not ported yet")
     if pre is None:
         pre = CastDistancePre(world, n_steps, first_step, last_step, n_sub,
                               n_cols)
@@ -555,20 +781,94 @@ def cast_collision_term(
             Jb = Jb * w[:, None, :, None]
         return -Ja, -Jb  # d(margin - dist)/dq
 
+    def _dense(Ja_, Jb_, cols):
+        """The per-gap row blocks (B, n_gaps, r, nc) scattered into the
+        (n_gaps r, n_x) layout (each depends on the gap's two steps)."""
+        B, r = Ja_.shape[0], Ja_.shape[2]
+        J = Ja_.new_zeros((B, n_gaps, r, n_steps, nc))
+        g = torch.arange(n_gaps, device=Ja_.device)
+        J[:, g, :, first_step + g, :cols] = Ja_[..., :cols].permute(1, 0, 2, 3)
+        J[:, g, :, first_step + 1 + g, :cols] = Jb_[..., :cols].permute(
+            1, 0, 2, 3)
+        return J.reshape(B, n_gaps * r, n_steps * nc)
+
     def jac_fn(x, p, aux=None, cf=False):
-        Ja_, Jb_ = _jac_gaps(x, p, aux, cf)
-        B, nd = x.shape[0], pre.n_dof
-        J = x.new_zeros((B, n_gaps, R, n_steps, nc))
-        g = torch.arange(n_gaps, device=x.device)
-        J[:, g, :, first_step + g, :nd] = Ja_[..., :nd].permute(1, 0, 2, 3)
-        J[:, g, :, first_step + 1 + g, :nd] = Jb_[..., :nd].permute(1, 0, 2, 3)
-        return J.reshape(B, n, n_steps * nc)
+        return _dense(*_jac_gaps(x, p, aux, cf), pre.n_dof)
+
+    def _G(x):
+        return first_step + torch.arange(n_gaps, dtype=torch.int32,
+                                         device=x.device)
 
     def jac_banded_fn(x, p, aux=None, cf=False):
         Ja_, Jb_ = _jac_gaps(x, p, aux, cf)
-        G = first_step + torch.arange(n_gaps, dtype=torch.int32,
-                                      device=x.device)
-        return torch.cat([Ja_, Jb_], dim=-1), G
+        return torch.cat([Ja_, Jb_], dim=-1), _G(x)
+
+    if max_contacts is not None and max_contacts < P:
+        # PAIR-level selection: a gap keeps its K worst pairs with ALL their
+        # per-segment rows (the reference's contacts are per link pair)
+        K = max_contacts
+        KR = n_seg * K
+
+        def _sel(x, p, aux, jac):
+            args = (_bcast(p["margins"], P, x.dtype).contiguous(),
+                    _bcast(p["coeffs"], P, x.dtype).contiguous(), buffer, K)
+            if not jac:
+                D = aux if aux is not None else pre.value(x)
+                return contact_select(D.contiguous(), *args,
+                                      kernels=pre.kernels)
+            D, (Ja, Jb) = aux if aux is not None else pre.value_jac(x)
+            return contact_select(D.contiguous(), *args, Ja.contiguous(),
+                                  Jb.contiguous(), kernels=pre.kernels)[1]
+
+        def sfn(x, p, aux=None):
+            return _sel(x, p, aux, False)
+
+        def sjac(x, p, aux=None):
+            Bw = _sel(x, p, aux, True)
+            return _dense(Bw[..., :nc], Bw[..., nc:], nc)
+
+        def sjac_banded(x, p, aux=None):
+            return _sel(x, p, aux, True), _G(x)
+
+        if is_constraint:
+            return ineq_constraint(name, n_gaps * KR, sfn, jac_fn=sjac,
+                                   viol_groups=n_gaps, step_coupling=1,
+                                   jac_banded_fn=sjac_banded, pre_fn=pre)
+        return hinge_cost(name, n_gaps * KR, sfn, jac_fn=sjac,
+                          step_coupling=1, jac_banded_fn=sjac_banded,
+                          pre_fn=pre)
+
+    if weighted:
+        def wfn(x, p, aux=None):
+            werr = torch.amax(_errs(x, p, aux), dim=2)  # (B, n_gaps)
+            if is_constraint:
+                werr = werr * _coeff_scalar(p, x.dtype)[:, None]
+            return werr
+
+        def wjac_banded(x, p, aux=None):
+            if aux is None:
+                aux = pre.value_jac(x)
+            Js = torch.cat(_jac_gaps(x, p, aux), dim=-1)  # (B, n_gaps, R, 2nc)
+            Jrow = _weighted_rows(_errs(x, p, aux[0]), Js)
+            if is_constraint:
+                Jrow = Jrow * _coeff_scalar(p, x.dtype)[:, None, None]
+            return Jrow[:, :, None, :], _G(x)
+
+        def wjac(x, p, aux=None):
+            Bw, Gw = wjac_banded(x, p, aux)
+            return bb_to_dense([Bw], [Gw], n_steps * nc, nc)
+
+        def wwf(p):
+            c = _coeff_scalar(p, p["coeffs"].dtype)
+            return c[:, None].expand(c.shape[0], n_gaps)
+
+        if is_constraint:
+            return ineq_constraint(name, n_gaps, wfn, jac_fn=wjac,
+                                   viol_groups=n_gaps, step_coupling=1,
+                                   jac_banded_fn=wjac_banded, pre_fn=pre)
+        return hinge_cost(name, n_gaps, wfn, weight_fn=wwf, jac_fn=wjac,
+                          step_coupling=1, jac_banded_fn=wjac_banded,
+                          pre_fn=pre)
 
     if is_constraint:
         def cfn(x, p, aux=None):
