@@ -17,6 +17,20 @@ and solved with the documents' own ``SQPParams`` in float32: converged,
 gated (CONVERGED, max violation < 1e-4, for the table scenes the n_sub=16
 swept check >= 0 on the full table world) and the mean QP solves.
 
+``--names box_cast box_cast_t30`` counts chip_smoke's phases 8a and 8b:
+128 lanes of ``chip_smoke.box_docs`` on boxbot (T=3 and T=30), each loaded
+by the JAX package's ``load_problem`` with n_sub ``chip_smoke.box_n_sub``
+(48, or the batch's largest longest_valid_segment_length count), stacked
+and solved with the documents' own ``SQPParams`` in float32: converged,
+gated (CONVERGED, max violation < 1e-4, the n_sub=16 swept check >= 0)
+and the mean QP solves.
+
+``--names spherebot_docs`` counts chip_smoke's phase 8c: each document of
+``chip_smoke.spherebot_docs`` (the spherebot documents of the JSON tests
+and the CLI test's) in 128 copies through the JAX package's
+``load_problem`` (its defaults) and solver in float32: the status counts
+and the mean QP solves per document.
+
 ``--names cartesian_waypoints ik_goal solve_ik`` counts chip_smoke's
 cartesian phases instead (6a, 6b: converged and gated at T=30, ``SQPParams()``;
 6c: converged, plain and ``pos_only``), from the same numpy inputs
@@ -40,41 +54,61 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CARTESIAN = ("cartesian_waypoints", "ik_goal", "solve_ik")
 JSON = ("json_table", "json_table_time", "json_timed_vel",
         "json_timed_vel_total")
+BOX = ("box_cast", "box_cast_t30")
+SPHERE_DOCS = "spherebot_docs"
 
 
-def jax_json_problem(docs):
+def jax_json_problem(docs, model_fn=None, **load_kw):
     """(spec, stacked data, params, chain, world) of chip_smoke's phase-7
     documents through the JAX package's ``load_problem`` (arm7 and its
     table world, the loader's defaults), lane 0's spec and parameters: the
-    twin of ``chip_smoke.port_json_problem``."""
+    twin of ``chip_smoke.port_json_problem``; with ``model_fn`` another
+    model of the JAX zoo, ``load_kw`` passed to every ``load_problem``."""
     sys.path.insert(0, ROOT)
     from trajopt_tpu.collision.world import build_collision_world
     from trajopt_tpu.models import arm7
     from trajopt_tpu.problem.json_io import load_problem
     from trajopt_tpu.problem.trajectory import stack_data
 
-    model, chain = arm7()
+    model, chain = (model_fn or arm7)()
     world = build_collision_world(model, chain)
-    loaded = [load_problem(d, chain, world) for d in docs]
+    loaded = [load_problem(d, chain, world, **load_kw) for d in docs]
     spec, _, params = loaded[0]
     return spec, stack_data([d for _, d, _ in loaded]), params, chain, world
 
 
+def jax_box_problem(docs):
+    """chip_smoke phase 8's documents through the JAX package's
+    ``load_problem`` on boxbot: the twin of ``chip_smoke.port_box_problem``."""
+    sys.path.insert(0, ROOT)
+    from chip_smoke import box_n_sub
+    from trajopt_tpu.models import boxbot
+
+    return jax_json_problem(docs, boxbot, n_sub=box_n_sub(docs))
+
+
 def one_json(name, batch):
-    """chip_smoke phase 7a / 7b / 7c's counts in float32 (JAX's default)."""
+    """chip_smoke phase 7a / 7b / 7c's (and 8a / 8b's) counts in float32
+    (JAX's default)."""
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     sys.path.insert(0, ROOT)
-    from chip_smoke import json_docs
+    from chip_smoke import box_docs, json_docs
     from trajopt_tpu.solver.sqp import _solve
     from trajopt_tpu.solver.types import CONVERGED
     from trajopt_tpu.terms.collision import trajectory_in_collision
 
-    kind = name[len("json_"):]
-    spec, data, params, chain, world = jax_json_problem(json_docs(kind, batch))
+    if name in BOX:
+        kind = "table"  # the swept gate over every gap, as 7a's
+        spec, data, params, chain, world = jax_box_problem(
+            box_docs(name, batch))
+    else:
+        kind = name[len("json_"):]
+        spec, data, params, chain, world = jax_json_problem(
+            json_docs(kind, batch))
     res = jax.jit(jax.vmap(lambda d: _solve(spec, params, d)))(data)
     jax.block_until_ready(res)
     status = np.asarray(res.status)
@@ -198,10 +232,36 @@ def one_cartesian(name, batch):
     return rec
 
 
+def one_spherebot_docs(batch):
+    """chip_smoke phase 8c's counts: per document, the status counts of
+    ``batch`` copies in float32 and the mean QP solves."""
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import numpy as np
+
+    sys.path.insert(0, ROOT)
+    from chip_smoke import spherebot_docs
+    from trajopt_tpu.models import spherebot
+    from trajopt_tpu.solver.sqp import _solve
+
+    out = {"name": SPHERE_DOCS, "batch": batch, "dtype": "float32"}
+    for key, (doc, _, _) in spherebot_docs().items():
+        spec, data, params, _, _ = jax_json_problem([doc] * batch, spherebot)
+        res = jax.jit(jax.vmap(lambda d: _solve(spec, params, d)))(data)
+        st = np.asarray(res.status)
+        out[key] = {"status_counts": {int(k): int(v) for k, v in zip(
+            *np.unique(st, return_counts=True))},
+            "mean_qp_solves": float(np.asarray(res.n_qp_solves).mean())}
+    return out
+
+
 def one(name, batch):
+    if name == SPHERE_DOCS:
+        return one_spherebot_docs(batch)
     if name in CARTESIAN:
         return one_cartesian(name, batch)
-    if name in JSON:
+    if name in JSON or name in BOX:
         return one_json(name, batch)
     import jax
 

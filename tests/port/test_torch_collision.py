@@ -41,6 +41,8 @@ from trajopt_tpu_torch.benchmarks import make_glass_upright
 from trajopt_tpu_torch.collision import geometry as TG
 from trajopt_tpu_torch.collision import world as TW
 from trajopt_tpu_torch.convert import chain_from_numpy, world_from_numpy
+from trajopt_tpu_torch.kinematics.chain import build_chain
+from trajopt_tpu_torch.kinematics.urdf import parse_urdf
 from trajopt_tpu_torch.models import arm7 as t_arm7
 from trajopt_tpu_torch.models import spherebot as t_spherebot
 from trajopt_tpu_torch.terms import collision as TC
@@ -514,11 +516,28 @@ def test_cast_kernels_host_build_new_sizes(scene, dtype):
 def test_disc_wrappers_launch_or_raise():
     """K7 / K7v refuse a CPU tensor on the card's launcher, and a world
     with CONVEX geometry anywhere (no instantiation); K4 refuses an n_dof
-    it is not built for."""
+    it is not built for (above its ceiling, 12: a 13-joint gantry)."""
     _, tw, TT, xn = _disc_scene("spherebot")
     x = _t(xn)
     for kind in ("disc_dist", "disc_dist_value"):
         with pytest.raises(ValueError, match="CUDA"):
             TC.disc_launch(kind, tw, x, TT, 2, 0, TT)
-    with pytest.raises(NotImplementedError, match="n_dof"):
-        TC.cast_host("cast_seg", tw, x, TT, 2, 0, TT - 1, 2)
+    links = "".join(f'<link name="l{i}"/>' for i in range(13))
+    joints = "".join(
+        f'<joint name="j{i}" type="prismatic"><parent link="'
+        f'{"world" if i == 0 else f"l{i - 1}"}"/><child link="l{i}"/>'
+        f'<axis xyz="1 0 0"/><limit lower="-1" upper="1"/></joint>'
+        for i in range(13))
+    m = parse_urdf(
+        '<robot name="g"><link name="world"/>' + links.replace(
+            '<link name="l12"/>', '<link name="l12"><collision><geometry>'
+            '<sphere radius="0.1"/></geometry></collision></link>')
+        + '<link name="ob"><collision><geometry><sphere radius="0.1"/>'
+        '</geometry></collision></link><joint name="f" type="fixed">'
+        '<parent link="world"/><child link="ob"/></joint>' + joints
+        + "</robot>")
+    w13 = TW.build_collision_world(m, build_chain(
+        m, [f"j{i}" for i in range(13)]))
+    x13 = torch.zeros((1, 2 * 13), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="n_dof 1 to 12"):
+        TC.cast_host("cast_seg", w13, x13, 2, 13, 0, 1, 2)

@@ -19,11 +19,23 @@ windows cover a block from both halves in permuted order, with the rows
 and scratch in device memory as well as in the shared-memory array, and
 end to end through the SQP.
 
+K6 runs at every block size from 1 to 21 (one instantiation each, in
+libraries of a few sizes, ``_native.K6_GROUPS``) and raises above; K4's
+Jacobian at every n_dof from 1 to 12 (7 exactly, the others under a
+ceiling) and raises above: the dispatch is held as a pure function.  The
+host build at b 2 and 3 runs the first QPs of chip_smoke phase 8b's form
+(boxbot, T=30, 1,363 swept hinge rows) and of ``time_parameterized``'s
+form (spherebot's 1/dt grid), captured on the CPU, against the plain loop
+with phase 2d's float64 rules.
+
 The dense-row path (``A_h`` / ``A_a`` set) is held against JAX on both of
 its factorizations: the dense Cholesky (n < 2 kkt_block) and the block
 Cholesky of the dense K (kkt_block set), on the fixture's rows made dense
 with ``bb_to_dense``: equal statuses and iteration counts, dx within 1e-8.
 """
+
+import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -38,8 +50,14 @@ from trajopt_tpu_torch.ops.ipm_qp import (_finish, _setup, band_plan,
                                           check_p_band, cover_lists,
                                           ipm_banded_host, solve_ipm_qp_host)
 from trajopt_tpu_torch.ops.ipm_qp import solve_ipm_qp as t_solve
+from trajopt_tpu_torch import _native
 from trajopt_tpu_torch.ops.prox_qp import ProxQPData as TData
 from trajopt_tpu_torch.ops.qp import QPSettings as TSettings
+from trajopt_tpu_torch.terms.collision import jac_instantiation
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
+import chip_smoke as CS  # noqa: E402
 
 TOL = 1e-8
 HOST_TOL = 1e-10  # K6 host build vs the plain loop, relative to max |dx|
@@ -394,3 +412,77 @@ def test_dense_rows_match_reference(kkt):
     if kkt == "btd":  # the same QP with banded rows: the same run
         _assert_same_run(t_solve(banded, TSettings(**kw), device="cpu"), sol,
                          TOL)
+
+
+def test_card_dispatch_covers_every_size():
+    """Which instantiation the card runs: K6 one per block size 1-21, in
+    the library of its range (float32 and float64 apart), K4 the 7-DoF one
+    at n_dof 7 and the ceiling's at every other n_dof up to 12; b 22 and
+    n_dof 13 raise, naming the limit."""
+    names = {}
+    for f64 in (False, True):
+        for b in range(1, 22):
+            lib = _native.k6_library(f64, b)
+            lo, hi = (int(v) for v in lib.rsplit("_b", 1)[1].split("_"))
+            assert lo <= b <= hi and lib.startswith(
+                "ipm_banded_f64" if f64 else "ipm_banded_f32")
+            assert _native._VARIANTS[lib] == ("ipm_banded", [
+                f"-DK6_F64={int(f64)}", f"-DK6_LO={lo}", f"-DK6_HI={hi}"])
+            names.setdefault(lib, []).append(b)
+    assert sorted(b for bs in names.values() for b in bs) \
+        == sorted(list(range(1, 22)) * 2)
+    with pytest.raises(ValueError, match="1..21"):
+        _native.k6_library(False, 22)
+    assert [jac_instantiation(n) for n in range(1, 13)] \
+        == [12] * 6 + [7] + [12] * 5
+    with pytest.raises(NotImplementedError, match="n_dof 1 to 12"):
+        jac_instantiation(13)
+    # K6's entry point refuses b 22 before it reaches a library
+    rng = np.random.default_rng(2)
+    tdata = _tdata(*_problem(rng, 1, True, nb=3, b=22))
+    with pytest.raises(ValueError, match="1..21"):
+        solve_ipm_qp_host(tdata, TSettings(**_settings(False, 22)))
+
+
+def _first_qp(monkeypatch, spec, data, params):
+    """The SQP's first batched QP of (spec, data) on the CPU (float64)."""
+    from trajopt_tpu_torch.solver import sqp
+
+    got = []
+
+    class _Captured(Exception):
+        pass
+
+    def first_qp(qd, st, **kw):
+        got.append((qd, st))
+        raise _Captured
+    monkeypatch.setattr(sqp, "solve_ipm_qp", first_qp)
+    with pytest.raises(_Captured):
+        sqp.solve_batch(spec, data, params, device="cpu")
+    return got[0]
+
+
+@pytest.mark.parametrize("form", ["box_cast_t30", "time_parameterized"])
+def test_k6_host_on_captured_qps(monkeypatch, form):
+    """K6's host build at b 2 (chip_smoke 8b's first QP: boxbot, 4 lanes,
+    T=30, the swept hinge rows) and b 3 (``time_parameterized``'s form at
+    8 lanes) against the plain loop, with phase 2d's float64 rules: equal
+    statuses, dx within K6_DX_TOL of the lane's largest on lanes with equal
+    iteration counts (here: all)."""
+    if form == "box_cast_t30":
+        prob = CS.port_box_problem(CS.box_docs(form, 4), torch.float64, "cpu")
+    else:
+        prob = CS.port_json_problem(CS.time_parameterized_docs(8),
+                                    torch.float64, "cpu", "spherebot")
+    qd, st = _first_qp(monkeypatch, *prob[:3])
+    b = 2 if form == "box_cast_t30" else 3
+    assert st.kkt_block == b and qd.q.shape[1] == (60 if b == 2 else 15)
+    if b == 2:
+        assert qd.e_h.shape[1] == 1363
+    host = solve_ipm_qp_host(qd, st)
+    plain = t_solve(qd, st, device="cpu")
+    np.testing.assert_array_equal(host.status.numpy(), plain.status.numpy())
+    np.testing.assert_array_equal(host.iters.numpy(), plain.iters.numpy())
+    dx = (host.x - plain.x).abs().amax(-1) \
+        / plain.x.abs().amax(-1).clamp(min=1e-30)
+    assert float(dx.max()) <= CS.K6_DX_TOL, dx

@@ -1,10 +1,11 @@
 """PyTorch port vs JAX reference: the JSON front end, float64 on the CPU.
 
-- every document of ``tests/test_json_io.py`` but box_cast through both
-  ``load_problem``s: term names, kinds, ``n_rows``, ``step_coupling``,
-  ``viol_groups``, ``n_x`` and ``n_cols`` equal, data and parameters equal,
-  ``SQPParams`` equal; solved by both ``solve``s: statuses equal, x within
-  ``X_TOL``; box_cast raises the port's box NotImplementedError;
+- every document of ``tests/test_json_io.py`` through both
+  ``load_problem``s (box_cast, boxbot's boxes on moving links, at n_sub
+  48 as the JAX test loads it): term names, kinds, ``n_rows``,
+  ``step_coupling``, ``viol_groups``, ``n_x`` and ``n_cols`` equal, data
+  and parameters equal, ``SQPParams`` equal; solved by both ``solve``s:
+  statuses equal, x within ``X_TOL``;
 - chip_smoke phase 7's table documents (``chip_smoke.json_docs``) at T=6
   and a document with ``longest_valid_segment_length`` through both
   loaders, every term's rows and Jacobians against JAX's, one distance
@@ -17,8 +18,9 @@
 - ``prune_pairs`` at three cull distances, ``pair_value_array``,
   ``timed_joint_vel_term`` / ``total_time_term``, ``stationary_init``,
   a registered term type, ``max_time`` -> TIME_LIMIT;
-- the CLI as a subprocess (``--device cpu --f64``) against JAX's
-  ``load_problem`` + ``solve`` in process.
+- the CLI as a subprocess (``--device cpu --f64``; spherebot, and boxbot
+  on box_cast's document at ``--n-sub 48``) against JAX's ``load_problem``
+  + ``solve`` in process.
 """
 
 import dataclasses
@@ -35,6 +37,7 @@ import torch
 from trajopt_tpu.collision import broadphase as JBP
 from trajopt_tpu.collision.world import build_collision_world as j_world
 from trajopt_tpu.models import arm7 as j_arm7
+from trajopt_tpu.models import boxbot as j_boxbot
 from trajopt_tpu.models import spherebot as j_spherebot
 from trajopt_tpu.ops.qp import QPSettings as JQP
 from trajopt_tpu.problem import json_io as JIO
@@ -85,26 +88,38 @@ def _quat_of(R):
             (R[1, 0] - R[0, 1]) / (4 * w)]
 
 
+# box_cast_test.json's document (tests/test_json_io.py:47-70), which the
+# JAX test loads at n_sub 48
+BOX_CAST = {
+    "basic_info": {"n_steps": 3, "manip": "manipulator",
+                   "fixed_timesteps": [0, 2]},
+    "costs": [
+        {"type": "joint_vel", "name": "jvel0",
+         "params": {"coeffs": [1], "targets": [0, 0]}},
+        {"type": "collision",
+         "params": {"coeffs": 10, "dist_pen": 0.02, "evaluator_type": 4,
+                    "longest_valid_segment_length": 0.05}}],
+    "constraints": [
+        {"type": "joint_pos", "name": "joint",
+         "params": {"coeffs": [1, 1], "targets": [1.9, 3.8],
+                    "first_step": 2, "last_step": 2}}],
+    "init_info": {"type": "given_traj",
+                  "data": [[-1.9, 0], [0, 1.9], [1.9, 3.8]]},
+}
+# load_problem's keywords per document (both packages)
+LOAD_KW = {"box_cast": {"n_sub": 48}}
+
+
 def _docs():
-    """The documents of tests/test_json_io.py (box_cast apart), by name:
-    (document, model name, with a collision world, QP settings)."""
+    """The documents of tests/test_json_io.py, by name: (document, model
+    name, with a collision world, QP settings)."""
     _, chain = arm7()
     tool = chain.link_index("tool")
     R, p = chain.fk(torch.tensor([0.4, 0.6, -0.2, 0.9, 0.3, -0.5, 0.2],
                                  dtype=torch.float64))
     return {
-        "simple_collision": ({
-            "basic_info": {"n_steps": 1, "manip": "manipulator"},
-            "costs": [
-                {"type": "collision", "params": {
-                    "coeffs": 1, "dist_pen": 0.3, "evaluator_type": 1}},
-                {"type": "joint_pos", "name": "joint0",
-                 "params": {"coeffs": [1, 1], "targets": [0.0, 0.0]}}],
-            "constraints": [
-                {"type": "collision", "params": {
-                    "coeffs": 1, "dist_pen": 0.2, "evaluator_type": 1}}],
-            "init_info": {"type": "given_traj", "data": [[-0.75, 0.75]]},
-        }, "spherebot", True, True),
+        **{k: (d, "spherebot", w, q) for k, (d, w, q) in
+           CS.spherebot_docs().items() if k != "cli"},
         "numerical_ik": ({
             "basic_info": {"n_steps": 1, "manip": "arm"},
             "constraints": [{"type": "cart_pose", "params": {
@@ -116,43 +131,6 @@ def _docs():
                        "params": {"coeffs": 1e-4, "targets": 0.0}}],
             "init_info": {"type": "given_traj", "data": [[0.1] * 7]},
         }, "arm7", False, True),
-        "opt_info": ({
-            "basic_info": {"n_steps": 2, "manip": "m"},
-            "opt_info": {"max_iter": 7, "trust_box_size": 0.5,
-                         "initial_merit_error_coeff": 33.0,
-                         "cnt_tolerance": 1e-5},
-            "costs": [{"type": "joint_vel", "params": {"coeffs": 1}}],
-            "init_info": {"type": "stationary"},
-        }, "spherebot", False, False),
-        "time_parameterized": ({
-            "basic_info": {"n_steps": 5, "manip": "m",
-                           "fixed_timesteps": [0],
-                           "dt_lower_lim": 0.05, "dt_upper_lim": 0.5},
-            "costs": [{"type": "joint_vel", "use_time": "false",
-                       "params": {"coeffs": [1], "targets": [0, 0]}}],
-            "constraints": [
-                {"type": "joint_pos", "name": "goal", "use_time": "tRuE",
-                 "params": {"coeffs": [1, 1], "targets": [1.0, -0.5],
-                            "first_step": 4, "last_step": 4}}],
-            "init_info": {"type": "joint_interpolated", "dt": 0.1,
-                          "data": [0.0, 0.0], "endpoint": [1.0, -0.5]},
-        }, "spherebot", False, True),
-        "timed_vel_total_time": ({
-            "basic_info": {"n_steps": 4, "manip": "m", "use_time": True,
-                           "dt_lower_lim": 0.01, "dt_upper_lim": 10.0},
-            "costs": [{"type": "total_time",
-                       "params": {"coeff": 1.0, "limit": 3.5}}],
-            "constraints": [
-                {"type": "joint_vel", "use_time": True,
-                 "params": {"coeffs": [1, 1], "targets": [0.0, 0.0],
-                            "upper_tols": [1.0, 1.0],
-                            "lower_tols": [-1.0, -1.0]}},
-                {"type": "joint_pos", "name": "goal",
-                 "params": {"coeffs": [1, 1], "targets": [3.0, 0.0],
-                            "first_step": 3, "last_step": 3}}],
-            "init_info": {"type": "joint_interpolated", "dt": 1.0,
-                          "data": [0.0, 0.0], "endpoint": [3.0, 0.0]},
-        }, "spherebot", False, True),
         "dynamic_cart_pose": ({
             "basic_info": {"n_steps": 1, "manip": "arm"},
             "constraints": [{"type": "dynamic_cart_pose", "params": {
@@ -164,10 +142,12 @@ def _docs():
             "init_info": {"type": "given_traj",
                           "data": [[0.1, 0.4, 0.1, -0.6, 0.1, 0.3, 0.1]]},
         }, "arm7", False, True),
+        "box_cast": (BOX_CAST, "boxbot", True, True),
     }
 
 
-_MODELS = {"spherebot": (j_spherebot, spherebot), "arm7": (j_arm7, arm7)}
+_MODELS = {"spherebot": (j_spherebot, spherebot), "arm7": (j_arm7, arm7),
+           "boxbot": (j_boxbot, boxbot)}
 
 
 def _scene(name, with_world):
@@ -208,9 +188,11 @@ def _assert_same_problem(js, jd, jp, ts, td, tp):
 def test_documents_match_reference(name):
     doc, model, with_world, qp = _docs()[name]
     jch, jw, tch, tw = _scene(model, with_world)
-    js, jd, jp = JIO.load_problem(doc, jch, jw, qp=JQP(**QP) if qp else None)
+    kw = LOAD_KW.get(name, {})
+    js, jd, jp = JIO.load_problem(doc, jch, jw, qp=JQP(**QP) if qp else None,
+                                  **kw)
     ts, td, tp = TIO.load_problem(doc, tch, tw, qp=TQP(**QP) if qp else None,
-                                  device="cpu")
+                                  device="cpu", **kw)
     _assert_same_problem(js, jd, jp, ts, td, tp)
     jr = j_solve(js, jd, jp)
     tr = solve(ts, td, tp, device="cpu")
@@ -221,9 +203,7 @@ def test_documents_match_reference(name):
 
 
 def test_rejections_match_reference():
-    """Unknown fields, a bad term type, a bad bool, timed acc, and the
-    box_cast scene (boxbot's boxes on moving links: the port's box sweep
-    is not ported)."""
+    """Unknown fields, a bad term type, a bad bool, timed acc."""
     _, jch = j_spherebot()
     _, tch = spherebot()
     bogus = {"basic_info": {"n_steps": 2, "manip": "m"},
@@ -243,8 +223,6 @@ def test_rejections_match_reference():
             JIO.load_problem(doc, jch)
         with pytest.raises(exc, match=msg):
             TIO.load_problem(doc, tch, device="cpu")
-    with pytest.raises(NotImplementedError, match="box"):
-        t_world(*boxbot())
 
 
 @pytest.mark.parametrize("kind", ["table", "table_time", "lvs"])
@@ -677,15 +655,7 @@ def _cli(args, env=None):
 
 
 def test_cli_solve_matches_reference(tmp_path):
-    doc = {"basic_info": {"n_steps": 3, "manip": "manipulator",
-                          "fixed_timesteps": [0]},
-           "costs": [{"type": "joint_vel",
-                      "params": {"coeffs": [1], "targets": [0, 0]}}],
-           "constraints": [{"type": "joint_pos", "name": "goal",
-                            "params": {"coeffs": [1, 1],
-                                       "targets": [1.0, 0.5],
-                                       "first_step": 2, "last_step": 2}}],
-           "init_info": {"type": "stationary", "data": [0, 0]}}
+    doc = CS.CLI_DOC  # tests/test_cli.py's document
     prob, out = tmp_path / "p.json", tmp_path / "r.json"
     prob.write_text(json.dumps(doc))
     r = _cli(["solve", str(prob), "--model", "spherebot", "--device", "cpu",
@@ -715,3 +685,22 @@ def test_cli_solve_matches_reference(tmp_path):
         ts, td, tp = TIO.load_problem(doc, tch, device="cpu")
         with pytest.raises(RuntimeError, match="CUDA"):
             solve(ts, td, tp)
+
+
+def test_cli_solve_boxbot_matches_reference(tmp_path):
+    """``solve --model boxbot --n-sub 48`` on box_cast's document (CPU,
+    float64) against JAX's ``load_problem(n_sub=48)`` + ``solve``."""
+    prob, out = tmp_path / "p.json", tmp_path / "r.json"
+    prob.write_text(json.dumps(BOX_CAST))
+    r = _cli(["solve", str(prob), "--model", "boxbot", "--n-sub", "48",
+              "--device", "cpu", "--f64", "--out", str(out)])
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "OPT_CONVERGED" in r.stdout
+    got = json.loads(out.read_text())
+    jm, jch = j_boxbot()
+    js, jd, jp = JIO.load_problem(BOX_CAST, jch, j_world(jm, jch), n_sub=48)
+    jr = j_solve(js, jd, jp)
+    assert got["status"] == "OPT_CONVERGED" and int(jr.status) == 1
+    np.testing.assert_allclose(np.asarray(got["trajectory"]).reshape(-1),
+                               np.asarray(jr.x), rtol=0, atol=X_TOL)
+    assert got["n_qp_solves"] == int(jr.n_qp_solves)

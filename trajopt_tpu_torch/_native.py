@@ -12,11 +12,12 @@ hash of the source, the headers of ``csrc/`` and its flags.
 
 ``host_library`` builds ``csrc/cast_host.cpp`` (the cast kernels' and
 K7's block code), ``csrc/pose_host.cpp`` (K9 cart_pose's and K8
-solve_ik's), ``csrc/contact_select_host.cpp`` (K10 contact_select's) and ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
-three sources: ``ipm_banded`` float32, ``ipm_banded64`` float64 and
-``ipm_timer`` float32 with the phase timer) for the CPU with the host's
-C++ compiler, for checking that code against the plain PyTorch version
-without a card.
+solve_ik's), ``csrc/contact_select_host.cpp`` (K10 contact_select's) and
+``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
+``csrc/ipm_banded.cu`` built once per dtype and range of block sizes,
+``K6_GROUPS``, and ``ipm_timer`` float32 with the phase timer) for the CPU
+with the host's C++ compiler, for checking that code against the plain
+PyTorch version without a card.
 """
 
 from __future__ import annotations
@@ -74,14 +75,48 @@ _SIGNATURES = {
     # K10 / K10v: the collision terms' worst-contact selection
     "contact_select": [(f"contact_select_{s}", _CSEL) for s in ("f32", "f64")]
     + [("contact_select_attrs", [_I, _P])],
-    # K6: float32, float64, and float32 with the phase timer
-    "ipm_banded": [("ipm_banded_f32", [_P, _P]),
-                   ("ipm_banded_attrs", [_I, _P])],
-    "ipm_banded64": [("ipm_banded_f64", [_P, _P]),
-                     ("ipm_banded64_attrs", [_I, _P])],
+    # K6 float32 with the phase timer
     "ipm_timer": [("ipm_banded_timed_f32", [_P, _P])],
 }
-SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
+
+# K6 runs at every block size from 1 to K6_BLOCK_MAX (csrc/banded.cuh
+# BLOCK_MAX), in float32 and float64: csrc/ipm_banded.cu is built into one
+# library per dtype and range of block sizes, so that nvcc builds the
+# ranges in parallel (an instantiation's build time grows with its block
+# size, so the ranges narrow as it grows: one size each from 16 up)
+K6_BLOCK_MAX = 21
+K6_GROUPS = ((1, 5), (6, 8), (9, 11), (12, 13), (14, 15), (16, 16), (17, 17),
+             (18, 18), (19, 19), (20, 20), (21, 21))
+
+
+def k6_library(f64: bool, b: int) -> str:
+    """The name of K6's library for block size b (float64 or float32)."""
+    for lo, hi in K6_GROUPS:
+        if lo <= b <= hi:
+            return f"ipm_banded_{'f64' if f64 else 'f32'}_b{lo}_{hi}"
+    raise ValueError(f"ipm_banded: block size {b} outside 1..{K6_BLOCK_MAX}, "
+                     "the sizes K6 is instantiated for")
+
+
+# library -> (source stem, its -D defines) of a library built from a
+# source other than its own name's: K6's, and K4 at the n_dof ceiling
+# (with and without the CONVEX routes), built apart from the cast sources'
+# other kernels so that nvcc builds them in parallel
+_VARIANTS = {k6_library(f64, lo): ("ipm_banded", [
+    f"-DK6_F64={int(f64)}", f"-DK6_LO={lo}", f"-DK6_HI={hi}"])
+    for f64 in (False, True) for lo, hi in K6_GROUPS}
+for _name in _VARIANTS:
+    _SIGNATURES[_name] = [("ipm_banded_run", [_P, _P]),
+                          ("ipm_banded_attrs", [_I, _P])]
+for _src, _sfx in (("cast_seg", ""), ("cast_cvx", "_cvx")):
+    _VARIANTS[f"{_src}_ceil"] = (_src, ["-DCAST_CEIL"])
+    _SIGNATURES[f"{_src}_ceil"] = [(f"cast_seg{_sfx}_{s}", _CAST)
+                                   for s in ("f32", "f64")] \
+        + [(f"{_src}_attrs", [_I, _P])]
+SOURCES = tuple(_SIGNATURES)  # one library each
+# libraries that build_all() leaves out, built when first asked for: K6 with
+# its phase timer, which only scripts/ipm_ab.py --phases runs
+ON_DEMAND = ("ipm_timer",)
 # extra nvcc flags per source: the cast kernels keep every multiply and add
 # separate (no FMA contraction), as the plain PyTorch versions compute them,
 # so that their argmin decisions agree wherever there is no tie; so does
@@ -89,28 +124,33 @@ SOURCES = tuple(_SIGNATURES)  # the stems of csrc/*.cu, one library each
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
                 "disc_dist": ["-fmad=false"], "cart_pose": ["-fmad=false"],
                 "solve_ik": ["-fmad=false"], "contact_select": ["-fmad=false"],
-                "ipm_banded": ["-fmad=false"], "ipm_banded64": ["-fmad=false"],
-                "ipm_timer": ["-fmad=false"]}
+                "ipm_banded": ["-fmad=false"], "ipm_timer": ["-fmad=false"]}
+
+# the n_dof K4's Jacobian runs at (1..CAST_ND_MAX; csrc/cast_block.cuh
+# ND_MAX)
+CAST_ND_MAX = 12
 
 # kernel name -> launch count; the cast sources hold three kernels
 # (``cast_cvx`` their CVX instantiations, with the CONVEX routes, and the
 # route probe ``convex_route``).  ``convex_feature`` / ``convex_fw`` count the launches
 # of K4, K4v and K5 that ran that CONVEX route (the generic feature
-# enumeration, Frank-Wolfe max separation); ``cast_seg_nd9`` the launches
-# of K4 at n_dof 9 (counted in ``cast_seg`` too), ``ipm_banded_b9`` those
-# of K6 at block size 9 (counted in ``ipm_banded`` too), ``ipm_banded_b8``,
-# ``btd_factor_b8`` and ``btd_solve_b8`` those of K6, K2 and K3 at block
-# size 8 (the 1/dt grid of a 7-DoF arm); ``cart_pose`` and
+# enumeration, Frank-Wolfe max separation); ``cast_boxbox`` those of K4,
+# K4v, K5 and K7 on a world with a box-box pair (the SAT distances);
+# ``cast_seg_nd{n}`` the launches of K4 at n_dof n (counted in
+# ``cast_seg`` too; every n but the 7-DoF arms'), ``ipm_banded_b{b}``,
+# ``btd_factor_b{b}`` and ``btd_solve_b{b}`` those of K6, K2 and K3 at
+# block size b (every b but 7); ``cart_pose`` and
 # ``cart_pose_value`` count K9 and K9v (one source), ``solve_ik`` K8,
 # ``contact_select`` and ``contact_select_value`` K10 and K10v
-LAUNCHES = dict.fromkeys(["bb_quad", "btd_factor", "btd_solve", "cast_seg",
-                          "cast_seg_value", "cast_sweep", "convex_feature",
-                          "convex_fw", "convex_route", "ipm_banded",
-                          "disc_dist", "disc_dist_value", "cast_seg_nd9",
-                          "ipm_banded_b9", "cart_pose", "cart_pose_value",
-                          "solve_ik", "ipm_banded_b8", "btd_factor_b8",
-                          "btd_solve_b8", "contact_select",
-                          "contact_select_value"], 0)
+LAUNCHES = dict.fromkeys(
+    ["bb_quad", "btd_factor", "btd_solve", "cast_seg", "cast_seg_value",
+     "cast_sweep", "convex_feature", "convex_fw", "convex_route",
+     "ipm_banded", "disc_dist", "disc_dist_value", "cart_pose",
+     "cart_pose_value", "solve_ik", "contact_select", "contact_select_value",
+     "cast_boxbox"]
+    + [f"cast_seg_nd{n}" for n in range(1, CAST_ND_MAX + 1) if n != 7]
+    + [f"{k}_b{b}" for k in ("ipm_banded", "btd_factor", "btd_solve")
+       for b in range(1, K6_BLOCK_MAX + 1) if b != 7], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -131,8 +171,14 @@ def _nvcc() -> str:
                        "CUDA toolkit's nvcc at first use")
 
 
+def _source(name: str) -> str:
+    """The stem of library ``name``'s source in csrc/."""
+    return _VARIANTS.get(name, (name,))[0]
+
+
 def _flags(name: str) -> list:
-    return NVCC_FLAGS + _EXTRA_FLAGS.get(name, [])
+    src, defines = _VARIANTS.get(name, (name, []))
+    return NVCC_FLAGS + _EXTRA_FLAGS.get(src, []) + defines
 
 
 # the host build keeps every multiply and add separate too; unoptimised,
@@ -145,9 +191,8 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                     "pose_host": [sig for src in ("cart_pose", "solve_ik")
                                   for sig in _SIGNATURES[src]
                                   if not sig[0].endswith("_attrs")],
-                    "ipm_host": [sig for src in ("ipm_banded", "ipm_banded64")
-                                 for sig in _SIGNATURES[src]
-                                 if not sig[0].endswith("_attrs")],
+                    "ipm_host": [(f"ipm_banded_{s}", [_P, _P])
+                                 for s in ("f32", "f64")],
                     # the team size in place of the stream
                     "contact_select_host": [
                         (f"contact_select_{s}", _CSEL[:-1] + [_I])
@@ -155,7 +200,8 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:
-    src = (CSRC / f"{name}{suffix}").read_bytes()
+    src = (CSRC / f"{_source(name) if suffix == '.cu' else name}{suffix}"
+           ).read_bytes()
     for hdr in sorted(CSRC.glob("*.cuh")):
         src += hdr.read_bytes()
     flags = _flags(name) if flags is None else flags
@@ -172,11 +218,15 @@ def _load(path: Path, signatures) -> ctypes.CDLL:
     return lib
 
 
-def build_all() -> float:
-    """Compile every kernel source that has no current library, all at
-    once (one nvcc each); returns the wall seconds spent."""
+def build_all(names=None) -> float:
+    """Compile every library of ``names`` (default: all but ON_DEMAND)
+    that has no current build, all at once (one nvcc each); returns the
+    wall seconds spent.  BUILD_SECONDS records each library's own wall
+    seconds and the last call's ("last")."""
     t0 = time.perf_counter()
-    todo = {n: _lib_path(n) for n in _SIGNATURES if not _lib_path(n).exists()}
+    if names is None:
+        names = [n for n in _SIGNATURES if n not in ON_DEMAND]
+    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = _nvcc()
@@ -184,18 +234,24 @@ def build_all() -> float:
         for name, out in todo.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *_flags(name), "-o", str(tmp),
-                   str(CSRC / f"{name}.cu")]
-            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True), tmp, out)
+                   str(CSRC / f"{_source(name)}.cu")]
+            log = open(BUILD_DIR / f"{name}.log", "w")
+            procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                            stderr=subprocess.STDOUT), log,
+                           tmp, out)
         failed = []
-        for name, (proc, tmp, out) in procs.items():
-            log, _ = proc.communicate()
-            (BUILD_DIR / f"{name}.log").write_text(log)
-            if proc.returncode != 0:
-                failed.append(f"{name}:\n{log}")
-            else:
-                os.replace(tmp, out)
+        while procs:
+            done = [n for n, p in procs.items() if p[0].poll() is not None]
+            for name in done:
+                proc, log, tmp, out = procs.pop(name)
+                log.close()
+                BUILD_SECONDS[name] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    failed.append(f"{name}:\n"
+                                  + (BUILD_DIR / f"{name}.log").read_text())
+                else:
+                    os.replace(tmp, out)
+            time.sleep(0.05)
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
     dt = time.perf_counter() - t0
@@ -209,7 +265,7 @@ def library(name: str) -> ctypes.CDLL:
     if lib is None:
         path = _lib_path(name)
         if not path.exists():
-            build_all()
+            build_all([name] if name in ON_DEMAND else None)
         lib = _LIBS[name] = _load(path, _SIGNATURES[name])
     return lib
 
@@ -242,9 +298,9 @@ def check(name: str, code: int) -> None:
     """Raise if a launcher returned a CUDA error (or -1: a size the kernel
     is not instantiated for)."""
     if code == -1:
-        raise ValueError(f"{name}: size not instantiated (block size 7, 8, "
-                         "14 or 21, and 9 for ipm_banded; n_dof 7 or 9 for "
-                         "cast_seg, 7 with CONVEX geometry; ipm_banded within "
+        raise ValueError(f"{name}: size not instantiated (block size 1 to "
+                         f"{K6_BLOCK_MAX}; n_dof 1 to {CAST_ND_MAX} for "
+                         "cast_seg; ipm_banded within "
                          "the shared-memory limit; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "

@@ -16,8 +16,9 @@ instance.  Forward-mode tangents follow the JAX package's exactly:
 Ported: the closed forms, ``box_vertices`` with ``_PEN_DIRS``,
 ``make_feature_distance`` over ``small_hull_topology`` and
 ``generic_topology``, the Frank-Wolfe max-separation ``d_convex_convex``
-with ``_fw_weights``, and ``d_convex_auto``.  Not ported yet (they raise
-``NotImplementedError``): ``d_box_box`` / ``d_swept_box_box``.
+with ``_fw_weights``, ``d_convex_auto``, and the box-box SAT distances
+``d_box_box`` / ``d_swept_box_box`` (with ``box_box_ties`` /
+``swept_box_box_ties``, their near-tie rows for the float32 checks).
 """
 
 from __future__ import annotations
@@ -736,12 +737,121 @@ def convex_auto_ties(n1: int, n2: int):
     return convex_convex_ties
 
 
-def _unported(name):
-    def f(*_a, **_k):
-        raise NotImplementedError(f"geometry.{name} is not ported yet")
-    f.__name__ = name
-    return f
+# ---------------------------------------------------------------------------
+# box-box: separating-axis (SAT) distances
 
 
-d_box_box = _unported("d_box_box")
-d_swept_box_box = _unported("d_swept_box_box")
+def _cross(a, b):
+    """``jnp.cross`` over the last axis (the leading axes broadcast)."""
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    return torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                        a0 * b1 - a1 * b0], dim=-1)
+
+
+def _box_radius(u, R, h):
+    """A box's support radius along the axes u (..., A, 3): (|h0 u.R0| +
+    |h1 u.R1|) + |h2 u.R2| over R's columns (R (..., 3, 3), h (..., 3))."""
+    cols = R.transpose(-1, -2)[..., None, :, :]
+    hh = h[..., None, :]
+    out = _abs(hh[..., 0] * _dot(u, cols[..., 0, :]))
+    out = out + _abs(hh[..., 1] * _dot(u, cols[..., 1, :]))
+    return out + _abs(hh[..., 2] * _dot(u, cols[..., 2, :]))
+
+
+def _box_box_seps(c1, R1, h1, c2, R2, h2):
+    """``d_box_box``'s 15 axes' separations (..., 15), validity and unit
+    axes (..., 15, 3)."""
+    d = c2 - c1
+    cols1, cols2 = torch.broadcast_tensors(R1.transpose(-1, -2),
+                                           R2.transpose(-1, -2))
+    # R1 column i x R2 column j at 3 i + j
+    cr = _cross(cols1[..., :, None, :], cols2[..., None, :, :]).flatten(-3, -2)
+    n = _safe_norm(cr)
+    crn = torch.where((n > 1e-8)[..., None], cr / _max(n, _EPS)[..., None],
+                      torch.zeros_like(cr))
+    axes = torch.cat([cols1, cols2, crn], dim=-2)
+    valid = _dot(axes, axes) > 0.5
+    sep = _abs(_dot(axes, d[..., None, :])) - (
+        _box_radius(axes, R1, h1) + _box_radius(axes, R2, h2))
+    return sep, valid, axes
+
+
+def _swept_box_box_seps(c1a, c1b, R1, h1, c2, R2, h2):
+    """``d_swept_box_box``'s 21 axes' separations (..., 21), validity and
+    unit axes (..., 21, 3)."""
+    mid = 0.5 * (c1a + c1b)
+    m = 0.5 * (c1b - c1a)
+    cols1 = R1.transpose(-1, -2)
+    gens = torch.stack(torch.broadcast_tensors(
+        *(cols1[..., i, :] * h1[..., i, None] for i in range(3)), m),
+        dim=-2)  # (..., 4, 3): R1's columns times h1, then m
+    cols2 = R2.transpose(-1, -2).expand(gens.shape[:-2] + (3, 3))
+    d = c2 - mid
+    ii, jj = zip(*[(i, j) for i in range(4) for j in range(i + 1, 4)])
+    axes = torch.cat([
+        cols2, _cross(gens[..., ii, :], gens[..., jj, :]),
+        _cross(gens[..., :, None, :], cols2[..., None, :, :]).flatten(-3, -2)],
+        dim=-2)  # (..., 21, 3)
+    n = _safe_norm(axes)
+    un = axes / _max(n, _EPS)[..., None]
+    valid = n > 1e-8
+    rz = _abs(_dot(un, gens[..., None, 0, :]))
+    for g in range(1, 4):
+        rz = rz + _abs(_dot(un, gens[..., None, g, :]))
+    sep = _abs(_dot(un, d[..., None, :])) - (rz + _box_radius(un, R2, h2))
+    return sep, valid, un
+
+
+def _sat_max(sep, valid):
+    """The max over the valid axes (``jnp.max``: its forward-mode tangent
+    is the mean over tied maxima, as ``torch.amax``'s)."""
+    return torch.amax(torch.where(valid, sep, torch.full_like(sep, -np.inf)),
+                      dim=-1)
+
+
+def _sat_ties(sep, valid, axes, rel):
+    """A max over axes where a valid axis not parallel to the largest's
+    (|u . u_max| < 1 - 1e-6) lies within ``rel`` (1 + |max|) of it: there
+    another rounding may take another set of tied axes, and another
+    tangent.  Parallel axes (the repeated face normals of axis-aligned
+    boxes) tie exactly and share one tangent, so they are no tie."""
+    sep, axes = sep.detach(), axes.detach()
+    masked = torch.where(valid, sep, torch.full_like(sep, -np.inf))
+    top, k = torch.max(masked, dim=-1)
+    u0 = torch.gather(axes, -2, k[..., None, None].expand(
+        k.shape + (1, 3)))
+    near = masked >= (top - rel * (1.0 + torch.abs(top)))[..., None]
+    other = torch.abs(_dot(axes, u0)) < 1.0 - 1e-6
+    return (near & other).any(dim=-1)
+
+
+def d_box_box(c1, R1, h1, c2, R2, h2):
+    """Separating-axis signed distance between oriented boxes: the max
+    over the 15 SAT axes (the two boxes' face normals, the nine edge
+    crosses; a cross of parallel edges, norm <= 1e-8, is left out) of the
+    per-axis separation; exact for face-contact separation and for
+    penetration depth, a tight lower bound in edge-corner cases."""
+    sep, valid, _ = _box_box_seps(c1, R1, h1, c2, R2, h2)
+    return _sat_max(sep, valid)
+
+
+def d_swept_box_box(c1a, c1b, R1, h1, c2, R2, h2):
+    """Exact SAT distance between a *translating* box (pose R1 fixed,
+    centre sweeping c1a -> c1b) and a static box: the swept volume is a
+    zonotope with generators {R1 columns h1, motion / 2}; its face normals
+    (the generators' pairwise crosses), the static box's face normals and
+    the edge-cross axes, 21 in all (those of norm <= 1e-8 left out)."""
+    sep, valid, _ = _swept_box_box_seps(c1a, c1b, R1, h1, c2, R2, h2)
+    return _sat_max(sep, valid)
+
+
+def box_box_ties(c1, R1, h1, c2, R2, h2, rel):
+    """``d_box_box``'s rows with a near tie of its max (``_sat_ties``)."""
+    return _sat_ties(*_box_box_seps(c1, R1, h1, c2, R2, h2), rel=rel)
+
+
+def swept_box_box_ties(c1a, c1b, R1, h1, c2, R2, h2, rel):
+    """``d_swept_box_box``'s rows with a near tie of its max."""
+    return _sat_ties(*_swept_box_box_seps(c1a, c1b, R1, h1, c2, R2, h2),
+                     rel=rel)

@@ -7,16 +7,20 @@ query takes configurations with any leading dimensions (lanes, gaps) and
 returns distances with the same leading dimensions.
 
 Swept ("cast") queries follow the reference: a moving sphere against
-static geometry is swept exactly (a capsule), every other pair with a
+static geometry is swept exactly (a capsule), and so is a box on a chain
+without revolute joints against a static box (``d_swept_box_box``, the
+zonotope SAT; the chain is translation-only); every other pair with a
 moving side takes the min of the substate distance and the distance to the
 convex hull of its two poses — the exact small-hull feature distance, or
 ``geometry.d_convex_auto`` where a side is a CONVEX point cloud (the
 generic feature enumeration up to 12 vertices, Frank-Wolfe max separation
 beyond).
 
-Ported kinds: SPHERE, CAPSULE, BOX, CONVEX (and attached geometry).  A box
-on a moving link, a box-box pair or a translating box-box sweep raises
-``NotImplementedError`` when the world is built.
+Ported kinds: SPHERE, CAPSULE, BOX, CONVEX (and attached geometry); box-box
+pairs (``d_box_box``).  A pair whose sweep needs the two-pose hull of a
+moving box (a box on a chain with a revolute joint, or a moving box against
+anything but a static box) raises ``NotImplementedError`` when the world is
+built.
 
 ``kernel_tables`` packs the world's static tables (chain, geometry
 constants, pair order, sweep routes, hull topologies) for the CUDA
@@ -39,8 +43,9 @@ from . import geometry as G
 
 SPHERE, CAPSULE, BOX, CONVEX = 0, 1, 2, 3
 # sweep routes of a pair (kernel tables and tests): none, the exact sphere
-# sweep, the small-hull feature distance, d_convex_auto over the two poses
-ROUTE_NONE, ROUTE_SPHERE, ROUTE_HULL, ROUTE_CONVEX = 0, 1, 2, 3
+# sweep, the small-hull feature distance, d_convex_auto over the two poses,
+# the exact translating-box sweep
+ROUTE_NONE, ROUTE_SPHERE, ROUTE_HULL, ROUTE_CONVEX, ROUTE_BOXBOX = range(5)
 # vertex count of a geometry's support set (CONVEX: its vertex count)
 _SUPPORT_N = {SPHERE: 1, CAPSULE: 2, BOX: 8}
 # reals per link and per geometry in the kernel tables (csrc/collision.cuh)
@@ -72,6 +77,7 @@ _KERNELS = {
         A[0], A[1], A[2], B[0], B[1], B[2]),
     (CAPSULE, BOX): lambda A, B: G.d_capsule_box(
         A[0], A[1], A[2], B[0], B[1], B[2]),
+    (BOX, BOX): lambda A, B: G.d_box_box(A[0], A[1], A[2], B[0], B[1], B[2]),
     # convex: (Vw, r); the other side becomes a (radius-inflated) vertex set
     (SPHERE, CONVEX): lambda A, B: G.d_convex_auto(
         A[0][..., None, :], A[1], B[0], B[1]),
@@ -119,10 +125,12 @@ class CollisionWorld:
     pairs: tuple  # tuple[(gi, gj)], grouped by (kind, kind), kind_i <= kind_j
     _kind_idx: dict  # kind -> np indices of geoms
     _groups: tuple  # ((ka, kb), idx_a (into kind arrays), idx_b, pair_pos)
-    # sweep routes: {other_kind: (pos, sphere_idx, other_idx)} and
-    # {(ka, kb, mov_a, mov_b): (pos, idx_a, idx_b, na, nb)}
+    # sweep routes: {other_kind: (pos, sphere_idx, other_idx)},
+    # {(ka, kb, mov_a, mov_b): (pos, idx_a, idx_b, na, nb)} and the
+    # translating boxes' (pos, moving_box_idx, static_box_idx) or None
     _sphere_routes: dict
     _hull_routes: dict
+    _boxbox_route: Optional[tuple]
     _cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
@@ -166,6 +174,7 @@ class CollisionWorld:
 
     def pair_routes(self):
         """Per pair: ``("sphere", None)`` (exact sphere sweep, set),
+        ``("boxbox", None)`` (exact translating-box sweep, set),
         ``("hull", (na, nb))`` (two-pose hull feature distance, min),
         ``("convex", (na, nb))`` (``d_convex_auto`` over the two-pose
         sets, min) or ``("none", None)``."""
@@ -173,6 +182,8 @@ class CollisionWorld:
         for pos, _, _ in self._sphere_routes.values():
             for k in pos:
                 out[k] = ("sphere", None)
+        for k in () if self._boxbox_route is None else self._boxbox_route[0]:
+            out[k] = ("boxbox", None)
         for key, (pos, _, _, na, nb) in self._hull_routes.items():
             for k in pos:
                 out[k] = ("convex" if CONVEX in key[:2] else "hull", (na, nb))
@@ -203,6 +214,12 @@ class CollisionWorld:
             out.add("convex_feature" if max(n1, n2) <= G.GENERIC_FEATURE_MAX_VERTS
                     else "convex_fw")
         return sorted(out)
+
+    @property
+    def n_box_pairs(self) -> int:
+        """The number of box-box pairs (the SAT distances)."""
+        return sum(len(pos) for (ka, kb), _, _, pos in self._groups
+                   if (ka, kb) == (BOX, BOX))
 
     @property
     def n_convex_verts(self) -> int:
@@ -335,10 +352,20 @@ class CollisionWorld:
         Vb, _ = one(wk_b)
         return torch.cat([Va, Vb], dim=-2), r
 
+    def _boxbox_sweep(self, wa, wb):
+        """``d_swept_box_box``'s arguments for the translating boxes, from
+        the world-kind arrays at the motion's ends (the static box's pose
+        and the moving box's R at ``wa``)."""
+        _, ai, bi = self._boxbox_route
+        c1a, R1, h1 = _take(wa, BOX, ai)
+        c2, R2, h2 = _take(wa, BOX, bi)
+        return c1a, _take(wb, BOX, ai)[0], R1, h1, c2, R2, h2
+
     def _exact_sweep_overrides(self, wa, wb, d_min):
         """Replace the substate-min distance of every pair with a moving
         side: a moving sphere against static geometry by its exact swept
-        capsule (set); every other such pair by the min with the exact
+        capsule, a translating box against a static box by its exact swept
+        zonotope (both set); every other such pair by the min with the exact
         feature distance to the convex hull of its two poses."""
         P = self.n_pairs
         cols = [d_min]
@@ -358,6 +385,11 @@ class CollisionWorld:
             else:
                 d = G.d_capsule_box(ca, cb, r, *other)
             cols.append(d)
+            src[pos] = off + np.arange(len(pos))
+            off += len(pos)
+        if self._boxbox_route is not None:
+            pos = self._boxbox_route[0]
+            cols.append(G.d_swept_box_box(*self._boxbox_sweep(wa, wb)))
             src[pos] = off + np.arange(len(pos))
             off += len(pos)
         for (ka, kb, mov_a, mov_b), (pos, ai, bi, na, nb) in \
@@ -383,10 +415,11 @@ class CollisionWorld:
         ``geometry.convex_auto_ties`` for ``d_convex_auto``) or of a CONVEX
         pair's generic feature distance at either substate, the
         ``d_convex_convex`` sweep of a sphere against a CONVEX geometry
-        (``geometry.convex_convex_ties``), or a min whose two sides (two
-        substates; substate and hull) lie within ``band``.  There another
-        implementation, or another rounding, may return the same distance
-        with another valid Jacobian."""
+        (``geometry.convex_convex_ties``), the SAT max of a translating
+        box's sweep (``geometry.swept_box_box_ties``), or a min whose two
+        sides (two substates; substate and hull) lie within ``band``.
+        There another implementation, or another rounding, may return the
+        same distance with another valid Jacobian."""
         dt = qa.dtype
         ss = self._fractions(n_sub, dt, qa.device)
         qs = qa[..., None, :] + ss[:, None] * (qb - qa)[..., None, :]
@@ -413,6 +446,9 @@ class CollisionWorld:
                                   _take(wb, SPHERE, si)[0]], dim=-2)
                 out[..., pos_t] = G.convex_convex_ties(
                     V1, _take(wa, CONVEX, oi)[0], rel, wtol, band)
+        if self._boxbox_route is not None:
+            out[..., torch.as_tensor(self._boxbox_route[0])] = \
+                G.swept_box_box_ties(*self._boxbox_sweep(wa, wb), rel)
         for (ka, kb, mov_a, mov_b), (pos, ai, bi, na, nb) in \
                 self._hull_routes.items():
             VA, rA = self._vert_sets(wa, ka, ai, wb if mov_a else None)
@@ -426,6 +462,20 @@ class CollisionWorld:
                 ties = G.feature_ties(na, nb)
             out[..., pos_t] |= ties(VA, VB, rel, wtol, band) \
                 | (torch.abs(d_min[..., pos_t] - dh) <= band)
+        return out
+
+    def pair_ties(self, q, rel: float = 1e-9):
+        """(..., n_pairs) bool: the rows of ``pair_distances(q)`` with a
+        tied discrete decision: a box-box pair whose SAT max has a near tie
+        (``geometry.box_box_ties``); there another rounding may give
+        another valid Jacobian.  The other closed forms have none."""
+        wk = self._world_kind_arrays(*self.chain.fk(q), q.dtype)
+        out = torch.zeros(q.shape[:-1] + (self.n_pairs,), dtype=torch.bool,
+                          device=q.device)
+        for (ka, kb), ia, ib, pos in self._groups:
+            if (ka, kb) == (BOX, BOX):
+                out[..., torch.as_tensor(pos)] = G.box_box_ties(
+                    *_take(wk, BOX, ia), *_take(wk, BOX, ib), rel)
         return out
 
     def convex_route_sets(self, qa, qb, n_sub: int = 2):
@@ -476,13 +526,15 @@ class CollisionWorld:
     def _work_lists(self):
         """The kernels' work lists (``csrc/cast_block.cuh``): five counts,
         then the pairs of phase B's [closed form | CONVEX side] and of phase
-        C's [sphere sweep | min only | team route].  Closed forms and sweeps
-        are grouped by kind pair, so that neighbouring threads run one
-        route; the team items come heaviest first (Frank-Wolfe, then the
-        larger vertex sets), so that a block's last round is a light one."""
+        C's [exact sweep (sphere, box) | min only | team route].  Closed
+        forms and sweeps are grouped by kind pair, so that neighbouring
+        threads run one route; the team items come heaviest first
+        (Frank-Wolfe, then the larger vertex sets), so that a block's last
+        round is a light one."""
         routes = self.pair_routes()
         kinds = [(self.geoms[i].kind, self.geoms[j].kind) for i, j in self.pairs]
-        disc = [k for k in range(self.n_pairs) if routes[k][0] != "sphere"]
+        disc = [k for k in range(self.n_pairs)
+                if routes[k][0] not in ("sphere", "boxbox")]
 
         def of(route):
             return [k for k in range(self.n_pairs) if routes[k][0] == route]
@@ -496,7 +548,7 @@ class CollisionWorld:
                    key=lambda k: (kinds[k], k)),
             sorted((k for k in disc if kinds[k][1] == CONVEX),
                    key=lambda k: (-_SUPPORT_N.get(kinds[k][0], 0), k)),
-            sorted(of("sphere"), key=lambda k: (kinds[k], k)),
+            sorted(of("sphere") + of("boxbox"), key=lambda k: (kinds[k], k)),
             sorted(of("none"), key=lambda k: (kinds[k], k)),
             sorted(of("hull") + of("convex"), key=heavy)]
         return [len(x) for x in lists] + [k for x in lists for k in x]
@@ -564,11 +616,12 @@ class CollisionWorld:
         rec = [[i, j, ROUTE_NONE, 0, 0, 0, 0, 0] for i, j in self.pairs]
         for k, ((i, j), (route, hull)) in enumerate(
                 zip(self.pairs, self.pair_routes())):
-            if route == "sphere":
+            if route in ("sphere", "boxbox"):
+                # the moving sphere or box, then the static geometry
                 gi, gj = self.geoms[i], self.geoms[j]
-                s_is_i = gi.kind == SPHERE and moving[gi.link] \
-                    and not moving[gj.link]
-                rec[k][2] = ROUTE_SPHERE
+                s_is_i = gi.kind == (SPHERE if route == "sphere" else BOX) \
+                    and moving[gi.link] and not moving[gj.link]
+                rec[k][2] = ROUTE_SPHERE if route == "sphere" else ROUTE_BOXBOX
                 rec[k][3], rec[k][4] = (i, j) if s_is_i else (j, i)
             elif route in ("hull", "convex"):
                 rec[k][2] = ROUTE_HULL if route == "hull" else ROUTE_CONVEX
@@ -684,9 +737,14 @@ def build_collision_world(model: RobotModel, chain: Chain,
 
 
 def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
-    """The reference's ``_exact_sweep_overrides`` case split, made once."""
+    """The reference's ``_exact_sweep_overrides`` case split, made once.
+    Raises for a pair that needs the two-pose hull of a moving box."""
     moving = chain.ancestor.any(axis=1)
-    sphere_cases, hull_cases = {}, {}
+    # no revolute dof: every link's rotation is constant (the reference's
+    # translation_only)
+    translation_only = not (np.asarray(chain.jtype)[
+        np.asarray(chain.link_of_dof)] == 1).any() if chain.n_dof else True
+    sphere_cases, hull_cases, boxbox_cases = {}, {}, []
     for k, (i, j) in enumerate(pairs):
         gi, gj = specs[i], specs[j]
         if not (moving[gi.link] or moving[gj.link]):
@@ -701,8 +759,24 @@ def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
                     (k, kind_pos[SPHERE][a_idx], kind_pos[b.kind][b_idx]))
                 matched = True
                 break
+            if a.kind == BOX and b.kind == BOX and translation_only:
+                boxbox_cases.append(
+                    (k, kind_pos[BOX][a_idx], kind_pos[BOX][b_idx]))
+                matched = True
+                break
         if matched:
             continue
+        for g in (gi, gj):
+            if g.kind == BOX and moving[g.link]:
+                case = ("against a moving or non-box geometry needs the "
+                        "two-pose box hull" if translation_only else
+                        "of a chain with a revolute joint needs the rotating "
+                        "two-pose box hull")
+                raise NotImplementedError(
+                    f"{g.name}: the sweep of a box on a moving link {case} "
+                    "(16 vertices, d_convex_auto's Frank-Wolfe route), which "
+                    "is not ported; a box on a translation-only chain "
+                    "against a static box is (d_swept_box_box)")
         key = (gi.kind, gj.kind, bool(moving[gi.link]), bool(moving[gj.link]))
         hull_cases.setdefault(key, []).append(
             (k, kind_pos[gi.kind][i], kind_pos[gj.kind][j]))
@@ -720,22 +794,11 @@ def _sweep_routes(chain: Chain, specs: list, pairs: list, kind_pos: dict):
         na = support_n(specs[i]) * (2 if ma else 1)
         nb = support_n(specs[j]) * (2 if mb else 1)
         hull[(ka, kb, ma, mb)] = arrays(cases) + (na, nb)
-    return sphere, hull
+    return sphere, hull, arrays(boxbox_cases) if boxbox_cases else None
 
 
 def _make_world(chain: Chain, specs: list, raw_pairs: list) -> CollisionWorld:
     """Group candidate pairs by (kind, kind) and build the world."""
-    moving = chain.ancestor.any(axis=1)
-    for i, j in raw_pairs:
-        for s in (specs[i], specs[j]):
-            if s.kind == BOX and moving[s.link]:
-                raise NotImplementedError(
-                    f"{s.name}: a box on a moving link needs the two-pose "
-                    "box hull or the box-box sweep, not ported yet")
-        if specs[i].kind == BOX and specs[j].kind == BOX:
-            raise NotImplementedError("box-box pairs (d_box_box) are not "
-                                      "ported yet")
-
     kind_idx = {k: [] for k in (SPHERE, CAPSULE, BOX, CONVEX)}
     for gi, g in enumerate(specs):
         kind_idx[g.kind].append(gi)
@@ -754,6 +817,6 @@ def _make_world(chain: Chain, specs: list, raw_pairs: list) -> CollisionWorld:
         groups.append((key, ia, ib, np.arange(pos, pos + len(plist))))
         pairs.extend(plist)
         pos += len(plist)
-    sphere, hull = _sweep_routes(chain, specs, pairs, kind_pos)
+    sphere, hull, boxbox = _sweep_routes(chain, specs, pairs, kind_pos)
     return CollisionWorld(chain, tuple(specs), tuple(pairs), kind_idx,
-                          tuple(groups), sphere, hull)
+                          tuple(groups), sphere, hull, boxbox)

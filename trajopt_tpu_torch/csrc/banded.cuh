@@ -4,8 +4,9 @@
 //
 // Every function is __host__ __device__ (HD) and written for a TEAM of
 // threads: member `tid` of `NT` takes rows tid, tid + NT, ... of a block.
-// On the card the team is one warp (NT = 32, b <= 21 < 32, so a member
-// owns one row) and WSYNC is __syncwarp(); in the host build (ipm_host.cpp)
+// On the card the team is one warp (NT = 32, b <= BLOCK_MAX < 32, so a
+// member owns one row) and WSYNC is __syncwarp(); in the host build
+// (ipm_host.cpp)
 // the team is one thread (NT = 1) that plays every row, and WSYNC is empty.
 // The arithmetic, and the order of every sum, is the same in both.
 //
@@ -21,6 +22,8 @@
 #pragma once
 
 #include <math.h>
+
+#include <type_traits>
 
 #include "qmath.cuh"
 
@@ -38,6 +41,25 @@
 #endif
 
 namespace banded {
+
+// the largest block size K2, K3 and K6 are instantiated for (every b from 1
+// up to it; a member of the card's warp owns one row of a block)
+constexpr int BLOCK_MAX = 21;
+
+// f(std::integral_constant<int, B>()) for the B in [LO, HI] that equals
+// the run-time b (the launchers' dispatch to a template instantiation);
+// -1 when b lies outside [LO, HI]
+template <int LO, int HI, typename F>
+inline int with_block(int b, const F& f) {
+  if constexpr (LO > HI) {
+    (void)b;
+    (void)f;
+    return -1;
+  } else {
+    if (b == LO) return f(std::integral_constant<int, LO>());
+    return with_block<LO + 1, HI>(b, f);
+  }
+}
 
 template <typename T>
 BHD T bsqrt(T v);

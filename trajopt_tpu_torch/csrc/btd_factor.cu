@@ -17,7 +17,7 @@
 //
 // Design: one thread block of one warp per lane; the chain over T is a
 // loop inside the block.  Thread i owns row i of the current b x b blocks
-// (b <= 21 < 32), which sit in shared memory.  The column loop of each
+// (b <= BLOCK_MAX < 32), which sit in shared memory.  The column loop of each
 // Cholesky is warp-synchronous; every sum runs in the JAX routine's order.
 // The block steps are banded.cuh's (chol_block, offdiag_solve,
 // schur_update), which K6 ipm_banded runs in place.
@@ -65,31 +65,17 @@ btd_factor_kernel(const T* __restrict__ D, const T* __restrict__ O,
   }
 }
 
+// -1: a block size outside 1..BLOCK_MAX
 template <typename T>
 static int launch(const void* D, const void* O, void* LD, void* LM, int lanes,
                   int nT, int b, double tiny, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (b) {
-    case 7:
-      btd_factor_kernel<T, 7><<<lanes, 32, 0, s>>>(
-          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
-      break;
-    case 8:
-      btd_factor_kernel<T, 8><<<lanes, 32, 0, s>>>(
-          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
-      break;
-    case 14:
-      btd_factor_kernel<T, 14><<<lanes, 32, 0, s>>>(
-          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
-      break;
-    case 21:
-      btd_factor_kernel<T, 21><<<lanes, 32, 0, s>>>(
-          (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
-      break;
-    default:
-      return -1;
-  }
-  return (int)cudaGetLastError();
+  const int r = banded::with_block<1, banded::BLOCK_MAX>(b, [&](auto bs) {
+    btd_factor_kernel<T, decltype(bs)::value><<<lanes, 32, 0, s>>>(
+        (const T*)D, (const T*)O, (T*)LD, (T*)LM, nT, (T)tiny);
+    return 0;
+  });
+  return r < 0 ? r : (int)cudaGetLastError();
 }
 
 extern "C" int btd_factor_f32(const void* D, const void* O, void* LD, void* LM,

@@ -66,31 +66,17 @@ btd_solve_kernel(const T* __restrict__ LD, const T* __restrict__ LM,
   }
 }
 
+// -1: a block size outside 1..BLOCK_MAX
 template <typename T>
 static int launch(const void* LD, const void* LM, const void* r, void* x,
                   int lanes, int nT, int b, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  switch (b) {
-    case 7:
-      btd_solve_kernel<T, 7><<<lanes, 32, 0, s>>>(
-          (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
-      break;
-    case 8:
-      btd_solve_kernel<T, 8><<<lanes, 32, 0, s>>>(
-          (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
-      break;
-    case 14:
-      btd_solve_kernel<T, 14><<<lanes, 32, 0, s>>>(
-          (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
-      break;
-    case 21:
-      btd_solve_kernel<T, 21><<<lanes, 32, 0, s>>>(
-          (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
-      break;
-    default:
-      return -1;
-  }
-  return (int)cudaGetLastError();
+  const int code = banded::with_block<1, banded::BLOCK_MAX>(b, [&](auto bs) {
+    btd_solve_kernel<T, decltype(bs)::value><<<lanes, 32, 0, s>>>(
+        (const T*)LD, (const T*)LM, (const T*)r, (T*)x, nT);
+    return 0;
+  });
+  return code < 0 ? code : (int)cudaGetLastError();
 }
 
 extern "C" int btd_solve_f32(const void* LD, const void* LM, const void* r,

@@ -19,8 +19,9 @@
 //     with a CONVEX side, one team per (slot, pair) enumerating the
 //     generic features;
 //  C  the route per (segment, pair) (K5: per pair over the whole gap): the
-//     exact sphere sweep per (segment, pair, dof) thread (a Dual<T, 2>:
-//     the dof at both slots), the substate min per (segment, pair, column)
+//     exact sweep (a moving sphere's capsule, a translating box's zonotope
+//     SAT) per (segment, pair, dof) thread (a Dual<T, 2>: the dof at both
+//     slots), the substate min per (segment, pair, column)
 //     thread, and one team per (segment, pair) for a hull or CONVEX route,
 //     whose members then finish one Jacobian column each.
 // The pairs of each kind of work sit in contiguous ranges of the world's
@@ -45,9 +46,16 @@
 namespace coll {
 
 enum { MODE_JAC = 0, MODE_VALUE = 1, MODE_SWEEP = 2 };
-// the n_dof of K4's Jacobian instantiations: the 7-DoF arms, and (without
-// the CONVEX routes) the 9-DoF rail; ND_MAX sizes a team's tangent columns
-constexpr int ND_JAC = 7, ND_RAIL = 9, ND_MAX = 9;
+// the n_dof of K4's Jacobian instantiations: ND_JAC (the 7-DoF arms)
+// exactly, and ND_MAX a ceiling for every other n_dof from 1 to ND_MAX,
+// whose tangent columns are counted at run time (tan_cols); ND_MAX sizes
+// a team's tangent columns
+constexpr int ND_JAC = 7, ND_MAX = 12;
+// the tangent columns of an instantiation at ND: ND itself, or the
+// world's n_dof under the ceiling
+template <int ND> HD int tan_cols(const int* I) {
+  return ND == ND_MAX ? I[1] : ND;
+}
 constexpr int CAST_THREADS = 128; // the largest block
 constexpr int CAST_TEAM = 32;     // the largest team: one warp
 // a team route: the small-hull enumeration, the generic one, Frank-Wolfe
@@ -408,7 +416,7 @@ HD void team_route(const int* I, const T* F, const Slot<T>& sa,
       tm->val = witness_value(tm->V1, tm->W1, na, tm->V2, tm->W2, nb, tm->n,
                               fw) - rr;
     if constexpr (JAC) {
-      for (int d = m; d < ND; d += tsz) {
+      for (int d = m; d < tan_cols<ND>(I); d += tsz) {
         T ta = T(0), tb = T(0);
         witness_tangent_dof(I, sa, sb, gi, na, tm->V1, tm->p1, tm->W1, tm->n,
                             T(-1), d, ta, tb);
@@ -447,20 +455,20 @@ HD void jac_put(const T* ss, int k, int row, int c, T t0, T t1, T* Ja, T* Jb,
   Jb[row * nc + c] = ss[k] * t0 + ss[k + 1] * t1;
 }
 
-// Phase C of K4 / K4v, one (segment k, pair p, column c) thread of a
-// sphere-sweep or min-only route: D (n_seg, P) of the gap and, with JAC,
-// column c of the row's Ja, Jb (zero past n_dof)
+// Phase C of K4 / K4v, one (segment k, pair p, column c) thread of an
+// exact-sweep (sphere or box) or min-only route: D (n_seg, P) of the gap
+// and, with JAC, column c of the row's Ja, Jb (zero past n_dof)
 template <typename T, int ND, bool JAC>
 HD void segment_col(const int* I, const T* F, const T* slots, const T* ss,
-                    int k, int p, int c, bool sphere, const T* dsub,
+                    int k, int p, int c, bool sweep, const T* dsub,
                     const T* dtan, T* D, T* Ja, T* Jb, int nc) {
   const int P = I[3], sz = slot_size(I), row = k * P + p;
+  const int nt = tan_cols<ND>(I);
   const int* pr = pair_rec(I, p);
   const Slot<T> sa{I, slots + k * sz}, sb{I, slots + (k + 1) * sz};
   const T a = dsub[k * P + p], b = dsub[(k + 1) * P + p];
   if constexpr (!JAC) {
-    D[row] = sphere ? sphere_sweep<T>(I, F, sa, sb, pr[3], pr[4], 0)
-                    : (a < b ? a : b);
+    D[row] = sweep ? exact_sweep<T>(I, F, sa, sb, pr, 0) : (a < b ? a : b);
   } else {
     if (c >= I[1]) {  // the columns past n_dof (an inv-dt column)
       Ja[row * nc + c] = T(0);
@@ -468,9 +476,8 @@ HD void segment_col(const int* I, const T* F, const T* slots, const T* ss,
       return;
     }
     T val, t0, t1;
-    if (sphere) {
-      const Dual<T, 2> v =
-          sphere_sweep<Dual<T, 2>>(I, F, sa, sb, pr[3], pr[4], c);
+    if (sweep) {
+      const Dual<T, 2> v = exact_sweep<Dual<T, 2>>(I, F, sa, sb, pr, c);
       val = v.v;
       t0 = v.d[0];
       t1 = v.d[1];
@@ -479,8 +486,8 @@ HD void segment_col(const int* I, const T* F, const T* slots, const T* ss,
       val = a < b ? a : b;
       const T wa = a < b ? T(1) : (b < a ? T(0) : T(0.5));
       const T wb = b < a ? T(1) : (a < b ? T(0) : T(0.5));
-      t0 = wa * dtan[(k * P + p) * ND + c];
-      t1 = wb * dtan[((k + 1) * P + p) * ND + c];
+      t0 = wa * dtan[(k * P + p) * nt + c];
+      t1 = wb * dtan[((k + 1) * P + p) * nt + c];
     }
     if (c == 0) D[row] = val;
     jac_put(ss, k, row, c, t0, t1, Ja, Jb, nc);
@@ -493,7 +500,7 @@ template <typename T, int ND, bool JAC>
 HD void segment_finish(const int* I, const T* ss, int k, int p, int c, T dh,
                        const T* th, const T* dsub, const T* dtan, T* D, T* Ja,
                        T* Jb, int nc) {
-  const int P = I[3], row = k * P + p;
+  const int P = I[3], row = k * P + p, nt = tan_cols<ND>(I);
   const T a = dsub[k * P + p], b = dsub[(k + 1) * P + p];
   const T val = a < b ? a : b;
   if (c == 0) D[row] = dh < val ? dh : val;
@@ -505,8 +512,8 @@ HD void segment_finish(const int* I, const T* ss, int k, int p, int c, T dh,
     }
     const T wa = a < b ? T(1) : (b < a ? T(0) : T(0.5));
     const T wb = b < a ? T(1) : (a < b ? T(0) : T(0.5));
-    T t0 = wa * dtan[(k * P + p) * ND + c];
-    T t1 = wb * dtan[((k + 1) * P + p) * ND + c];
+    T t0 = wa * dtan[(k * P + p) * nt + c];
+    T t1 = wb * dtan[((k + 1) * P + p) * nt + c];
     if (dh < val) {
       t0 = th[c];
       t1 = th[ND + c];
@@ -536,7 +543,7 @@ template <typename T, int ND, int MODE>
 HD long cast_smem_bytes(int L, int nd, int NG, int P, int n_sub, int nteams) {
   const int n_slots = MODE == MODE_SWEEP ? n_sub + 1 : n_sub;
   return cast_team_offset<T>(n_slots, slot_size_of(L, nd, NG), n_sub, P,
-                             MODE == MODE_JAC ? ND : 0) +
+                             MODE != MODE_JAC ? 0 : ND == ND_MAX ? nd : ND) +
          nteams * (long)sizeof(TeamMem<T>);
 }
 
@@ -553,6 +560,7 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
   const int nd = I[1], NG = I[2], P = I[3], sz = slot_size(I);
   const int n_slots = MODE == MODE_SWEEP ? n_sub + 1 : n_sub;
   const int n_seg = n_sub - 1, nteams = nthr / tsz;
+  const int nt = JAC ? tan_cols<ND>(I) : 0;  // dtan's tangent columns
   const T* qa = x + lane * x_stride + (first + gap) * nc;
   const T* qb = qa + nc;
   const long g = (long)lane * n_gaps + gap;
@@ -566,11 +574,11 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
   T* dsub = slots + n_slots * sz;
   T* dtan = dsub + n_sub * P;
   TeamMem<T>* teams = reinterpret_cast<TeamMem<T>*>(
-      smem + cast_team_offset<T>(n_slots, sz, n_sub, P, JAC ? ND : 0));
+      smem + cast_team_offset<T>(n_slots, sz, n_sub, P, nt));
   const int* W = I + I[14];
   const int nBc = W[0], nBt = W[1], nCs = W[2], nCn = W[3], nCt = W[4];
   const int* Lb = W + 5;           // B: closed form | CONVEX side
-  const int* Lc = Lb + nBc + nBt;  // C: sphere | min only | team route
+  const int* Lc = Lb + nBc + nBt;  // C: exact sweep | min only | team route
 
   // A: the chain per slot, then the joint frames and world records
   CB_MARK(clk, 0);
@@ -592,8 +600,8 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
   CB_SYNC();
   CB_MARK(clk, 1);
 
-  // B: the discrete distances per (slot, pair); the pairs of the sphere
-  // route skip it (their sweep replaces the value outright).  A pair with
+  // B: the discrete distances per (slot, pair); the pairs of an exact
+  // sweep skip it (their sweep replaces the value outright).  A pair with
   // a CONVEX side takes d_convex_auto, the generic enumeration, by a team;
   // the closed forms take a thread per (slot, pair, column), from the
   // block's last thread down (the teams' first threads are busiest)
@@ -610,18 +618,18 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
         CB_STAGE(m) {
           if (m == 0) dsub[s * P + p] = me->val;
           if constexpr (JAC)
-            for (int c = m; c < ND; c += tsz)
-              dtan[(s * P + p) * ND + c] = me->th[c];
+            for (int c = m; c < nt; c += tsz)
+              dtan[(s * P + p) * nt + c] = me->th[c];
         }
       }
     }
   }
-  constexpr int NCB = JAC ? ND : 1;
+  const int NCB = JAC ? nt : 1;
   CB_THREAD(t) {
     for (int it = nthr - 1 - t; it < nBc * n_sub * NCB; it += nthr) {
       const int c = it % NCB, r = it / NCB, s = r % n_sub, p = Lb[r / n_sub];
       discrete_col<T, JAC>(I, F, Slot<T>{I, slots + s * sz}, pair_rec(I, p),
-                           c, dsub + s * P + p, dtan + (s * P + p) * ND + c);
+                           c, dsub + s * P + p, dtan + (s * P + p) * nt + c);
     }
   }
   CB_SYNC();
@@ -681,7 +689,7 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
         const int p = Lc[j];
         const int* pr = pair_rec(I, p);
         if (j < nCs) {
-          D[p] = sphere_sweep<T>(I, F, sa, sb, pr[3], pr[4], 0);
+          D[p] = exact_sweep<T>(I, F, sa, sb, pr, 0);
         } else {
           T val = dsub[p];
           for (int s = 1; s < n_sub; ++s) val = smin(val, dsub[s * P + p]);

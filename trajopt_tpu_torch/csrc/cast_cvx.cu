@@ -17,13 +17,16 @@
 
 #include "cast_kernel.cuh"
 
+// -DCAST_CEIL: K4 CVX at the n_dof ceiling alone (the library
+// cast_cvx_ceil)
 CAST_JAC_ENTRY(cast_seg_cvx_f32, float, true)
 CAST_JAC_ENTRY(cast_seg_cvx_f64, double, true)
+ATTRS_ENTRY(cast_cvx_attrs, true)
+#ifndef CAST_CEIL
 CAST_ENTRY(cast_seg_value_cvx_f32, float, 1, MODE_VALUE, true, false)
 CAST_ENTRY(cast_seg_value_cvx_f64, double, 1, MODE_VALUE, true, false)
 CAST_ENTRY(cast_sweep_cvx_f32, float, 1, MODE_SWEEP, true, false)
 CAST_ENTRY(cast_sweep_cvx_f64, double, 1, MODE_SWEEP, true, false)
-ATTRS_ENTRY(cast_cvx_attrs, true)
 
 // the route probe: route 0 the generic feature enumeration, 1 Frank-Wolfe;
 // V1 (rows, n1, 3), V2 (rows, n2, 3); D = value - (r1 + r2); K (optional)
@@ -66,3 +69,4 @@ convex_route_kernel(const int* __restrict__ I, const T* __restrict__ F,
 
 ROUTE_ENTRY(convex_route_f32, float)
 ROUTE_ENTRY(convex_route_f64, double)
+#endif

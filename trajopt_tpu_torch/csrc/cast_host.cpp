@@ -54,7 +54,8 @@ static int run(const int* I, const T* F, const T* x, long x_stride, int nc,
                                  threads, team);                              \
   }
 
-// K4: n_dof ND_JAC, and ND_RAIL without the CONVEX routes, as the card's
+// K4: n_dof ND_JAC exactly, every other n_dof up to the ceiling ND_MAX,
+// as the card's
 template <typename T, bool CVX>
 static int run_jac(const int* I, const T* F, const T* x, long x_stride,
                    int nc, int first, int n_gaps, const T* ss, int n_sub,
@@ -64,13 +65,10 @@ static int run_jac(const int* I, const T* F, const T* x, long x_stride,
     return run<T, ND_JAC, MODE_JAC, CVX>(I, F, x, x_stride, nc, first, n_gaps,
                                          ss, n_sub, D, Ja, Jb, lanes, L, nd,
                                          NG, P, threads, team);
-  if constexpr (!CVX) {
-    if (nd == ND_RAIL)
-      return run<T, ND_RAIL, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
-                                            n_gaps, ss, n_sub, D, Ja, Jb,
-                                            lanes, L, nd, NG, P, threads,
-                                            team);
-  }
+  if (nd >= 1 && nd <= ND_MAX)
+    return run<T, ND_MAX, MODE_JAC, CVX>(I, F, x, x_stride, nc, first, n_gaps,
+                                         ss, n_sub, D, Ja, Jb, lanes, L, nd,
+                                         NG, P, threads, team);
   return -1;
 }
 

@@ -97,27 +97,36 @@ static int attrs(int* out) {
   return 0;
 }
 
-// K4's launch: the Jacobian's n_dof is a template parameter, instantiated
-// at ND_JAC (the 7-DoF arms) and, without the CONVEX routes, ND_RAIL (the
-// 9-DoF rail); -1 for another n_dof.  A template, so that the CVX
-// instantiation at ND_RAIL is discarded, not compiled
+// K4's launch: the Jacobian's tangent columns are a template parameter,
+// instantiated at ND_JAC (the 7-DoF arms) exactly and at the ceiling
+// ND_MAX, which takes every other n_dof from 1 to ND_MAX (counted at run
+// time).  The ceiling's instantiations build apart (-DCAST_CEIL: the
+// libraries cast_seg_ceil / cast_cvx_ceil), so that nvcc builds them in
+// parallel with the others; each library returns -1 for an n_dof it does
+// not take
+#ifdef CAST_CEIL
+constexpr bool CEIL = true;
+#else
+constexpr bool CEIL = false;
+#endif
 template <typename T, bool CVX>
 static int launch_jac(const int* I, const T* F, const T* x, long x_stride,
                       int nc, int first, int n_gaps, const T* ss, int n_sub,
                       T* D, T* Ja, T* Jb, int lanes, int L, int nd, int NG,
                       int P, int threads, int team, long long* clk,
                       cudaStream_t stream) {
-  if (nd == ND_JAC)
-    return launch<T, ND_JAC, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
-                                            n_gaps, ss, n_sub, D, Ja, Jb,
-                                            lanes, L, nd, NG, P, threads,
-                                            team, clk, stream);
-  if constexpr (!CVX) {
-    if (nd == ND_RAIL)
-      return launch<T, ND_RAIL, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
-                                               n_gaps, ss, n_sub, D, Ja, Jb,
-                                               lanes, L, nd, NG, P, threads,
-                                               team, clk, stream);
+  if constexpr (!CEIL) {
+    if (nd == ND_JAC)
+      return launch<T, ND_JAC, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
+                                              n_gaps, ss, n_sub, D, Ja, Jb,
+                                              lanes, L, nd, NG, P, threads,
+                                              team, clk, stream);
+  } else {
+    if (nd != ND_JAC && nd >= 1 && nd <= ND_MAX)
+      return launch<T, ND_MAX, MODE_JAC, CVX>(I, F, x, x_stride, nc, first,
+                                              n_gaps, ss, n_sub, D, Ja, Jb,
+                                              lanes, L, nd, NG, P, threads,
+                                              team, clk, stream);
   }
   return -1;
 }
@@ -135,24 +144,27 @@ static int launch_jac(const int* I, const T* F, const T* x, long x_stride,
   }
 
 // which: 0..5 = cast_seg f32, f64, cast_seg_value f32, f64, cast_sweep f32,
-// f64 of this source's instantiations; 6, 7 = cast_seg f32, f64 at n_dof
-// ND_RAIL (without the CONVEX routes only)
+// f64 of this source's instantiations (-DCAST_CEIL: 0, 1 = cast_seg f32,
+// f64 at the n_dof ceiling ND_MAX)
 template <bool CVX>
 static int attrs_of(int which, int* out) {
-  switch (which) {
-    case 0: return attrs<float, ND_JAC, MODE_JAC, CVX>(out);
-    case 1: return attrs<double, ND_JAC, MODE_JAC, CVX>(out);
-    case 2: return attrs<float, 1, MODE_VALUE, CVX>(out);
-    case 3: return attrs<double, 1, MODE_VALUE, CVX>(out);
-    case 4: return attrs<float, 1, MODE_SWEEP, CVX>(out);
-    case 5: return attrs<double, 1, MODE_SWEEP, CVX>(out);
-    default: break;
+  if constexpr (CEIL) {
+    switch (which) {
+      case 0: return attrs<float, ND_MAX, MODE_JAC, CVX>(out);
+      case 1: return attrs<double, ND_MAX, MODE_JAC, CVX>(out);
+      default: return -1;
+    }
+  } else {
+    switch (which) {
+      case 0: return attrs<float, ND_JAC, MODE_JAC, CVX>(out);
+      case 1: return attrs<double, ND_JAC, MODE_JAC, CVX>(out);
+      case 2: return attrs<float, 1, MODE_VALUE, CVX>(out);
+      case 3: return attrs<double, 1, MODE_VALUE, CVX>(out);
+      case 4: return attrs<float, 1, MODE_SWEEP, CVX>(out);
+      case 5: return attrs<double, 1, MODE_SWEEP, CVX>(out);
+      default: return -1;
+    }
   }
-  if constexpr (!CVX) {
-    if (which == 6) return attrs<float, ND_RAIL, MODE_JAC, CVX>(out);
-    if (which == 7) return attrs<double, ND_RAIL, MODE_JAC, CVX>(out);
-  }
-  return -1;
 }
 
 #define ATTRS_ENTRY(NAME, CVX) \

@@ -45,10 +45,13 @@
 
 #include "cast_kernel.cuh"
 
+// -DCAST_CEIL: K4 at the n_dof ceiling alone (the library cast_seg_ceil)
 CAST_JAC_ENTRY(cast_seg_f32, float, false)
 CAST_JAC_ENTRY(cast_seg_f64, double, false)
+#ifndef CAST_CEIL
 CAST_ENTRY(cast_seg_value_f32, float, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_seg_value_f64, double, 1, MODE_VALUE, false, false)
 CAST_ENTRY(cast_sweep_f32, float, 1, MODE_SWEEP, false, false)
 CAST_ENTRY(cast_sweep_f64, double, 1, MODE_SWEEP, false, false)
+#endif
 ATTRS_ENTRY(cast_seg_attrs, false)

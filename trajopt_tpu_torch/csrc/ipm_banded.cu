@@ -8,12 +8,13 @@
 // lane's loop; a lane leaves it when its own status is set or it reaches
 // max_iter.  The per-lane body, with K1-K3's math as device functions, is
 // ipm.cuh; ipm_launch.cuh its launcher, with a plain C interface
-// (ctypes): this file's float32 entry points, ipm_banded64.cu's float64
-// and ipm_timer.cu's float32 with the phase timer.
+// (ctypes): this file's entry points, built once per dtype and range of
+// block sizes (every b from 1 to 21), and ipm_timer.cu's float32 with the
+// phase timer.
 //
 // Design: 256 threads per CTA (8 warps), one CTA per SM (the launch
 // bounds give each thread up to 255 registers, so the lane's view stays in
-// registers: no local memory in float32).  Row passes (the banded
+// registers: no local memory in float32 up to b 16).  Row passes (the banded
 // matvecs, the slack and dual updates) and column passes (A' w by column
 // over each block's cover list, P v, the box terms) are strided over all
 // 256; the assembly forms D's lower triangle and O entry by entry over the
@@ -44,10 +45,20 @@
 
 #include "ipm_launch.cuh"
 
-extern "C" int ipm_banded_f32(ipm::Args* a, void* stream) {
-  return launch<float, false>(a, stream);
+// One library per (dtype, block-size range): -DK6_F64 (0 float32, 1
+// float64) and the range K6_LO..K6_HI, given by _native.K6_GROUPS.  K6
+// runs at every block size from 1 to banded::BLOCK_MAX.
+#if !defined(K6_F64) || !defined(K6_LO) || !defined(K6_HI)
+#error "build with -DK6_F64=0|1 -DK6_LO=<b> -DK6_HI=<b>"
+#endif
+using K6T = std::conditional_t<K6_F64, double, float>;
+static_assert(1 <= K6_LO && K6_LO <= K6_HI && K6_HI <= banded::BLOCK_MAX,
+              "K6's block sizes lie in 1..BLOCK_MAX");
+
+extern "C" int ipm_banded_run(ipm::Args* a, void* stream) {
+  return launch<K6T, false, K6_LO, K6_HI>(a, stream);
 }
 
-extern "C" int ipm_banded_attrs(int which, int* out) {
-  return attrs<float>(which, out);
+extern "C" int ipm_banded_attrs(int b, int* out) {
+  return attrs<K6T, K6_LO, K6_HI>(b, out);
 }

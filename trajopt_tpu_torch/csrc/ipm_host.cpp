@@ -2,9 +2,10 @@
 // checking its arithmetic on a CPU against the plain PyTorch loop and the
 // JAX reference without a card.
 //
-// The same entry points as ipm_banded.cu and ipm_banded64.cu (same
-// arguments, same outputs), run serially: each lane's whole IPM loop by a
-// team of one thread, with an empty barrier, one lane after another.  The
+// The same entry points as ipm_banded.cu's float32 and float64 builds
+// (same arguments, same outputs), at every block size they cover, run
+// serially: each lane's whole IPM loop by a team of one thread, with an
+// empty barrier, one lane after another.  The
 // shared memory is a host array laid out as Args::smem_rows / smem_scr
 // ask (both paths of the card's plan run here).  Compiled with a C++
 // compiler by _native.host_library; it is not on any path that solves a
@@ -24,22 +25,11 @@ static int run(const ipm::Args* a) {
   return 0;
 }
 
+// every block size the card takes (1..BLOCK_MAX; -1 for another)
 template <typename T>
 static int dispatch(const ipm::Args* a) {
-  switch (a->b) {
-    case 7:
-      return run<T, 7>(a);
-    case 8:
-      return run<T, 8>(a);
-    case 9:
-      return run<T, 9>(a);
-    case 14:
-      return run<T, 14>(a);
-    case 21:
-      return run<T, 21>(a);
-    default:
-      return -1;
-  }
+  return banded::with_block<1, banded::BLOCK_MAX>(
+      a->b, [&](auto bs) { return run<T, decltype(bs)::value>(a); });
 }
 
 extern "C" int ipm_banded_f32(ipm::Args* a, void*) {

@@ -1,7 +1,9 @@
-// K6 ipm_banded's launcher, shared by its three sources (ipm_banded.cu:
-// float32, ipm_banded64.cu: float64, ipm_timer.cu: float32 with the phase
-// timer), so that nvcc builds them in parallel.  The kernel, its design
-// and its bound are described in ipm_banded.cu.
+// K6 ipm_banded's launcher, shared by its two sources (ipm_banded.cu: the
+// solver's kernels, ipm_timer.cu: float32 with the phase timer).
+// ipm_banded.cu is built into several libraries, each one dtype and a
+// range of block sizes (_native.K6_GROUPS), so that nvcc builds them in
+// parallel.  The kernel, its design and its bound are described in
+// ipm_banded.cu.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -49,52 +51,32 @@ static int launch_bs(ipm::Args* a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// the C entry point of one (dtype, timer) instantiation set (-1: a block
-// size it is not instantiated for, or shared memory the card lacks)
-template <typename T, bool TIMED>
+// the C entry point of one (dtype, timer) instantiation set, the block
+// sizes LO..HI (-1: a block size it is not instantiated for, or shared
+// memory the card lacks)
+template <typename T, bool TIMED, int LO, int HI>
 static int launch(ipm::Args* a, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (TIMED != (a->clk != nullptr)) return -2;
-  switch (a->b) {
-    case 7:
-      return launch_bs<T, 7, TIMED>(a, s);
-    case 8:
-      return launch_bs<T, 8, TIMED>(a, s);
-    case 9:
-      return launch_bs<T, 9, TIMED>(a, s);
-    case 14:
-      return launch_bs<T, 14, TIMED>(a, s);
-    case 21:
-      return launch_bs<T, 21, TIMED>(a, s);
-    default:
-      return -1;
-  }
+  return banded::with_block<LO, HI>(a->b, [&](auto bs) {
+    return launch_bs<T, decltype(bs)::value, TIMED>(a, s);
+  });
 }
 
-// the registers and local memory of an instantiation
-// (cudaFuncGetAttributes): which = 0..4 for b 7, 8, 9, 14, 21; out =
-// [numRegs, localSizeBytes, maxThreadsPerBlock, sharedSizeBytes]
-template <typename T, int BS>
-static int attrs_bs(int* out) {
-  cudaFuncAttributes f;
-  const cudaError_t e =
-      cudaFuncGetAttributes(&f, ipm_banded_kernel<T, BS, false>);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = f.numRegs;
-  out[1] = (int)f.localSizeBytes;
-  out[2] = f.maxThreadsPerBlock;
-  out[3] = (int)f.sharedSizeBytes;
-  return 0;
-}
-
-template <typename T>
-static int attrs(int which, int* out) {
-  switch (which) {
-    case 0: return attrs_bs<T, 7>(out);
-    case 1: return attrs_bs<T, 8>(out);
-    case 2: return attrs_bs<T, 9>(out);
-    case 3: return attrs_bs<T, 14>(out);
-    case 4: return attrs_bs<T, 21>(out);
-    default: return -1;
-  }
+// the registers and local memory of the instantiation at block size b
+// (cudaFuncGetAttributes; -1: b outside LO..HI): out = [numRegs,
+// localSizeBytes, maxThreadsPerBlock, sharedSizeBytes]
+template <typename T, int LO, int HI>
+static int attrs(int b, int* out) {
+  return banded::with_block<LO, HI>(b, [&](auto bs) {
+    cudaFuncAttributes f;
+    const cudaError_t e = cudaFuncGetAttributes(
+        &f, ipm_banded_kernel<T, decltype(bs)::value, false>);
+    if (e != cudaSuccess) return (int)e;
+    out[0] = f.numRegs;
+    out[1] = (int)f.localSizeBytes;
+    out[2] = f.maxThreadsPerBlock;
+    out[3] = (int)f.sharedSizeBytes;
+    return 0;
+  });
 }

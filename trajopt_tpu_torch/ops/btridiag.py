@@ -27,9 +27,9 @@ import torch
 
 from .. import _native
 
-# block sizes the CUDA kernels instantiate: a 7-DoF step, its 1/dt grid (8)
-# and superblocks of two and three steps
-KERNEL_BLOCKS = (7, 8, 14, 21)
+# block sizes the CUDA kernels instantiate: every b from 1 to
+# _native.K6_BLOCK_MAX (csrc/banded.cuh BLOCK_MAX), as K6
+KERNEL_BLOCKS = tuple(range(1, _native.K6_BLOCK_MAX + 1))
 
 
 def _tiny(dtype) -> float:
@@ -119,7 +119,9 @@ def _check_blocks(name, lanes, T, b, dtype, device, **tensors):
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {dtype} is not float32/float64")
     if b not in KERNEL_BLOCKS:
-        raise ValueError(f"{name}: block size {b} not in {KERNEL_BLOCKS}")
+        raise ValueError(f"{name}: block size {b} outside 1.."
+                         f"{KERNEL_BLOCKS[-1]}, the sizes it is instantiated "
+                         "for")
     for key, (t, shape) in tensors.items():
         if t.dtype != dtype or t.device != device:
             raise TypeError(f"{name}: {key} dtype/device differs")
@@ -143,8 +145,8 @@ def btd_factor_cuda(D: torch.Tensor, O: torch.Tensor):
               lanes, T, b, _tiny(D.dtype), stream)
     _native.check("btd_factor", code)
     _native.LAUNCHES["btd_factor"] += 1
-    if b == 8:
-        _native.LAUNCHES["btd_factor_b8"] += 1
+    if b != 7:
+        _native.LAUNCHES[f"btd_factor_b{b}"] += 1
     return LD, LM
 
 
@@ -163,8 +165,8 @@ def btd_solve_cuda(LD: torch.Tensor, LM: torch.Tensor,
               lanes, T, b, stream)
     _native.check("btd_solve", code)
     _native.LAUNCHES["btd_solve"] += 1
-    if b == 8:
-        _native.LAUNCHES["btd_solve_b8"] += 1
+    if b != 7:
+        _native.LAUNCHES[f"btd_solve_b{b}"] += 1
     return x
 
 

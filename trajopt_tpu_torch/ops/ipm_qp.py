@@ -598,11 +598,11 @@ class _K6Args(ctypes.Structure):
 
 
 K6_SCRATCH_VECS = 12  # m-vectors per row kind in K6's scratch (ipm.cuh)
-# the block sizes K6 is instantiated for (csrc/ipm_launch.cuh, in its
-# attribute query's order): the step widths of the 7-DoF arms, of their
-# 1/dt grid and of the 9-DoF rail, and the 7-DoF superblocks of two and
-# three steps
-K6_BLOCKS = (7, 8, 9, 14, 21)
+# the block sizes K6 is instantiated for: every b from 1 to
+# _native.K6_BLOCK_MAX (csrc/ipm_launch.cuh; the libraries
+# _native.K6_GROUPS), which covers every robot of the model zoo at step
+# coupling 1 and 2 (the 9-DoF rail with its 1/dt grid: b 20)
+K6_BLOCKS = tuple(range(1, _native.K6_BLOCK_MAX + 1))
 # K6's phase timer (ipm.cuh ipm::PH_*): clock64 cycles per lane, summed over
 # its iterations, then the count of factors that took their fallback
 # (K6_CLK_SLOTS per lane)
@@ -695,8 +695,8 @@ def _k6_call(su: _Setup, plan: BandPlan, fn, clk=None, smem=(1, 1)) -> _St:
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"ipm_banded: dtype {dt} is not float32/float64")
     if b not in K6_BLOCKS:
-        raise ValueError(f"ipm_banded: block size {b} not in {K6_BLOCKS} "
-                         "(the sizes K6 is instantiated for)")
+        raise ValueError(f"ipm_banded: block size {b} outside 1.."
+                         f"{K6_BLOCKS[-1]}, the sizes K6 is instantiated for")
     if (plan.b, plan.nb, plan.h.shapes, plan.a.shapes) \
             != (b, su.nb, _group_shapes(d.Bh), _group_shapes(d.Ba)):
         raise ValueError("ipm_banded: the plan was built for another block "
@@ -757,10 +757,9 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
     def launch(args):
         if clk is not None:
             fn = _native.library("ipm_timer").ipm_banded_timed_f32
-        elif su.q.dtype == torch.float32:
-            fn = _native.library("ipm_banded").ipm_banded_f32
         else:
-            fn = _native.library("ipm_banded64").ipm_banded_f64
+            fn = _native.library(_native.k6_library(
+                su.q.dtype == torch.float64, su.bsz)).ipm_banded_run
         stream = torch.cuda.current_stream(su.q.device).cuda_stream
         code = fn(ctypes.byref(args), stream)
         if code == -1:  # the block size is checked: shared memory
@@ -770,7 +769,7 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
                 "(ipm::smem_layout in csrc/ipm.cuh)")
         _native.check("ipm_banded", code)
         _native.LAUNCHES["ipm_banded"] += 1
-        if su.bsz in (8, 9):
+        if su.bsz != 7:
             _native.LAUNCHES[f"ipm_banded_b{su.bsz}"] += 1
 
     if clk is not None and (su.q.dtype != torch.float32
@@ -786,13 +785,13 @@ def ipm_banded_cuda(su: _Setup, plan: BandPlan, clk=None) -> _St:
 def kernel_attributes() -> dict:
     """{"f32_b7": {"num_regs", "local_bytes", "max_threads",
     "static_smem_bytes"}, ...} of K6's instantiations on the card, float32
-    and float64 at b 7, 8, 9, 14 and 21 (``cudaFuncGetAttributes``)."""
+    and float64 at every block size (``cudaFuncGetAttributes``)."""
     out = {}
-    for d, src in (("f32", "ipm_banded"), ("f64", "ipm_banded64")):
-        query = getattr(_native.library(src), f"{src}_attrs")
-        for which, b in enumerate(K6_BLOCKS):
+    for d in ("f32", "f64"):
+        for b in K6_BLOCKS:
+            lib = _native.library(_native.k6_library(d == "f64", b))
             buf = (ctypes.c_int * 4)()
-            _native.check(f"{src}_attrs", query(which, buf))
+            _native.check("ipm_banded_attrs", lib.ipm_banded_attrs(b, buf))
             out[f"{d}_b{b}"] = dict(zip(("num_regs", "local_bytes",
                                          "max_threads", "static_smem_bytes"),
                                         list(buf)))

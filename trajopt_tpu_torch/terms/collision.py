@@ -13,7 +13,7 @@ per linearization.
 On a CUDA tensor the pipelines run as hand-written kernels: K7
 ``disc_dist`` (distances + per-step Jacobian) and K7v ``disc_dist_value``
 (``csrc/disc_dist.cu``) for the discrete terms; K4 ``cast_seg`` (distances
-+ two-endpoint Jacobian, at n_dof 7 or 9), K4v ``cast_seg_value`` and K5
++ two-endpoint Jacobian, at n_dof 1 to 12), K4v ``cast_seg_value`` and K5
 ``cast_sweep`` (the n_sub gate of ``trajectory_in_collision``;
 ``csrc/cast_seg.cu``) for the cast terms, whose CVX instantiations
 (``csrc/cast_cvx.cu``) a world with CONVEX geometry takes; they add the
@@ -35,8 +35,7 @@ package.  ``weighted=True`` (use_weighted_sum) aggregates a group's rows
 into one, in plain PyTorch.
 
 Not ported yet (``NotImplementedError``): K7 on a world with CONVEX
-geometry (its plain version runs on a CPU tensor); K4 at n_dof 9 with
-CONVEX geometry.
+geometry (its plain version runs on a CPU tensor); K4 above n_dof 12.
 
 params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
 """
@@ -56,9 +55,10 @@ from ..ops.banded_rows import bb_to_dense, step_window
 from ..utils.lanes import lane_broadcast
 from .base import Term, hinge_cost, ineq_constraint
 
-# the n_dof K4 is instantiated for (csrc/cast_kernel.cuh): the 7-DoF arms,
-# and the 9-DoF rail without the CONVEX routes
-_JAC_NDOF = {False: (7, 9), True: (7,)}
+# the n_dof K4's Jacobian takes (csrc/cast_kernel.cuh): 7 (the 7-DoF arms)
+# in an instantiation of its own, every other n_dof from 1 up to the
+# ceiling in one more, with and without the CONVEX routes
+JAC_NDOF = tuple(range(1, _native.CAST_ND_MAX + 1))
 # K7's block (csrc/disc_dist.cu): threads per (lane, step)
 DISC_THREADS = 64
 # the cast kernels' blocks (csrc/cast_block.cuh): a CTA of 64 or 128
@@ -227,6 +227,17 @@ def contact_select_host(D, margins, coeffs, buffer: float, K: int, Ja=None,
 # --------------------------------------------------------------------------
 
 
+def jac_instantiation(n_dof: int) -> int:
+    """The tangent columns of the K4 instantiation that runs at ``n_dof``
+    (csrc/cast_kernel.cuh ``launch_jac``): 7 itself, every other n_dof the
+    ceiling's; raises above the ceiling."""
+    if n_dof not in JAC_NDOF:
+        raise NotImplementedError(
+            f"cast_seg: the Jacobian kernel is built for n_dof 1 to "
+            f"{JAC_NDOF[-1]}, not {n_dof}")
+    return 7 if n_dof == 7 else JAC_NDOF[-1]
+
+
 def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
                n_steps: int, nc: int, first: int, n_gaps: int, n_sub: int,
                stream=None, block=(CAST_THREADS, CAST_TEAM), clk=None):
@@ -241,11 +252,8 @@ def _cast_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
         raise ValueError(f"{kind}: x must be contiguous (B, {n_steps * nc})")
     nd, P = world.chain.n_dof, world.n_pairs
     cvx = bool(world.n_convex_verts)
-    if kind == "cast_seg" and nd not in _JAC_NDOF[cvx]:
-        raise NotImplementedError(
-            f"cast_seg: the Jacobian kernel is built for n_dof in "
-            f"{_JAC_NDOF[cvx]}{' with CONVEX geometry' if cvx else ''}, "
-            f"not {nd}")
+    if kind == "cast_seg":
+        jac_instantiation(nd)
     if n_sub < 2 or n_gaps < 1 or first + n_gaps > n_steps - 1:
         raise ValueError(f"{kind}: bad n_sub={n_sub} or gap range")
     lanes = x.shape[0]
@@ -281,16 +289,21 @@ def _cast_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
     :func:`_cast_call`)."""
     if not x.is_cuda:
         raise ValueError(f"{kind}: tensors must be on a CUDA device")
-    lib = _native.library("cast_cvx" if world.n_convex_verts else "cast_seg")
+    # K4 at any n_dof but 7 is the ceiling's library
+    lib = _native.library(("cast_cvx" if world.n_convex_verts else "cast_seg")
+                          + ("_ceil" if kind == "cast_seg"
+                             and world.chain.n_dof != 7 else ""))
     out = _cast_call(lib, kind, world, x, *args,
                      stream=torch.cuda.current_stream(x.device).cuda_stream,
                      block=CAST_BLOCKS[kind, bool(world.n_convex_verts)],
                      clk=clk)
     _native.LAUNCHES[kind] += 1
-    if kind == "cast_seg" and world.chain.n_dof == 9:
-        _native.LAUNCHES["cast_seg_nd9"] += 1
+    if kind == "cast_seg" and world.chain.n_dof != 7:
+        _native.LAUNCHES[f"cast_seg_nd{world.chain.n_dof}"] += 1
     for route in world.kernel_routes():
         _native.LAUNCHES[route] += 1
+    if world.n_box_pairs:
+        _native.LAUNCHES["cast_boxbox"] += 1
     return out
 
 
@@ -312,21 +325,25 @@ def cast_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
 def kernel_attributes():
     """{instantiation: {"num_regs", "local_bytes", "max_threads",
     "static_smem_bytes"}} of every K4, K4v, K5, K7 and K10 instantiation on
-    the card (``cudaFuncGetAttributes``, through each library's query)."""
+    the card (``cudaFuncGetAttributes``, through each library's query);
+    ``cast_seg_ceil_*`` is K4 at the n_dof ceiling (every n_dof but 7)."""
     out = {}
     kinds = {"cast_seg": [f"{k}_{s}" for k in ("cast_seg", "cast_seg_value",
                                                 "cast_sweep")
-                          for s in ("f32", "f64")]
-             + ["cast_seg_nd9_f32", "cast_seg_nd9_f64"],
+                          for s in ("f32", "f64")],
+             "cast_seg_ceil": ["cast_seg_ceil_f32", "cast_seg_ceil_f64"],
              "cast_cvx": [f"{k}_cvx_{s}" for k in ("cast_seg",
                                                    "cast_seg_value",
                                                    "cast_sweep")
                           for s in ("f32", "f64")],
+             "cast_cvx_ceil": ["cast_seg_cvx_ceil_f32",
+                               "cast_seg_cvx_ceil_f64"],
              "disc_dist": [f"{k}_{s}" for k in ("disc_dist", "disc_dist_value")
                            for s in ("f32", "f64")],
              "contact_select": ["contact_select_f32", "contact_select_f64"]}
-    for src, names in kinds.items():
-        query = getattr(_native.library(src), f"{src}_attrs")
+    for lib, names in kinds.items():
+        src = lib.removesuffix("_ceil")
+        query = getattr(_native.library(lib), f"{src}_attrs")
         for which, kind in enumerate(names):
             buf = (ctypes.c_int * 4)()
             _native.check(f"{src}_attrs", query(which, buf))
@@ -438,6 +455,8 @@ def disc_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
     out = _disc_call(_native.library("disc_dist"), kind, world, x, *args,
                      stream=torch.cuda.current_stream(x.device).cuda_stream)
     _native.LAUNCHES[kind] += 1
+    if world.n_box_pairs:
+        _native.LAUNCHES["cast_boxbox"] += 1
     return out
 
 
