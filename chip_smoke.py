@@ -60,6 +60,15 @@ Every line printed is one JSON object.  Phases, in order:
    (``K6_BOX_REGROUP``); and at every other block size the box slice
    instantiated (``K6_NEW_BLOCKS``) on the IPM fixture (``ipm_fixture``,
    128 lanes x 10 steps) in float64, with the same checks;
+2h. (run after 2d) K11 ipm_dense against the plain IPM loop on the first
+   QPs of the dense-row paths, captured from their solves on the card (128
+   lanes each; each QP's shapes and route printed): 6a's and 6b's (K11's
+   block route at b 7), 7c(i)'s (b 8), 7c(ii)'s and simple_collision's
+   (its dense route), in float32 and float64 with phase 2d's rules; then
+   on each, in float32, K11's time (the bare launch on the device clock,
+   ``device_ms``, and the wrapper's CUDA events), the plain loop's, its
+   bound (``k11_work``), its shared-memory plan, and each K11 library's
+   registers and local memory;
 2e. the kernels of the reference's solve benchmarks against their plain
    versions, float32 and float64, with phase 2's value and Jacobian rules
    (a float32 Jacobian row over its tolerance must be one whose plain
@@ -112,8 +121,10 @@ Every line printed is one JSON object.  Phases, in order:
    four solve benchmarks: simple_collision, planning, glass_upright,
    redundant_rail), each entry with every launch counter and the count of
    batched QP solves set to 0 just before and read just after: each
-   entry's dict and launches; simple_collision must launch K7 and K7v and
-   no K6 (its one-step QP takes the dense rows), planning K4 and K4v and
+   entry's dict and launches; simple_collision must launch K7 and K7v,
+   K11 once per batched QP solve (its one-step QP takes the dense rows:
+   K11's dense route) and no K6, K1-K3 or torch Cholesky
+   (``dense_path_ok``), planning K4 and K4v and
    K6 once per batched QP solve, the rail K6 at b 9 and K4 at n_dof 9; no
    lane non-finite; the K5 gate at n_sub 16 on the planning and rail
    lanes; converged and gated counts at or above ``BENCH_LIMITS`` (the
@@ -144,9 +155,11 @@ Every line printed is one JSON object.  Phases, in order:
    ``port_cartesian_problem("waypoints")`` (cart_pose EQ at three waypoint
    steps, cart_vel INEQ, joint_vel cost, step 0 fixed) through
    ``solve_batch(SQPParams())``: one cold run, one warm run with the
-   counters reset before it (6b: three); the dense-row QP must launch K2
-   and K3 and
-   never K6, the terms K9 and K9v; no lane non-finite; converged and
+   counters reset before it (6b: three); the dense-row QP must launch K11
+   once per batched QP solve (its block route at b 7) and never K6, K1-K3
+   or torch's dense Cholesky and triangular solves (``LINALG_CALLS``,
+   counted by ``count_linalg``), the terms K9 and K9v; no lane
+   non-finite; converged and
    gated (CONVERGED, max violation < 1e-4) at or above ``CART_LIMITS``
    (the JAX package's CPU counts less 5);
 6b. the IK goal: the same starts, ik_term EQ at the last step (the goal's
@@ -157,7 +170,8 @@ Every line printed is one JSON object.  Phases, in order:
    norms, K8's time;
 6d. 8 lanes each of 6a and 6b in float64, kernel path against plain path:
    equal statuses and QP counts, x within 3e-5 and the plain path's own
-   one-ulp move;
+   one-ulp move; the kernel path with K11 once per batched QP solve, as
+   6a;
 2g. (run after 6d) K10 contact_select and K10v against the plain
    selection (``contact_select_plain``), float32 and float64: the cast
    form on K4's outputs for phase 7a's x0 plus seeded noise (128 lanes x
@@ -182,9 +196,10 @@ Every line printed is one JSON object.  Phases, in order:
    goal timed): as 7a, with K6 at b 8 on every batched QP solve, the
    collision pipeline at nc 8, and the 1/dt column inside its bounds;
 7c. the timed velocity on the dense rows (no collision): (i) a timed
-   joint_vel INEQ (|velocity| <= 1 rad/s) and the goal: K2 / K3 at b 8,
-   no K6; (ii) plus a total_time cost: the dense Cholesky, neither K2 /
-   K3 nor K6; one cold and one warm run each; velocity and total time
+   joint_vel INEQ (|velocity| <= 1 rad/s) and the goal: K11 at b 8; (ii)
+   plus a total_time cost: K11's dense route; each K11 once per batched
+   QP solve, never K6, K1-K3 or torch's Cholesky; one cold and one warm
+   run each; velocity and total time
    checked as ``tests/test_json_io.py`` does; counts at or above
    ``JSON_LIMITS``;
 7d. the CLI: ``python3 -m trajopt_tpu_torch solve`` as a subprocess,
@@ -210,8 +225,10 @@ Every line printed is one JSON object.  Phases, in order:
    n_x 60, 1,363 swept hinge rows per lane at n_sub 48);
 8c. each spherebot document of the JSON tests and the CLI test's
    (``spherebot_docs``) in 128 float32 copies: the status counts exactly
-   the JAX package's (``SPHERE_DOC_COUNTS``; K6 at b 2 and 3, K7, the
-   dense Cholesky); and 8 float64 copies, kernel path against plain path:
+   the JAX package's (``SPHERE_DOC_COUNTS``; K6 at b 2 and 3, K7, K11's
+   dense route on the one-step and total_time documents: every batched QP
+   solve one K6 or one K11 launch, K1-K3 and torch's Cholesky never); and
+   8 float64 copies, kernel path against plain path:
    equal statuses and QP counts, x within ``SPHERE_DX_TOL``;
 8d. the CLI with no ``--device``: ``solve --model spherebot`` on the CLI
    test's document and ``solve --model boxbot --n-sub 48`` on 8a's
@@ -227,6 +244,7 @@ Any failure raises and the script exits non-zero.  It exits non-zero with
 no result when CUDA is not available.
 """
 
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -274,7 +292,7 @@ TRANSFER_DX_TOL = 1e-4
 # the kernels the flagship's path launches (K6 once per batched QP solve);
 # pick-and-place's transfer also runs the two CONVEX routes inside K4, K4v
 # and K5.  K1-K3 are held against their plain versions in phase 2 and run
-# on no path: their math is K6's (csrc/banded.cuh)
+# on no path: their math is K6's and K11's (csrc/banded.cuh)
 PATH_KERNELS = ("ipm_banded", "cast_seg", "cast_seg_value", "cast_sweep")
 QP_KERNELS = ("bb_quad", "btd_factor", "btd_solve")
 # run_benchmarks at batch 128, float32: the JAX package's own counts on the
@@ -314,8 +332,11 @@ K6_F32_DX_TOL = 2e-2
 # H100 K6 and the plain loop end with objectives 0.025 eps_g apart and dx
 # 0.108 of the lane's largest apart on lanes ending alike.  There the
 # objective and usability are held as on every QP, and float64 holds dx to
-# K6_DX_TOL
-K6_F32_DX_REPORTED = ("json_table_time_qp1",)
+# K6_DX_TOL.  Phase 2h's K11 on 6a's first QP likewise: in float32 every
+# lane ends at status 2 on both K11 and the plain loop (stopped by the NaN
+# guard after ~13 iterations), their dx a few percent of the lane's
+# largest apart (PERF.md section 6)
+K6_F32_DX_REPORTED = ("json_table_time_qp1", "cartesian_waypoints_qp1")
 K6_F32_GAP_TOL = 0.05
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; non-tensor-core
 # float32 67 TFLOP/s, float64 34 TFLOP/s
@@ -476,6 +497,39 @@ def k6_work(qp, b, iters, es):
     nbytes = lanes * (es * (ins + outs) + 4 * 2) + 4 * (m + 8)
     return nbytes, flops
 
+
+
+def k11_work(qp, su, iters, es):
+    """(bytes, flops) that one K11 ipm_dense launch's function needs on
+    these inputs: each input read once (P' scaled and raw, six n-vectors,
+    the scaled and raw dense rows, four per-row vectors) and each output
+    written once; against the least arithmetic of the iterations this
+    run's lanes took (``iters``).  Per iteration: ten passes over the
+    dense rows (2 m n each: the matvecs of the barrier diagonals, the
+    residuals, two Newton solves with their refinement, the termination
+    test, the composite objective), five P products (2 n^2 each), the
+    assembly of K's band (block route: nb b (b + 1) / 2 + (nb - 1) b^2
+    entries) or lower triangle (dense route: n (n + 1) / 2), 2 flops per
+    entry and row with d a_i formed once (n per row), the factor (block
+    route nb (b^3 / 3 + 2 b^3), dense route n^3 / 3), four solves (block
+    4 n b each, dense 2 n^2), ~100 flops per column and 30 per row; plus
+    the initial point."""
+    lanes, n = qp.q.shape
+    mh, ma = qp.e_h.shape[1], qp.e_a.shape[1]
+    m, nb, b = mh + ma, su.nb, su.bsz
+    if nb:
+        entries = nb * b * (b + 1) / 2 + (nb - 1) * b * b
+        fac, sol = nb * (b ** 3 / 3 + 2 * b ** 3), 4 * 4 * n * b
+    else:
+        entries = n * (n + 1) / 2
+        fac, sol = n ** 3 / 3, 4 * 2 * n * n
+    per_it = 20 * m * n + 10 * n * n + m * (n + 2 * entries) + fac + sol \
+        + 100 * n + 30 * m
+    flops = float(iters.double().sum()) * per_it + lanes * (2 * m * n + 10 * n)
+    ins = 2 * n * n + 6 * n + 2 + 2 * m * n + 4 * m
+    outs = 4 * n + 2 * mh + 3 * ma + 3
+    nbytes = lanes * (es * (ins + outs) + 4 * 2)
+    return nbytes, flops
 
 # The cartesian slice (phases 2f and 6a-6d): the pose kernels K9
 # cart_pose / K9v cart_pose_value and K8 solve_ik against their plain
@@ -1417,6 +1471,7 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
         launches = dict(_native.LAUNCHES)
         nqp = qp_calls[0]
         by_path[key] = launches
+        dense_ok = dense_path_ok(launches, nqp, b=7)
         st = res.status.cpu().numpy()
         v = res.cnt_viols.max(dim=1).values.cpu().numpy()
         conv = st == CONVERGED
@@ -1432,6 +1487,7 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
                "batched_qp_solves": nqp, "launches": launches,
                "launches_per_batched_qp_solve": {
                    k: n / nqp for k, n in launches.items() if n},
+               "linalg_calls": dict(LINALG_CALLS),
                "limits": CART_LIMITS[key], "card": smi}
         if kind == "waypoints":
             rec["max_displacement"] = inp["max_displacement"]
@@ -1439,9 +1495,9 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
         assert rec["finite"], rec
         assert rec["converged"] >= CART_LIMITS[key]["converged"] \
             and rec["gated"] >= CART_LIMITS[key]["gated"], rec
-        # the dense-row QP: K2 / K3 factor and solve, K6 never
-        assert nqp > 0 and launches["ipm_banded"] == 0 \
-            and launches["btd_factor"] > 0 and launches["btd_solve"] > 0, rec
+        # the dense-row QP: K11 once per batched QP solve (its block
+        # route, b 7); K6, K1-K3 and torch's Cholesky never
+        assert dense_ok, rec
         if kind == "waypoints":
             assert launches["cart_pose"] > 0 \
                 and launches["cart_pose_value"] > 0, rec
@@ -1452,7 +1508,12 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
     inp8 = cartesian_inputs(8, T)
     for kind in ("waypoints", "ik_goal"):
         spec, data, _ = port_cartesian_problem(kind, inp8, torch.float64, dev)
+        reset_counts()
         rk = solve_batch(spec, data, params, device=dev, kernels=True)
+        sync()
+        # the kernel path: K11 once per batched QP solve, as 6a / 6b
+        k_launches, k_nqp = dict(_native.LAUNCHES), qp_calls[0]
+        k_ok = dense_path_ok(k_launches, k_nqp, b=7)
         rp = solve_batch(spec, data, params, device=dev, kernels=False)
         u = torch.as_tensor(np.random.default_rng(14).integers(
             -1, 2, tuple(data.x0.shape)), device=dev).to(torch.float64)
@@ -1470,10 +1531,12 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
                "same_n_qp": bool((rk.n_qp_solves == rp.n_qp_solves).all()),
                "max_abs_dx": float(dx.max()), "dx_per_lane": dx.tolist(),
                "plain_x0_ulp_dx_per_lane": du.tolist(),
-               "tol": FLAGSHIP_DX_TOL}
+               "tol": FLAGSHIP_DX_TOL, "kernel_path_batched_qp_solves": k_nqp,
+               "kernel_path_launches": {k: n for k, n in k_launches.items()
+                                        if n}}
         rec["ok"] = rec["same_status"] and rec["same_n_qp"] \
             and rec["max_abs_dx"] < FLAGSHIP_DX_TOL \
-            and rec["max_abs_dx"] <= max(float(du.max()), 1e-10)
+            and rec["max_abs_dx"] <= max(float(du.max()), 1e-10) and k_ok
         emit(rec)
         assert rec["ok"], rec
 
@@ -1802,15 +1865,12 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
                        converged_lanes_time_and_velocity_ok=int(
                            (ok_t & conv).sum()))
             gated = gated & ok_t
-            assert launches["ipm_banded"] == 0, rec
-            if kind == "timed_vel":  # dense rows at kkt_block 8: K2 / K3
-                assert launches["btd_factor_b8"] > 0 \
-                    and launches["btd_factor_b8"] == launches["btd_factor"] \
-                    and launches["btd_solve_b8"] == launches["btd_solve"] \
-                    and launches["btd_solve_b8"] > 0, rec
-            else:  # no band: the dense Cholesky
-                assert launches["btd_factor"] == 0 \
-                    and launches["btd_solve"] == 0, rec
+            # K11 once per batched QP solve: (i) its block route at
+            # kkt_block 8, (ii) no band (total_time couples every step):
+            # its dense route; K6, K1-K3 and torch's Cholesky never
+            rec["linalg_calls"] = dict(LINALG_CALLS)
+            assert dense_path_ok(launches, nqp,
+                                 b=8 if kind == "timed_vel" else None), rec
         rec["gated"] = int(gated.sum())
         emit(rec)
         assert rec["converged"] >= JSON_LIMITS[key]["converged"] \
@@ -2056,6 +2116,7 @@ def box_phases(dev, smi, time_ms, reset_counts, qp_calls, box_probs,
             and rec["gated"] >= BOX_LIMITS[kind]["gated"], rec
 
     # ---------------- phase 8c: the spherebot documents on the card
+    on_k11 = []
     for key, (doc, _, _) in spherebot_docs().items():
         spec, data, params = port_json_problem([doc] * lanes, torch.float32,
                                                dev, "spherebot")[:3]
@@ -2063,7 +2124,18 @@ def box_phases(dev, smi, time_ms, reset_counts, qp_calls, box_probs,
         res = solve_batch(spec, data, params, device=dev)
         sync()
         launches = dict(_native.LAUNCHES)
+        nqp = qp_calls[0]
         by_path[f"spherebot_{key}"] = launches
+        # every batched QP solve one launch: K11 on the dense-row QPs (one
+        # step, a total_time cost), K6 on the banded ones; K1-K3 and
+        # torch's Cholesky never
+        dense = launches["ipm_dense"] > 0
+        one_each = (dense_path_ok(launches, nqp) if dense else
+                    launches["ipm_banded"] == nqp > 0
+                    and all(launches[k] == 0 for k in QP_KERNELS)
+                    and not any(LINALG_CALLS.values()))
+        if dense:
+            on_k11.append(key)
         st = res.status.cpu().numpy()
         counts = {int(k): int(n) for k, n in
                   zip(*np.unique(st, return_counts=True))}
@@ -2077,17 +2149,20 @@ def box_phases(dev, smi, time_ms, reset_counts, qp_calls, box_probs,
                "n_x": spec.n_x, "status_counts": counts,
                "jax_status_counts": SPHERE_DOC_COUNTS.get(key),
                "mean_qp_solves": float(res.n_qp_solves.double().mean()),
-               "batched_qp_solves": qp_calls[0],
+               "batched_qp_solves": nqp,
                "launches": {k: n for k, n in launches.items() if n},
                "f64_same_status": bool((rk.status == rp.status).all()),
                "f64_same_n_qp": bool((rk.n_qp_solves
                                       == rp.n_qp_solves).all()),
-               "f64_max_abs_dx": dx, "f64_tol": SPHERE_DX_TOL, "card": smi}
+               "f64_max_abs_dx": dx, "f64_tol": SPHERE_DX_TOL,
+               "qp_kernel": "ipm_dense" if dense else "ipm_banded",
+               "card": smi}
         rec["ok"] = counts == SPHERE_DOC_COUNTS.get(key) \
             and rec["f64_same_status"] and rec["f64_same_n_qp"] \
-            and dx <= SPHERE_DX_TOL
+            and dx <= SPHERE_DX_TOL and one_each
         emit(rec)
         assert rec["ok"], rec
+    assert on_k11, "no spherebot document took K11's dense-row QP"
 
     # ---------------- phase 8d: the CLI on the card, no --device
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2180,10 +2255,48 @@ def box_phases(dev, smi, time_ms, reset_counts, qp_calls, box_probs,
     return by_path
 
 
+# calls of torch's dense Cholesky factors and triangular solves, by name,
+# once count_linalg() has wrapped them (reset with the launch counters):
+# a dense-row path whose QPs K11 carries makes none
+LINALG_CALLS = {}
+
+
+def count_linalg():
+    """Wrap ``torch.linalg.cholesky``, ``cholesky_ex``,
+    ``solve_triangular`` and ``torch.cholesky_solve`` so that every call
+    adds one to ``LINALG_CALLS[name]``."""
+    import torch
+
+    for mod, name in ((torch.linalg, "cholesky"),
+                      (torch.linalg, "cholesky_ex"),
+                      (torch.linalg, "solve_triangular"),
+                      (torch, "cholesky_solve")):
+        fn = getattr(mod, name)
+        if name in LINALG_CALLS:
+            continue
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            LINALG_CALLS[_name] += 1
+            return _fn(*a, **k)
+        LINALG_CALLS[name] = 0
+        setattr(mod, name, counted)
+
+
+def dense_path_ok(launches, n_qp, b=None):
+    """A dense-row path: K11 once per batched QP solve (on its block route
+    at block size b, or with b None its dense route), K6 and standalone
+    K1-K3 never, and no call in ``LINALG_CALLS`` since the last reset."""
+    route = launches[f"ipm_dense_b{b}" if b else "ipm_dense_chol"]
+    return n_qp > 0 and launches["ipm_dense"] == n_qp == route \
+        and launches["ipm_banded"] == 0 \
+        and all(launches[k] == 0 for k in QP_KERNELS) \
+        and not any(LINALG_CALLS.values())
+
+
 def count_qp_calls(sqp_mod, native):
     """Count the SQP's batched QP solves (``sqp_mod.solve_ipm_qp`` wrapped):
     (calls, reset), calls[0] the count since reset(), which also sets every
-    kernel's launch counter to 0."""
+    kernel's launch counter and every ``LINALG_CALLS`` count to 0."""
     calls = [0]
     solve_qp = sqp_mod.solve_ipm_qp
 
@@ -2194,6 +2307,8 @@ def count_qp_calls(sqp_mod, native):
 
     def reset():
         native.reset_launches()
+        for k in LINALG_CALLS:
+            LINALG_CALLS[k] = 0
         calls[0] = 0
     return calls, reset
 
@@ -2936,117 +3051,129 @@ def main():
             *qps["box_cast_t30_qp1"], c)
 
     def qp_as(qd, dtype):
+        dense = {k: getattr(qd, k).to(dtype) for k in ("A_h", "A_a")
+                 if getattr(qd, k) is not None}
         return qd._replace(
             **{k: getattr(qd, k).to(dtype)
                for k in ("P", "q", "e_h", "w_h", "e_a", "w_a", "lb", "ub")},
             Bh=tuple(B.to(dtype) for B in qd.Bh),
-            Ba=tuple(B.to(dtype) for B in qd.Ba))
+            Ba=tuple(B.to(dtype) for B in qd.Ba), **dense)
+
+    def ipm_vs_plain(check, qname, qd0, qset, dtype, **extra):
+        """The kernel (K6 on banded rows, K11 on dense rows) against the
+        plain loop on one captured QP in ``dtype``, per lane, with phase
+        2d's rules; the record (with ``extra``), its "ok" set."""
+        dname = str(dtype).split(".")[-1]
+        b_k = qset.kkt_block
+        qd = qp_as(qd0, dtype)
+        rk = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=True)
+        rpl = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=False)
+        sync()
+        same_it = rk.iters == rpl.iters
+        same_st = rk.status == rpl.status
+        dx_abs = (rk.x - rpl.x).abs().amax(-1)
+        dx_rel = dx_abs / rpl.x.abs().amax(-1).clamp(min=1e-30)
+        # runs that end apart: the run that stopped first converged
+        # with its ratio at the threshold (iterations apart), or, at
+        # equal iterations, one converged just under 1 and the other
+        # ended just over it
+        band = K6_RATIO_BAND[dname]
+        rk_r = torch.maximum(rk.prim_res, rk.dual_res)
+        rp_r = torch.maximum(rpl.prim_res, rpl.dual_res)
+        k_first = rk.iters < rpl.iters
+        first_r = torch.where(k_first, rk_r, rp_r)
+        first_st = torch.where(k_first, rk.status, rpl.status)
+        under = (first_st == 1) & (first_r >= 1 - band) & (first_r <= 1)
+        conv_r = torch.where(rk.status == 1, rk_r, rp_r)
+        other_r = torch.where(rk.status == 1, rp_r, rk_r)
+        tie_eq = ((rk.status == 1) | (rpl.status == 1)) \
+            & (conv_r >= 1 - band) & (other_r > 1) \
+            & (other_r <= 1 + band)
+        apart = ~(same_it & same_st)
+        threshold = torch.where(same_it, tie_eq, under)
+        # or one run stopped early on the NaN guard (a non-finite
+        # Newton step; the incumbent is returned)
+        first_it = torch.minimum(rk.iters, rpl.iters)
+        guard = ~same_it & (first_it < qset.max_ipm_iter) \
+            & (first_st != 1)
+        usable_k = (rk.status == 1) | (rk.status == 2)
+        usable_p = (rpl.status == 1) | (rpl.status == 2)
+        # the composite objective at each answer, and the IPM's own gap
+        # tolerance there
+        fk = ipm_qp.composite_objective(qd, rk.x, b_k)
+        fp = ipm_qp.composite_objective(qd, rpl.x, b_k)
+        f0 = ipm_qp.composite_objective(qd, torch.zeros_like(qd.q), b_k)
+        eps_g = qset.eps_abs * (torch.maximum(fp.abs(), f0.abs()) + 1)
+        f_gap = ((fk - fp).abs() / eps_g)
+        eq = same_it & same_st
+        ah = (qd.A_h @ rpl.x[..., None])[..., 0] if qd.A_h is not None \
+            else br.bb_mv(qd.Bh, qd.Gh, rpl.x, b_k)
+        active = (qd.e_h + ah > 0).sum(-1)
+        violated0 = (qd.e_h > 0).sum(-1)
+        rec = {"check": check, "qp": qname, "dtype": dname,
+               "lanes": lanes, "b": b_k, "n": qd.q.shape[1],
+               "m_h": qd.e_h.shape[1], "m_a": qd.e_a.shape[1],
+               "active_hinge_rows_per_lane_mean":
+               float(active.double().mean()),
+               "lanes_with_active_hinge_rows": int((active > 0).sum()),
+               "hinge_rows_violated_at_dx0_per_lane_mean":
+               float(violated0.double().mean()),
+               "status_plain": torch.bincount(rpl.status,
+                                              minlength=4).tolist(),
+               "iters_plain_mean": float(rpl.iters.double().mean()),
+               "iters_plain_max": int(rpl.iters.max()),
+               "lanes_same_status": int(same_st.sum()),
+               "lanes_same_iters": int(same_it.sum()),
+               "dx_rel_err_equal_lanes": max0(dx_rel[eq]),
+               "dx_abs_err_equal_lanes": max0(dx_abs[eq]),
+               "dx_rel_err_all_lanes": float(dx_rel.max()),
+               "lanes_apart": int(apart.sum()),
+               "apart_lanes": torch.nonzero(apart)[:, 0].tolist(),
+               "apart_ratio_kernel": rk_r[apart].tolist(),
+               "apart_ratio_plain": rp_r[apart].tolist(),
+               "apart_iters": [rk.iters[apart].tolist(),
+                               rpl.iters[apart].tolist()],
+               "apart_threshold_cases": int((apart & threshold).sum()),
+               "apart_nan_guard_cases": int((apart & guard).sum()),
+               "lanes_same_usable": int((usable_k == usable_p).sum()),
+               "objective_gap_over_eps_g_max": float(f_gap.max()),
+               "ratio_band": band, **extra}
+        if dname == "float64":
+            ok = bool(same_st.all()) and rec["dx_rel_err_equal_lanes"] \
+                <= K6_DX_TOL and bool((threshold | ~apart).all())
+            rec["tol"] = K6_DX_TOL
+        else:
+            dx_held = qname not in K6_F32_DX_REPORTED
+            if not dx_held:
+                # both float32 answers against the float64 plain loop's
+                r64 = ipm_qp.solve_ipm_qp(qp_as(qd0, torch.float64), qset,
+                                          device=dev, kernels=False)
+                scale = r64.x.abs().amax(-1).clamp(min=1e-30)
+                rec["dx_rel_to_f64_plain"] = {
+                    "kernel": float(((rk.x.double() - r64.x).abs().amax(
+                        -1) / scale).max()),
+                    "plain": float(((rpl.x.double() - r64.x).abs().amax(
+                        -1) / scale).max())}
+            ok = bool((f_gap <= K6_F32_GAP_TOL).all()) \
+                and bool((usable_k == usable_p).all()) \
+                and (rec["dx_rel_err_equal_lanes"] <= K6_F32_DX_TOL
+                     or not dx_held)
+            rec["tol"] = {"objective_over_eps_g": K6_F32_GAP_TOL,
+                          "dx_rel_equal_lanes": K6_F32_DX_TOL
+                          if dx_held else "reported",
+                          "usable_alike": True}
+        rec["ok"] = ok
+        emit(rec)
+        return rec
 
     k6_recs = []
     for qname, (qd0, qset) in qps.items():
-        b_k = qset.kkt_block
         for dtype in (torch.float64,) if qname.startswith("fixture_") \
                 else (torch.float32, torch.float64):
-            dname = str(dtype).split(".")[-1]
-            qd = qp_as(qd0, dtype)
-            rk = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=True)
-            rpl = ipm_qp.solve_ipm_qp(qd, qset, device=dev, kernels=False)
-            sync()
-            same_it = rk.iters == rpl.iters
-            same_st = rk.status == rpl.status
-            dx_abs = (rk.x - rpl.x).abs().amax(-1)
-            dx_rel = dx_abs / rpl.x.abs().amax(-1).clamp(min=1e-30)
-            # runs that end apart: the run that stopped first converged
-            # with its ratio at the threshold (iterations apart), or, at
-            # equal iterations, one converged just under 1 and the other
-            # ended just over it
-            band = K6_RATIO_BAND[dname]
-            rk_r = torch.maximum(rk.prim_res, rk.dual_res)
-            rp_r = torch.maximum(rpl.prim_res, rpl.dual_res)
-            k_first = rk.iters < rpl.iters
-            first_r = torch.where(k_first, rk_r, rp_r)
-            first_st = torch.where(k_first, rk.status, rpl.status)
-            under = (first_st == 1) & (first_r >= 1 - band) & (first_r <= 1)
-            conv_r = torch.where(rk.status == 1, rk_r, rp_r)
-            other_r = torch.where(rk.status == 1, rp_r, rk_r)
-            tie_eq = ((rk.status == 1) | (rpl.status == 1)) \
-                & (conv_r >= 1 - band) & (other_r > 1) \
-                & (other_r <= 1 + band)
-            apart = ~(same_it & same_st)
-            threshold = torch.where(same_it, tie_eq, under)
-            # or one run stopped early on the NaN guard (a non-finite
-            # Newton step; the incumbent is returned)
-            first_it = torch.minimum(rk.iters, rpl.iters)
-            guard = ~same_it & (first_it < qset.max_ipm_iter) \
-                & (first_st != 1)
-            usable_k = (rk.status == 1) | (rk.status == 2)
-            usable_p = (rpl.status == 1) | (rpl.status == 2)
-            # the composite objective at each answer, and the IPM's own gap
-            # tolerance there
-            fk = ipm_qp.composite_objective(qd, rk.x, b_k)
-            fp = ipm_qp.composite_objective(qd, rpl.x, b_k)
-            f0 = ipm_qp.composite_objective(qd, torch.zeros_like(qd.q), b_k)
-            eps_g = qset.eps_abs * (torch.maximum(fp.abs(), f0.abs()) + 1)
-            f_gap = ((fk - fp).abs() / eps_g)
-            eq = same_it & same_st
-            active = (qd.e_h + br.bb_mv(qd.Bh, qd.Gh, rpl.x, b_k) > 0).sum(-1)
-            violated0 = (qd.e_h > 0).sum(-1)
-            rec = {"check": "ipm_banded", "qp": qname, "dtype": dname,
-                   "lanes": lanes, "b": b_k, "n": qd.q.shape[1],
-                   "m_h": qd.e_h.shape[1], "m_a": qd.e_a.shape[1],
-                   "active_hinge_rows_per_lane_mean":
-                   float(active.double().mean()),
-                   "lanes_with_active_hinge_rows": int((active > 0).sum()),
-                   "hinge_rows_violated_at_dx0_per_lane_mean":
-                   float(violated0.double().mean()),
-                   "status_plain": torch.bincount(rpl.status,
-                                                  minlength=4).tolist(),
-                   "iters_plain_mean": float(rpl.iters.double().mean()),
-                   "iters_plain_max": int(rpl.iters.max()),
-                   "lanes_same_status": int(same_st.sum()),
-                   "lanes_same_iters": int(same_it.sum()),
-                   "dx_rel_err_equal_lanes": max0(dx_rel[eq]),
-                   "dx_abs_err_equal_lanes": max0(dx_abs[eq]),
-                   "dx_rel_err_all_lanes": float(dx_rel.max()),
-                   "lanes_apart": int(apart.sum()),
-                   "apart_lanes": torch.nonzero(apart)[:, 0].tolist(),
-                   "apart_ratio_kernel": rk_r[apart].tolist(),
-                   "apart_ratio_plain": rp_r[apart].tolist(),
-                   "apart_iters": [rk.iters[apart].tolist(),
-                                   rpl.iters[apart].tolist()],
-                   "apart_threshold_cases": int((apart & threshold).sum()),
-                   "apart_nan_guard_cases": int((apart & guard).sum()),
-                   "lanes_same_usable": int((usable_k == usable_p).sum()),
-                   "objective_gap_over_eps_g_max": float(f_gap.max()),
-                   "ratio_band": band}
-            if dname == "float64":
-                ok = bool(same_st.all()) and rec["dx_rel_err_equal_lanes"] \
-                    <= K6_DX_TOL and bool((threshold | ~apart).all())
-                rec["tol"] = K6_DX_TOL
-            else:
-                dx_held = qname not in K6_F32_DX_REPORTED
-                if not dx_held:
-                    # both float32 answers against the float64 plain loop's
-                    r64 = ipm_qp.solve_ipm_qp(qp_as(qd0, torch.float64), qset,
-                                              device=dev, kernels=False)
-                    scale = r64.x.abs().amax(-1).clamp(min=1e-30)
-                    rec["dx_rel_to_f64_plain"] = {
-                        "kernel": float(((rk.x.double() - r64.x).abs().amax(
-                            -1) / scale).max()),
-                        "plain": float(((rpl.x.double() - r64.x).abs().amax(
-                            -1) / scale).max())}
-                ok = bool((f_gap <= K6_F32_GAP_TOL).all()) \
-                    and bool((usable_k == usable_p).all()) \
-                    and (rec["dx_rel_err_equal_lanes"] <= K6_F32_DX_TOL
-                         or not dx_held)
-                rec["tol"] = {"objective_over_eps_g": K6_F32_GAP_TOL,
-                              "dx_rel_equal_lanes": K6_F32_DX_TOL
-                              if dx_held else "reported",
-                              "usable_alike": True}
-            rec["ok"] = ok
-            emit(rec)
+            rec = ipm_vs_plain("ipm_banded", qname, qd0, qset, dtype)
             k6_recs.append(rec)
-            assert ok, f"K6 ipm_banded disagrees with the plain loop ({qname}, {dname})"
+            assert rec["ok"], "K6 ipm_banded disagrees with the plain " \
+                f"loop ({qname}, {rec['dtype']})"
     # K6's time at the main path's shape (float32, the flagship's first QP)
     qd, qset = qps["flagship_qp1"]
     su = ipm_qp._setup(qd, qset)
@@ -3090,6 +3217,70 @@ def main():
             f"b {b_t}, m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
         emit({"time": f"ipm_banded_b{b_t}", **timing[f"ipm_banded_b{b_t}"],
               "card": smi})
+
+    # ---- 2h: K11 ipm_dense against the plain loop, on the first QPs of
+    # the dense-row paths: 6a and 6b (its block route at b 7), 7c(i) (b 8),
+    # 7c(ii) and simple_collision (its dense route)
+    from trajopt_tpu_torch.solver.types import SQPParams
+
+    def first_qp(spec, data, par):
+        return capture(lambda: solve_batch(spec, data, dataclasses.replace(
+            par, max_total_qp_solves=1), device=dev), {0})[0]
+    cart_inp = cartesian_inputs(lanes, 30)
+    dense_qps = {}
+    for kind in ("waypoints", "ik_goal"):
+        dense_qps[f"cartesian_{kind}_qp1"] = first_qp(*port_cartesian_problem(
+            kind, cart_inp, f32, dev)[:2], SQPParams())
+    for kind in ("timed_vel", "timed_vel_total"):
+        dense_qps[f"json_{kind}_qp1"] = first_qp(*json_probs[kind][:3])
+    dense_qps["simple_collision_qp1"] = first_qp(
+        *make_simple_collision(lanes, f32, device=dev)[:2], params)
+    k11_recs = []
+    for qname, (qd0, qset) in dense_qps.items():
+        su = ipm_qp._setup(qd0, qset)
+        route = f"block, b {su.bsz}" if su.nb else "dense"
+        emit({"phase": "dense_qp", "qp": qname, "lanes": lanes,
+              "n": qd0.q.shape[1], "kkt_block": qset.kkt_block,
+              "route": route, "m_h": qd0.e_h.shape[1],
+              "m_a": qd0.e_a.shape[1], "max_ipm_iter": qset.max_ipm_iter})
+        for dtype in (torch.float32, torch.float64):
+            rec = ipm_vs_plain("ipm_dense", qname, qd0, qset, dtype,
+                               route=route)
+            k11_recs.append(rec)
+            assert rec["ok"], "K11 ipm_dense disagrees with the plain " \
+                f"loop ({qname}, {rec['dtype']})"
+    # K11's times on each captured QP (float32): the bare launch on the
+    # device clock, the wrapper's CUDA events, the plain loop, the bound
+    k11_attrs = ipm_qp.dense_kernel_attributes()
+    for qname, (qd, qset) in dense_qps.items():
+        su = ipm_qp._setup(qd, qset)
+        args, keep = ipm_qp._k11_args(su)
+        run = _native.library(_native.k11_library(False, args.b)).ipm_dense_run
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        it_k = ipm_qp.ipm_dense_cuda(su).it
+        k11_bytes, k11_flops = k11_work(qd, su, it_k, es)
+        t_bytes = k11_bytes / PEAK_BYTES * 1e3
+        t_ops = k11_flops / PEAK_FLOPS["float32"] * 1e3
+        dev_ms, queue = device_ms(lambda: run(ctypes.byref(args), stream),
+                                  reps=5)
+        timing[f"ipm_dense_{qname}"] = dict(
+            ms=dev_ms, queue=queue,
+            wrapper_ms=time_ms(lambda: ipm_qp.ipm_dense_cuda(su), reps=5),
+            plain_ms=time_ms(lambda: ipm_qp._loop_plain(su), reps=1),
+            library_ms=None, bytes=k11_bytes, flops=k11_flops,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            iters_mean=float(it_k.double().mean()), iters_max=int(it_k.max()),
+            route=f"block, b {su.bsz}" if su.nb else "dense",
+            smem={k: getattr(args, k) for k in (
+                "smem_base", "smem_rows", "smem_k", "smem_scr")},
+            shape=f"one batched QP: {lanes} lanes, n {qd.q.shape[1]}, "
+            f"m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
+        del keep
+        emit({"time": f"ipm_dense_{qname}", **timing[f"ipm_dense_{qname}"],
+              "card": smi})
+    emit({"phase": "ipm_dense_attributes", "attributes": k11_attrs,
+          "card": smi})
 
     # ---- 2e: K7 / K7v, K4 / K4v at n_sub 8 and K4 at n_dof 9 against
     # their plain versions, then their times ----
@@ -3397,6 +3588,7 @@ def main():
     # the SQP's batched QP solves (its calls of solve_ipm_qp), counted from
     # here on beside the launch counters
     qp_calls, reset_counts = count_qp_calls(sqp_mod, _native)
+    count_linalg()
 
     def path_ok(launches, n_qp):
         """K6 once per batched QP solve; K1-K3 never."""
@@ -3843,6 +4035,7 @@ def main():
         entry_s = time.perf_counter() - t0
         bl = dict(_native.LAUNCHES)
         bench_launches[name], bench_qp[name] = bl, qp_calls[0]
+        linalg_calls = dict(LINALG_CALLS)
         res, world = got[name]
         st = res.status.cpu().numpy()
         v = res.cnt_viols.max(dim=1).values.cpu().numpy()
@@ -3850,6 +4043,7 @@ def main():
         out = {"phase": "run_benchmarks", "entry": rec,
                "entry_s_cold_and_warm": entry_s, "runs": 4,
                "launches": bl, "batched_qp_solves": qp_calls[0],
+               "linalg_calls": linalg_calls,
                "finite": bool(torch.isfinite(res.x).all()),
                "max_viol": float(v.max()),
                "status_counts": np.bincount(st, minlength=5).tolist(),
@@ -3872,9 +4066,10 @@ def main():
             assert rec["converged"] >= lim["converged"] \
                 and out["gated"] >= lim["gated"], (name, rec, out["gated"])
         if name == "simple_collision":
-            # one step: the dense-row QP (no K6), the discrete kernels
+            # one step: the dense-row QP (K11's dense route, no K6), the
+            # discrete kernels
             assert bl["disc_dist"] > 0 and bl["disc_dist_value"] > 0 \
-                and bl["ipm_banded"] == 0 and qp_calls[0] > 0, bl
+                and dense_path_ok(bl, qp_calls[0]), (bl, linalg_calls)
         else:
             assert path_ok(bl, qp_calls[0]), (name, bl, qp_calls[0])
             assert bl["cast_seg"] > 0 and bl["cast_seg_value"] > 0, bl
@@ -3949,14 +4144,14 @@ def main():
 
     # ------------------------------------------------------------------
     # phases 2f and 6a-6d: the cartesian slice (K9 / K9v, K8; the
-    # dense-row QP's K2 / K3)
+    # dense-row QP's K11)
     # ------------------------------------------------------------------
     cart_entries, cart_paths = cartesian_phases(dev, smi, time_ms,
                                                 reset_counts, qp_calls)
 
     # ------------------------------------------------------------------
     # phases 2g and 7a-7e: the JSON documents and the CLI (K10 / K10v, K6
-    # at b 8, K2 / K3 at b 8)
+    # at b 8, K11 at b 8 and on its dense route)
     # ------------------------------------------------------------------
     json_entries, json_paths = json_phases(
         dev, smi, time_ms, reset_counts, qp_calls, json_probs)
@@ -3976,6 +4171,7 @@ def main():
     # ------------------------------------------------------------------
     replaces = {
         "ipm_banded": "trajopt_tpu/ops/ipm_qp.py:92",
+        "ipm_dense": "trajopt_tpu/ops/ipm_qp.py:108",
         "bb_quad": "trajopt_tpu/ops/banded_rows.py:89",
         "btd_factor": "trajopt_tpu/ops/btridiag.py:208",
         "btd_solve": "trajopt_tpu/ops/btridiag.py:234",
@@ -4004,7 +4200,8 @@ def main():
     for k in ("convex_feature", "convex_fw"):
         source[k] = "trajopt_tpu_torch/csrc/cast_block.cuh"
     launches = {k: launches_f[k] for k in PATH_KERNELS + QP_KERNELS}
-    launches.update(convex_feature=launches_p["convex_feature"],
+    launches.update(ipm_dense=cart_paths["cartesian_waypoints"]["ipm_dense"],
+                    convex_feature=launches_p["convex_feature"],
                     convex_fw=launches_p["convex_fw"],
                     # K7 / K7v: simple_collision's run_benchmarks entry
                     disc_dist=bench_launches["simple_collision"]["disc_dist"],
@@ -4039,6 +4236,32 @@ def main():
         "library_ms_null_because": "no one PyTorch call solves this QP",
         "sources": [f"trajopt_tpu_torch/csrc/{f}" for f in (
             "ipm_banded.cu", "ipm_launch.cuh", "ipm.cuh", "banded.cuh",
+            "qmath.cuh")]}
+    # K11: dx against the plain loop on the captured dense-row QPs, on the
+    # lanes whose runs end alike (float32 at 6a's first QP for
+    # max_abs_err); its time at 6a's first QP, the others by QP
+    k11_main = [r for r in k11_recs if r["qp"] == "cartesian_waypoints_qp1"
+                and r["dtype"] == "float32"][0]
+    timing["ipm_dense"] = timing["ipm_dense_cartesian_waypoints_qp1"]
+    errs["ipm_dense"] = {
+        "max_abs_err": k11_main["dx_abs_err_equal_lanes"],
+        "max_abs_err_of": "dx, float32, 6a's first QP, lanes whose runs "
+        "end alike",
+        "dx_max_rel_err_equal_lanes": {
+            d: max(r["dx_rel_err_equal_lanes"] for r in k11_recs
+                   if r["dtype"] == d) for d in ("float32", "float64")},
+        "lanes_apart": {f"{r['qp']}_{r['dtype']}": r["lanes_apart"]
+                        for r in k11_recs},
+        "objective_gap_over_eps_g_max": max(
+            r["objective_gap_over_eps_g_max"] for r in k11_recs),
+        "ms_is": "the bare launch on the device clock (device_ms)",
+        "launches_are": "one per batched QP solve: 6a's warm run",
+        "by_qp": {q[len("ipm_dense_"):]: t for q, t in timing.items()
+                  if q.startswith("ipm_dense_")},
+        "attributes": k11_attrs,
+        "library_ms_null_because": "no one PyTorch call solves this QP",
+        "sources": [f"trajopt_tpu_torch/csrc/{f}" for f in (
+            "ipm_dense.cu", "ipm_dense.cuh", "ipm.cuh", "banded.cuh",
             "qmath.cuh")]}
     for k, v in coll_err.items():
         errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
@@ -4192,16 +4415,18 @@ def main():
             "objective_gap_over_eps_g_max": r["objective_gap_over_eps_g_max"]}
         for r in k6_recs if r["qp"].startswith(("fixture_b",
                                                 "box_cast_t30_qp1_b"))}
-    # K1-K3 at b 8: K2 / K3 launch on 7c(i)'s dense rows, K1 on no path
+    # K1-K3 at b 8: on no path as kernels of their own (K11 runs K2 /
+    # K3's block steps as device functions on 7c(i)'s dense rows)
     for k in ("bb_quad", "btd_factor", "btd_solve"):
         errs[k]["instantiations"] = {"b8": dict(
             b8["timing"][k], checks=b8["checks"][k],
             launches=json_paths["json_timed_vel"].get(f"{k}_b8", 0),
-            launches_are="phase 7c(i)'s warm run" if k != "bb_quad"
+            launches_are="phase 7c(i)'s warm run (none: K11 runs them as "
+            "device functions)" if k != "bb_quad"
             else "none: K1 runs inside K6 on every path",
             attributes=b8_attrs[k if k == "bb_quad" else f"{k}_b8"])}
-    # K2 / K3 at b 2, 3 and 9: on no path of this slice (the dense-row
-    # paths here are T=1 or time-coupled: the dense Cholesky)
+    # K2 / K3 at b 2, 3 and 9: on no path as kernels of their own (the
+    # dense-row paths there are T=1 or time-coupled: K11's dense route)
     for b_t, kb in k123_new.items():
         for k in ("btd_factor", "btd_solve"):
             errs[k]["instantiations"][f"b{b_t}"] = dict(

@@ -29,8 +29,8 @@ QP assembly, the IPM, model values, evaluation; inside them the CUDA
 kernels).  Prints one JSON line per problem: wall times, phases, device
 kernel time and busy share, CUDA kernel launches, the batched QP solves
 and batched IPM iterations (a batched QP solve runs as many IPM iterations
-as its slowest lane) with the launches per each, K6 ``ipm_banded``'s device
-time, host and device time per layer with the IPM layer's share of the
+as its slowest lane) with the launches per each, K6 ``ipm_banded``'s and
+K11 ``ipm_dense``'s device time, host and device time per layer with the IPM layer's share of the
 wall, and the top device kernels.  The full ``key_averages`` tables go
 to one text file per problem in the repo's output directory.
 """
@@ -192,6 +192,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem,
         (sqp, "_model_values"): "L:model_values",
         (sqp, "_evaluate"): "L:evaluate",
         (ipm_qp, "ipm_banded_cuda"): "K:ipm_banded",
+        (ipm_qp, "ipm_dense_cuda"): "K:ipm_dense",
         (CastDistancePre, "value_jac"): "K:cast_seg",
         (CastDistancePre, "value"): "K:cast_seg_value",
         (cartesian, "cart_pose_rows"): "K:cart_pose",
@@ -241,6 +242,8 @@ def measure(spec, data, params, dev, smi, args, steps, problem,
     top = sorted(kernels, key=lambda e: -_dev_time(e, True))[:12]
     k6_ms = sum(_dev_time(e, True) for e in kernels
                 if "ipm_banded" in e.key) / 1e3
+    k11_ms = sum(_dev_time(e, True) for e in kernels
+                 if "ipm_dense" in e.key) / 1e3
     ipm_host_ms = layer_rows.get("L:ipm_qp", {}).get("host_ms", 0.0)
     out = {
         "card": smi, "scene": args.scene, "problem": problem,
@@ -258,6 +261,7 @@ def measure(spec, data, params, dev, smi, args, steps, problem,
         "launches_per_batched_qp_solve": n_launch / max(n_qp, 1),
         "launches_per_ipm_iteration": n_launch / max(n_ipm, 1),
         "k6_device_ms": k6_ms,
+        "k11_device_ms": k11_ms,
         "ipm_layer_share_of_profiled_wall": ipm_host_ms / 1e3 / prof_wall,
         "hand_kernel_launches": launches,
         "layers": layer_rows,

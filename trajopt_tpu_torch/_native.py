@@ -15,7 +15,9 @@ K7's block code), ``csrc/pose_host.cpp`` (K9 cart_pose's and K8
 solve_ik's), ``csrc/contact_select_host.cpp`` (K10 contact_select's) and
 ``csrc/ipm_host.cpp`` (K6 ipm_banded's, which on the card is
 ``csrc/ipm_banded.cu`` built once per dtype and range of block sizes,
-``K6_GROUPS``, and ``ipm_timer`` float32 with the phase timer) for the CPU
+``K6_GROUPS``, and ``ipm_timer`` float32 with the phase timer; and K11
+ipm_dense's, on the card ``csrc/ipm_dense.cu`` built likewise,
+``K11_GROUPS``) for the CPU
 with the host's C++ compiler, for checking that code against the plain
 PyTorch version without a card.
 """
@@ -98,6 +100,23 @@ def k6_library(f64: bool, b: int) -> str:
                      "the sizes K6 is instantiated for")
 
 
+# K11 ipm_dense runs the dense-row QPs: its block route at every b from 1
+# to K6_BLOCK_MAX (a run-time b, each library one dtype and a range of b,
+# whose factor and solves it instantiates), its dense route in every
+# library
+K11_GROUPS = ((1, 9), (10, 14), (15, 18), (19, 21))
+
+
+def k11_library(f64: bool, b: int) -> str:
+    """The name of K11's library for the block route at block size b (b 0:
+    the dense route, which every library runs; float64 or float32)."""
+    for lo, hi in K11_GROUPS:
+        if lo <= b <= hi or (b == 0 and lo == 1):
+            return f"ipm_dense_{'f64' if f64 else 'f32'}_b{lo}_{hi}"
+    raise ValueError(f"ipm_dense: block size {b} outside 1..{K6_BLOCK_MAX}, "
+                     "the sizes K11's block route is instantiated for")
+
+
 # library -> (source stem, its -D defines) of a library built from a
 # source other than its own name's: K6's, and K4 at the n_dof ceiling
 # (with and without the CONVEX routes), built apart from the cast sources'
@@ -108,6 +127,13 @@ _VARIANTS = {k6_library(f64, lo): ("ipm_banded", [
 for _name in _VARIANTS:
     _SIGNATURES[_name] = [("ipm_banded_run", [_P, _P]),
                           ("ipm_banded_attrs", [_I, _P])]
+for _f64 in (False, True):
+    for _lo, _hi in K11_GROUPS:
+        _name = k11_library(_f64, _lo)
+        _VARIANTS[_name] = ("ipm_dense", [
+            f"-DK11_F64={int(_f64)}", f"-DK11_LO={_lo}", f"-DK11_HI={_hi}"])
+        _SIGNATURES[_name] = [("ipm_dense_run", [_P, _P]),
+                              ("ipm_dense_attrs", [_P])]
 for _src, _sfx in (("cast_seg", ""), ("cast_cvx", "_cvx")):
     _VARIANTS[f"{_src}_ceil"] = (_src, ["-DCAST_CEIL"])
     _SIGNATURES[f"{_src}_ceil"] = [(f"cast_seg{_sfx}_{s}", _CAST)
@@ -124,7 +150,8 @@ ON_DEMAND = ("ipm_timer",)
 _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
                 "disc_dist": ["-fmad=false"], "cart_pose": ["-fmad=false"],
                 "solve_ik": ["-fmad=false"], "contact_select": ["-fmad=false"],
-                "ipm_banded": ["-fmad=false"], "ipm_timer": ["-fmad=false"]}
+                "ipm_banded": ["-fmad=false"], "ipm_timer": ["-fmad=false"],
+                "ipm_dense": ["-fmad=false"]}
 
 # the n_dof K4's Jacobian runs at (1..CAST_ND_MAX; csrc/cast_block.cuh
 # ND_MAX)
@@ -141,16 +168,19 @@ CAST_ND_MAX = 12
 # ``btd_factor_b{b}`` and ``btd_solve_b{b}`` those of K6, K2 and K3 at
 # block size b (every b but 7); ``cart_pose`` and
 # ``cart_pose_value`` count K9 and K9v (one source), ``solve_ik`` K8,
-# ``contact_select`` and ``contact_select_value`` K10 and K10v
+# ``contact_select`` and ``contact_select_value`` K10 and K10v;
+# ``ipm_dense`` K11, ``ipm_dense_chol`` its launches on the dense route
+# and ``ipm_dense_b{b}`` those on the block route at b (every b)
 LAUNCHES = dict.fromkeys(
     ["bb_quad", "btd_factor", "btd_solve", "cast_seg", "cast_seg_value",
      "cast_sweep", "convex_feature", "convex_fw", "convex_route",
      "ipm_banded", "disc_dist", "disc_dist_value", "cart_pose",
      "cart_pose_value", "solve_ik", "contact_select", "contact_select_value",
-     "cast_boxbox"]
+     "cast_boxbox", "ipm_dense", "ipm_dense_chol"]
     + [f"cast_seg_nd{n}" for n in range(1, CAST_ND_MAX + 1) if n != 7]
     + [f"{k}_b{b}" for k in ("ipm_banded", "btd_factor", "btd_solve")
-       for b in range(1, K6_BLOCK_MAX + 1) if b != 7], 0)
+       for b in range(1, K6_BLOCK_MAX + 1) if b != 7]
+    + [f"ipm_dense_b{b}" for b in range(1, K6_BLOCK_MAX + 1)], 0)
 _LIBS: dict = {}
 BUILD_SECONDS: dict = {}
 
@@ -191,7 +221,8 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                     "pose_host": [sig for src in ("cart_pose", "solve_ik")
                                   for sig in _SIGNATURES[src]
                                   if not sig[0].endswith("_attrs")],
-                    "ipm_host": [(f"ipm_banded_{s}", [_P, _P])
+                    "ipm_host": [(f"{k}_{s}", [_P, _P])
+                                 for k in ("ipm_banded", "ipm_dense")
                                  for s in ("f32", "f64")],
                     # the team size in place of the stream
                     "contact_select_host": [
@@ -301,7 +332,8 @@ def check(name: str, code: int) -> None:
         raise ValueError(f"{name}: size not instantiated (block size 1 to "
                          f"{K6_BLOCK_MAX}; n_dof 1 to {CAST_ND_MAX} for "
                          "cast_seg; ipm_banded within "
-                         "the shared-memory limit; the cast kernels' blocks "
+                         "the shared-memory limit; ipm_dense's block route "
+                         "in its library's range; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
                          "on the host; disc_dist's of 32-128 threads; solve_ik at "

@@ -1,6 +1,8 @@
 // K6 ipm_banded's per-lane body: the banded interior-point QP solver's
 // whole Mehrotra predictor-corrector loop for ONE lane, from the initial
-// interior point to termination.
+// interior point to termination.  The loop (Loop) is shared with K11
+// ipm_dense (ipm_dense.cuh), which supplies its own rows, P and factor;
+// K6's are Lane's.
 //
 // Replaces trajopt_tpu/ops/ipm_qp.py:92 solve_ipm_qp's banded loop (body
 // :373-511, cond :513-514, while_loop :516-520, make_kkt_solve :321-371);
@@ -275,17 +277,27 @@ BHD T pmv(const T* PD, const T* PO, const T* v, int nb, int t, int i) {
   return acc;
 }
 
-template <typename T, int BS, int WT, bool TIMED>
-struct Lane {
-  int tid, nthr, n, nb, max_iter;
+// The loop of one lane, shared by K6 (banded rows: Lane below) and K11
+// ipm_dense (dense rows: ipm_dense.cuh).  LaneT, the derived lane (CRTP),
+// supplies the rows' and P's products: hdot / adot (a row of Jh / Ja times
+// v), hraw / araw (a raw row times v), hcol / acol (column k of A'(u * w),
+// u may be null), pmv / rpmv (row k of P v, scaled / raw); the condensed
+// matrix and its factor: assemble() (K + reg I), team_factor() (true
+// where the whole team factors it: factor_team(); else the first WT
+// members: factor_warp(), false where a fast path did not hold, then
+// factor_exact()); and solve(r, x) (K x = r, every member returning after
+// the barrier).
+template <typename T, int WT, bool TIMED, typename LaneT>
+struct Loop {
+  int tid, nthr, n, max_iter;
   T eps_abs, eps_rel, c, fzero;
   // shared memory
-  T *D, *O, *rc, *red;
+  T* red;
   T* sc;  // [0] the factor's fast paths did not hold, [1] mu
   T *dx, *z5, *z6, *lb, *ub, *q, *dbox, *rdx, *rhs, *ddxa, *dz5a, *dz6a,
       *ddx, *dz5, *dz6, *tmp, *tmp2;
   // device memory
-  const T *PD, *PO, *RD, *RO, *qr, *lbr, *ubr, *glb, *gub, *gq;
+  const T *qr, *lbr, *ubr, *glb, *gub, *gq;
   T *odx, *oz5, *oz6, *dxb;
   Rows<T> H, A;
   T *h, *z1, *p, *nn, *y;
@@ -296,18 +308,7 @@ struct Lane {
   static BHD T dcap() { return sizeof(T) == 8 ? T(1e14) : T(1e10); }
   static BHD T chol_tiny() { return sizeof(T) == 8 ? T(1e-30) : T(1e-18); }
 
-  BHD T hdot(int i, const T* v) const {
-    return rowdot(H.S + (long)i * 2 * BS, v + H.rowG[i] * BS, 2 * BS);
-  }
-  BHD T adot(int i, const T* v) const {
-    return rowdot(A.S + (long)i * 2 * BS, v + A.rowG[i] * BS, 2 * BS);
-  }
-  BHD T hcol(const T* w, const T* u, int t, int i) const {
-    return rmv_col(H, w, u, BS, nb, t, i);
-  }
-  BHD T acol(const T* w, const T* u, int t, int i) const {
-    return rmv_col(A, w, u, BS, nb, t, i);
-  }
+  BHD LaneT& self() { return *static_cast<LaneT*>(this); }
 
   // the step-length candidate of (v, dv), folded into the running -min
   static BHD void step_cand(T& negmin, T v, T dv) {
@@ -332,11 +333,6 @@ struct Lane {
   // the timer's count of factors that took their fallback
   BHD void count_fallback() {
     if (TIMED && tid == 0) clk[N_PHASES] += 1;
-  }
-
-  BHD void solve(const T* r, T* x) const {
-    if (tid < WT) banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid);
-    sync();
   }
 
   // hinge scratch
@@ -388,40 +384,6 @@ struct Lane {
                 : -z6[k] * (ub[k] - dx[k]);
   }
 
-  // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D's lower triangle,
-  // O), a block row per member in turn
-  IHD void assemble() {
-    constexpr int BB = BS * BS;
-    const int nDr = nb * BS, nOr = (nb - 1) * BS;
-    T dm[1] = {T(-INFINITY)};
-    for (int e = tid; e < nDr + nOr; e += nthr) {
-      const bool isD = e < nDr;
-      const int ee = isD ? e : e - nDr;
-      const int t = ee / BS, i = ee % BS;
-      const long at = (long)t * BB + i * BS;
-      T acc[BS];
-#pragma unroll
-      for (int j = 0; j < BS; ++j)
-        acc[j] = isD ? PD[at + j] + (i == j ? dbox[t * BS + i] : T(0))
-                     : PO[at + j];
-      quad_row(H, dhd(), nb, isD, t, i, acc);
-      quad_row(A, da(), nb, isD, t, i, acc);
-#pragma unroll
-      for (int j = 0; j < BS; ++j) {
-        if (!isD || j <= i) (isD ? D : O)[at + j] = acc[j];
-        if (isD && j == i) dm[0] = nmax(dm[0], acc[j]);
-      }
-    }
-    team_reduce<T, 0, 1>(red, nullptr, dm, tid, nthr);
-    const T reg = sizeof(T) == 8 ? T(1e-12) * dm[0] + T(1e-11)
-                                 : T(1e-7) * dm[0] + T(1e-8);
-    for (int k = tid; k < nb * BS; k += nthr) {
-      T* Dk = D + (long)(k / BS) * BB + (k % BS) * (BS + 1);
-      *Dk = *Dk + reg;
-    }
-    sync();
-  }
-
   // the barrier of the members past the first warp (the side of
   // factor_beside; the host's one thread: none)
   BHD void side_sync() const {
@@ -435,6 +397,7 @@ struct Lane {
   // its rows and warp 0's), so each member's sums and the reduction tree
   // are team_reduce's over the whole team; every side member gets mu.
   IHD T residuals_side() {
+    LaneT& L = self();
     const bool two = nthr > 1 && (tid >> 5) == 1;
     T su[2][6] = {};
 #pragma unroll
@@ -446,15 +409,13 @@ struct Lane {
         su[g][1] += z2()[i] * h[i];
       }
       for (int i = v; i < A.m; i += nthr) {
-        re()[i] = ((adot(i, dx) - p[i]) + nn[i]) + A.e[i];
+        re()[i] = ((L.adot(i, dx) - p[i]) + nn[i]) + A.e[i];
         su[g][2] += z3()[i] * p[i];
         su[g][3] += z4()[i] * nn[i];
       }
       for (int k = v; k < n; k += nthr) {
-        const int t = k / BS, i = k % BS;
-        rdx[k] = ((((pmv<T, BS>(PD, PO, dx, nb, t, i) + q[k]) +
-                    hcol(z1, (const T*)nullptr, t, i)) +
-                   acol(y, (const T*)nullptr, t, i)) -
+        rdx[k] = ((((L.pmv(dx, k) + q[k]) + L.hcol(z1, (const T*)nullptr, k)) +
+                   L.acol(y, (const T*)nullptr, k)) -
                   z5[k]) +
                  z6[k];
         su[g][4] += z5[k] * (dx[k] - lb[k]);
@@ -486,18 +447,22 @@ struct Lane {
     return mu_of(su[0], n_pairs());
   }
 
-  // the assembly, then its block Cholesky in place on the first warp
-  // (btd_factor_warp's fast paths) and beside it, on the other members,
-  // the residuals, mu and the predictor's right-hand side (they read
-  // neither D nor O); where a fast path did not hold, the assembly again
-  // and K2's btd_factor_inplace, with the pivots' reciprocals formed after
-  // it.  Returns mu.
+  // the assembly, then its factor: on the first warp (K6, and K11's block
+  // route: K2's steps, their fast paths) and beside it, on the other
+  // members, the residuals, mu and the predictor's right-hand side (they
+  // read neither the factor nor K); where a fast path did not hold, the
+  // assembly again and the exact factor.  Where the whole team factors
+  // (K11's dense route), the residuals follow it on the same members.
+  // Returns mu.
   IHD T factor_beside() {
-    assemble();
+    LaneT& L = self();
+    L.assemble();
     stamp(PH_ASSEMBLY);
-    if (tid < WT) {
-      const bool ok =
-          banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, chol_tiny(), tid);
+    const bool team = L.team_factor();
+    if (team) {
+      L.factor_team();
+    } else if (tid < WT) {
+      const bool ok = L.factor_warp();
       if (tid == 0) sc[0] = ok ? T(0) : T(1);
     }
     if (tid >= WT || nthr == 1) {
@@ -506,15 +471,10 @@ struct Lane {
       newton_rhs<false, true>(T(0));
     }
     sync();
-    if (sc[0] != T(0)) {
+    if (!team && sc[0] != T(0)) {
       count_fallback();
-      assemble();
-      if (tid < WT) {
-        banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
-        WSYNC();
-        for (int k = tid; k < nb * BS; k += WT)
-          rc[k] = qm::qrcp(D[(long)(k / BS) * BS * BS + (k % BS) * (BS + 1)]);
-      }
+      L.assemble();
+      if (tid < WT) L.factor_exact();
       sync();
     }
     stamp(PH_FACTOR);
@@ -526,6 +486,7 @@ struct Lane {
   // the members past the first warp
   template <bool CORR, bool SIDE>
   IHD void newton_rhs(T smu) {
+    LaneT& L = self();
     const int first = SIDE && nthr > 1 ? tid - WT : tid;
     const int step = SIDE && nthr > 1 ? nthr - WT : nthr;
     for (int i = first; i < H.m; i += step)
@@ -539,9 +500,8 @@ struct Lane {
     else
       sync();
     for (int k = first; k < n; k += step) {
-      const int t = k / BS, i = k % BS;
-      rhs[k] = ((-rdx[k] - hcol(bh(), (const T*)nullptr, t, i)) +
-                acol(ba(), da(), t, i) +
+      rhs[k] = ((-rdx[k] - L.hcol(bh(), (const T*)nullptr, k)) +
+                L.acol(ba(), da(), k) +
                 qdiv(rc5<CORR>(k, smu), dx[k] - lb[k])) -
                qdiv(rc6<CORR>(k, smu), ub[k] - dx[k]);
     }
@@ -553,6 +513,7 @@ struct Lane {
   // [CORR].  Returns the step length.
   template <bool CORR>
   IHD T newton(T smu, T* sdx, T* sz5, T* sz6) {
+    LaneT& L = self();
     constexpr int ph_pass = CORR ? PH_CORR_PASS : PH_PRED_PASS;
     constexpr int ph_solve = CORR ? PH_CORR_SOLVE : PH_PRED_SOLVE;
     T* dz1 = H.d0[CORR];
@@ -566,30 +527,28 @@ struct Lane {
       sync();
       stamp(ph_pass);
     }
-    solve(rhs, sdx);
+    L.solve(rhs, sdx);
     stamp(ph_solve);
     // one refinement step against the exact condensed matrix
-    for (int i = tid; i < H.m; i += nthr) jvh()[i] = hdot(i, sdx);
-    for (int i = tid; i < A.m; i += nthr) jva()[i] = adot(i, sdx);
+    for (int i = tid; i < H.m; i += nthr) jvh()[i] = L.hdot(i, sdx);
+    for (int i = tid; i < A.m; i += nthr) jva()[i] = L.adot(i, sdx);
     sync();
     for (int k = tid; k < n; k += nthr) {
-      const int t = k / BS, i = k % BS;
-      const T kmv = ((pmv<T, BS>(PD, PO, sdx, nb, t, i) +
-                      hcol(jvh(), dhd(), t, i)) +
-                     acol(jva(), da(), t, i)) +
+      const T kmv = ((L.pmv(sdx, k) + L.hcol(jvh(), dhd(), k)) +
+                     L.acol(jva(), da(), k)) +
                     dbox[k] * sdx[k];
       tmp[k] = rhs[k] - kmv;
     }
     sync();
     stamp(ph_pass);
-    solve(tmp, tmp2);
+    L.solve(tmp, tmp2);
     stamp(ph_solve);
     for (int k = tid; k < n; k += nthr) sdx[k] = sdx[k] + tmp2[k];
     sync();
     // the slack and dual steps, and the step length
     T am[1] = {T(-1)};  // -min(1, candidates)
     for (int i = tid; i < H.m; i += nthr) {
-      const T jv = hdot(i, sdx);
+      const T jv = L.hdot(i, sdx);
       dz1[i] = dhd()[i] * jv + bh()[i];
       dh[i] = qdiv(rc2<CORR>(i, smu) + h[i] * dz1[i], z2()[i]);
       ds1[i] = dh[i] - jv;
@@ -599,7 +558,7 @@ struct Lane {
       step_cand(am[0], z2()[i], -dz1[i]);
     }
     for (int i = tid; i < A.m; i += nthr) {
-      const T jv = adot(i, sdx);
+      const T jv = L.adot(i, sdx);
       dy[i] = da()[i] * (jv - ba()[i]);
       dp[i] = qdiv(rc3<CORR>(i, smu) + p[i] * dy[i], z3()[i]);
       dnn[i] = qdiv(rc4<CORR>(i, smu) - nn[i] * dy[i], z4()[i]);
@@ -629,6 +588,7 @@ struct Lane {
 
   // the whole loop; returns the final (it, status, rp, rd, f_best)
   IHD void run(int* it_out, int* st_out, T* rp_out, T* rd_out, T* fb_out) {
+    LaneT& L = self();
     const T inf = T(INFINITY);
     // ---- initial interior point ----
     for (int k = tid; k < n; k += nthr) {
@@ -644,11 +604,11 @@ struct Lane {
     }
     sync();
     for (int i = tid; i < H.m; i += nthr) {
-      h[i] = clamp_lo(hdot(i, dx) + H.e[i], T(0)) + T(1);
+      h[i] = clamp_lo(L.hdot(i, dx) + H.e[i], T(0)) + T(1);
       z1[i] = T(0.5) * H.w[i];
     }
     for (int i = tid; i < A.m; i += nthr) {
-      const T r0 = adot(i, dx) + A.e[i];
+      const T r0 = L.adot(i, dx) + A.e[i];
       p[i] = clamp_lo(r0, T(0)) + T(1);
       nn[i] = p[i] - r0;
       y[i] = T(0);
@@ -662,7 +622,7 @@ struct Lane {
     while (status == QP_UNSOLVED && it < max_iter) {
       // ---- barrier diagonals ----
       for (int i = tid; i < H.m; i += nthr) {
-        s1()[i] = h[i] - (hdot(i, dx) + H.e[i]);
+        s1()[i] = h[i] - (L.hdot(i, dx) + H.e[i]);
         z2()[i] = H.w[i] - z1[i];
         den()[i] = clamp_lo(h[i] * z1[i] + s1()[i] * z2()[i], tiny());
         dhd()[i] = clamp_hi(qdiv(z1[i] * z2()[i], den()[i]), dcap());
@@ -760,36 +720,33 @@ struct Lane {
                   T(0), T(0), T(0), T(0), T(0)};
       T mx[4] = {T(0), T(0), T(0), T(0)};
       for (int i = tid; i < H.m; i += nthr) {
-        const T s1n = h[i] - (hdot(i, dx) + H.e[i]);
+        const T s1n = h[i] - (L.hdot(i, dx) + H.e[i]);
         sm[0] += z1[i] * s1n;
         sm[1] += (H.w[i] - z1[i]) * h[i];
-        const T g = H.er[i] + rowdot(H.R + (long)i * 2 * BS,
-                                     tmp + H.rowG[i] * BS, 2 * BS);
+        const T g = H.er[i] + L.hraw(i, tmp);
         sm[8] += H.wr[i] * clamp_lo(g, T(0));
       }
       for (int i = tid; i < A.m; i += nthr) {
-        const T jv = adot(i, dx);
+        const T jv = L.adot(i, dx);
         const T r = ((jv - p[i]) + nn[i]) + A.e[i];
         mx[0] = nmax(mx[0], aabs(r));
         mx[1] = nmax(mx[1], nmax(aabs(jv), aabs(A.e[i])));
         sm[2] += (A.w[i] - y[i]) * p[i];
         sm[3] += (A.w[i] + y[i]) * nn[i];
-        const T g = A.er[i] + rowdot(A.R + (long)i * 2 * BS,
-                                     tmp + A.rowG[i] * BS, 2 * BS);
+        const T g = A.er[i] + L.araw(i, tmp);
         sm[9] += A.wr[i] * aabs(g);
       }
       for (int k = tid; k < n; k += nthr) {
-        const int t = k / BS, i = k % BS;
-        const T pdx = pmv<T, BS>(PD, PO, dx, nb, t, i);
-        const T jh = hcol(z1, (const T*)nullptr, t, i);
-        const T ja = acol(y, (const T*)nullptr, t, i);
+        const T pdx = L.pmv(dx, k);
+        const T jh = L.hcol(z1, (const T*)nullptr, k);
+        const T ja = L.acol(y, (const T*)nullptr, k);
         const T r = ((((pdx + q[k]) + jh) + ja) - z5[k]) + z6[k];
         mx[2] = nmax(mx[2], aabs(r));
         mx[3] = nmax(nmax(mx[3], nmax(aabs(pdx), aabs(q[k]))),
                      nmax(aabs(jh), aabs(ja)));
         sm[4] += z5[k] * (dx[k] - lb[k]);
         sm[5] += z6[k] * (ub[k] - dx[k]);
-        sm[6] += tmp[k] * pmv<T, BS>(RD, RO, tmp, nb, t, i);
+        sm[6] += tmp[k] * L.rpmv(tmp, k);
         sm[7] += qr[k] * tmp[k];
       }
       team_reduce<T, 10, 4>(red, sm, mx, tid, nthr);
@@ -831,6 +788,107 @@ struct Lane {
       *rd_out = rd;
       *fb_out = fbest;
     }
+  }
+};
+
+// K6's lane: banded rows (windows over two column blocks of b, their
+// cover lists) and a block-tridiagonal P, K's band assembled over the
+// cover lists and factored by K2's steps on the first warp.
+template <typename T, int BS, int WT, bool TIMED>
+struct Lane : Loop<T, WT, TIMED, Lane<T, BS, WT, TIMED>> {
+  using B = Loop<T, WT, TIMED, Lane<T, BS, WT, TIMED>>;
+  using B::A;
+  using B::chol_tiny;
+  using B::da;
+  using B::dbox;
+  using B::dhd;
+  using B::H;
+  using B::nthr;
+  using B::red;
+  using B::sync;
+  using B::tid;
+  int nb;
+  // shared memory
+  T *D, *O, *rc;
+  // device memory
+  const T *PD, *PO, *RD, *RO;
+
+  BHD T hdot(int i, const T* v) const {
+    return rowdot(H.S + (long)i * 2 * BS, v + H.rowG[i] * BS, 2 * BS);
+  }
+  BHD T adot(int i, const T* v) const {
+    return rowdot(A.S + (long)i * 2 * BS, v + A.rowG[i] * BS, 2 * BS);
+  }
+  BHD T hraw(int i, const T* v) const {
+    return rowdot(H.R + (long)i * 2 * BS, v + H.rowG[i] * BS, 2 * BS);
+  }
+  BHD T araw(int i, const T* v) const {
+    return rowdot(A.R + (long)i * 2 * BS, v + A.rowG[i] * BS, 2 * BS);
+  }
+  BHD T hcol(const T* w, const T* u, int k) const {
+    return rmv_col(H, w, u, BS, nb, k / BS, k % BS);
+  }
+  BHD T acol(const T* w, const T* u, int k) const {
+    return rmv_col(A, w, u, BS, nb, k / BS, k % BS);
+  }
+  BHD T pmv(const T* v, int k) const {
+    return ipm::pmv<T, BS>(PD, PO, v, nb, k / BS, k % BS);
+  }
+  BHD T rpmv(const T* v, int k) const {
+    return ipm::pmv<T, BS>(RD, RO, v, nb, k / BS, k % BS);
+  }
+
+  BHD void solve(const T* r, T* x) const {
+    if (tid < WT) banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid);
+    sync();
+  }
+
+  // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D's lower triangle,
+  // O), a block row per member in turn
+  IHD void assemble() {
+    constexpr int BB = BS * BS;
+    const int nDr = nb * BS, nOr = (nb - 1) * BS;
+    T dm[1] = {T(-INFINITY)};
+    for (int e = tid; e < nDr + nOr; e += nthr) {
+      const bool isD = e < nDr;
+      const int ee = isD ? e : e - nDr;
+      const int t = ee / BS, i = ee % BS;
+      const long at = (long)t * BB + i * BS;
+      T acc[BS];
+#pragma unroll
+      for (int j = 0; j < BS; ++j)
+        acc[j] = isD ? PD[at + j] + (i == j ? dbox[t * BS + i] : T(0))
+                     : PO[at + j];
+      quad_row(H, dhd(), nb, isD, t, i, acc);
+      quad_row(A, da(), nb, isD, t, i, acc);
+#pragma unroll
+      for (int j = 0; j < BS; ++j) {
+        if (!isD || j <= i) (isD ? D : O)[at + j] = acc[j];
+        if (isD && j == i) dm[0] = nmax(dm[0], acc[j]);
+      }
+    }
+    team_reduce<T, 0, 1>(red, nullptr, dm, tid, nthr);
+    const T reg = sizeof(T) == 8 ? T(1e-12) * dm[0] + T(1e-11)
+                                 : T(1e-7) * dm[0] + T(1e-8);
+    for (int k = tid; k < nb * BS; k += nthr) {
+      T* Dk = D + (long)(k / BS) * BB + (k % BS) * (BS + 1);
+      *Dk = *Dk + reg;
+    }
+    sync();
+  }
+
+  // the factor on the first warp: btd_factor_warp's fast paths, and the
+  // exact btd_factor_inplace with the pivots' reciprocals formed after it
+  static BHD bool team_factor() { return false; }
+  BHD void factor_team() {}
+  BHD bool factor_warp() {
+    return banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, chol_tiny(), tid);
+  }
+  BHD void factor_exact() {
+    banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
+    WSYNC();
+    for (int k = tid; k < nb * BS; k += WT)
+      rc[k] = qm::qrcp(D[(long)(k / BS) * BS * BS + (k % BS) * (BS + 1)]);
   }
 };
 

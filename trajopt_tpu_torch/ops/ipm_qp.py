@@ -27,15 +27,16 @@ coordinates, scaling, P's blocks, f(0): ``_setup``) and teardown
   hand-written kernel K6 ``ipm_banded`` (``csrc/ipm_banded.cu``): one CTA
   per lane runs that lane's whole loop, with K1-K3's math as device
   functions;
-* banded rows otherwise: the plain PyTorch loop ``_loop_plain`` (K6's
-  oracle, and the path of a CPU tensor or of ``kernels=False``), with the
-  plain versions of K1 ``bb_quad``, K2 ``btd_factor`` and K3 ``btd_solve``;
-* dense rows, on any device: ``_loop_plain`` with dense matvecs; its
-  block-tridiagonal factor and solves are K2 and K3 on a CUDA tensor with
-  ``kernels=True`` (their plain versions otherwise), its dense Cholesky
-  the library's.
+* dense rows on a CUDA tensor (``kernels=True``): ONE launch of the
+  hand-written kernel K11 ``ipm_dense`` (``csrc/ipm_dense.cu``): one CTA
+  per lane runs that lane's whole loop, the block-tridiagonal factor and
+  solves as K2 / K3's device functions, the dense Cholesky its own;
+* otherwise (a CPU tensor, or ``kernels=False``): the plain PyTorch loop
+  ``_loop_plain``, K6's and K11's oracle, with the plain versions of K1
+  ``bb_quad``, K2 ``btd_factor`` and K3 ``btd_solve`` and, on dense rows
+  without a band, ``torch.linalg``'s Cholesky.
 
-``solve_ipm_qp_host`` runs K6's device code built for the CPU
+``solve_ipm_qp_host`` runs K6's or K11's device code built for the CPU
 (``csrc/ipm_host.cpp``), for checking it without a card.
 
 Lanes: every tensor has a leading lane axis and every reduction runs over
@@ -280,13 +281,13 @@ def _setup(data: ProxQPData, s: QPSettings) -> _Setup:
 
 
 # --------------------------------------------------------------------------
-# the plain PyTorch loop (K6's oracle; the CPU path and kernels=False)
+# the plain PyTorch loop (K6's and K11's oracle; the CPU path and
+# kernels=False)
 # --------------------------------------------------------------------------
 
 
-def _loop_plain(su: _Setup, kernels: bool = False) -> _St:
-    """The loop in PyTorch; ``kernels``: the dense rows' block-tridiagonal
-    factor and solves take K2 / K3 on a CUDA tensor."""
+def _loop_plain(su: _Setup) -> _St:
+    """The loop in PyTorch, with the plain versions of K1-K3."""
     s, lanes, n, mh, ma = su.s, su.lanes, su.n, su.mh, su.ma
     bsz, nb, tiny, dcap = su.bsz, su.nb, su.tiny, su.dcap
     lb, ub, eh, ea, c = su.lb, su.ub, su.eh, su.ea, su.c
@@ -417,12 +418,12 @@ def _loop_plain(su: _Setup, kernels: bool = False) -> _St:
         if nb:
             Db, Ob = blocks_from_dense(Ksym, nb, bsz)
             LD, LM = btd_factor(Db + reg[:, None, None, None] * eye_b, Ob,
-                                kernels=kernels)
+                                kernels=False)
 
             def kkt_solve(r):
                 return btd_solve(LD, LM,
                                  r.reshape(lanes, nb, bsz).contiguous(),
-                                 kernels=kernels).reshape(lanes, n)
+                                 kernels=False).reshape(lanes, n)
 
             return kkt_solve
         eye = torch.eye(n, dtype=q.dtype, device=q.device)
@@ -818,6 +819,154 @@ def ipm_banded_host(su: _Setup, plan: BandPlan, smem=(1, 1),
 
 
 # --------------------------------------------------------------------------
+# K11 ipm_dense: the dense-row loop as one launch (csrc/ipm_dense.cu)
+# --------------------------------------------------------------------------
+
+_K11_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "max_iter", "smem_base",
+             "smem_rows", "smem_k", "smem_scr")
+_K11_PTRS = ("PT", "PrT", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
+             "Jh", "Rh", "eh", "wh", "ehr", "whr",
+             "Ja", "Ra", "ea", "wa", "ear", "war",
+             "dx", "z5", "z6", "dxb", "h", "z1", "p", "nn", "y", "rp", "rd",
+             "fb", "dscr", "it", "status")
+
+
+class _K11Args(ctypes.Structure):
+    """ctypes mirror of ``ipm_dense::Args`` (csrc/ipm_dense.cuh)."""
+
+    _fields_ = ([(k, ctypes.c_int) for k in _K11_INTS]
+                + [("eps_abs", ctypes.c_double), ("eps_rel", ctypes.c_double)]
+                + [(k, ctypes.c_void_p) for k in _K11_PTRS])
+
+
+K11_VECS, K11_SCRATCH_VECS = 19, 12  # ipm_dense.cuh N_VEC, N_SCR_VEC
+
+
+def k11_scratch_size(n: int, b: int, nb: int, mh: int, ma: int) -> int:
+    """Elements of K11's device scratch per lane (``ipm_dense::
+    scratch_size``): the band and the n-vectors, the dense route's n x n
+    K, the scratch m-vectors; each used where the launcher's plan leaves
+    that region out of shared memory."""
+    band = (nb * b * b + (nb - 1) * b * b + nb * b) if nb else 0
+    return band + K11_VECS * n + (0 if nb else n * n) \
+        + K11_SCRATCH_VECS * (mh + ma)
+
+
+def _k11_args(su: _Setup, smem=(1, 1, 1, 1)):
+    """K11's launch arguments for the set-up: (args, tensors), ``tensors``
+    every input and output the arguments point at (keep them while the
+    arguments are used).  ``smem``: where the host build keeps the regions
+    (base, scaled rows, the dense K, the scratch; 1 its shared-memory
+    array, 0 the device scratch); the card's launcher decides by its
+    budget."""
+    d, lanes, n, mh, ma = su.data, su.lanes, su.n, su.mh, su.ma
+    dt = su.q.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"ipm_dense: dtype {dt} is not float32/float64")
+    b = su.bsz if su.nb else 0
+    if su.nb and b not in K6_BLOCKS:
+        raise ValueError(f"ipm_dense: block size {b} outside 1.."
+                         f"{K6_BLOCKS[-1]}, the sizes K11's block route is "
+                         "instantiated for")
+
+    def cont(t):
+        return t.to(dt).contiguous()
+
+    def empty(*shape):
+        return su.q.new_empty((lanes,) + shape)
+
+    tensors = dict(
+        PT=cont(su.P.transpose(1, 2)), PrT=cont(d.P.transpose(1, 2)),
+        q=cont(su.q), qr=cont(d.q), lb=cont(su.lb), ub=cont(su.ub),
+        lbr=cont(d.lb), ubr=cont(d.ub),
+        cf=cont(torch.stack([su.c, su.f_zero], -1)),
+        Jh=cont(su.Jh), Rh=cont(d.A_h), eh=cont(su.eh), wh=cont(su.wh),
+        ehr=cont(d.e_h), whr=cont(d.w_h),
+        Ja=cont(su.Ja), Ra=cont(d.A_a), ea=cont(su.ea), wa=cont(su.wa),
+        ear=cont(d.e_a), war=cont(d.w_a),
+        dx=empty(n), z5=empty(n), z6=empty(n), dxb=empty(n),
+        h=empty(mh), z1=empty(mh), p=empty(ma), nn=empty(ma),
+        y=empty(ma), rp=empty(), rd=empty(), fb=empty(),
+        dscr=empty(k11_scratch_size(n, b, su.nb, mh, ma)),
+        it=torch.empty((lanes,), dtype=torch.int32, device=su.q.device),
+        status=torch.empty((lanes,), dtype=torch.int32, device=su.q.device))
+    for k, t in tensors.items():
+        if t.device != su.q.device:
+            raise TypeError(f"ipm_dense: {k} is on {t.device}, not "
+                            f"{su.q.device}")
+    args = _K11Args(lanes=lanes, n=n, b=b, nb=su.nb, mh=mh, ma=ma,
+                    max_iter=su.s.max_ipm_iter, smem_base=smem[0],
+                    smem_rows=smem[1], smem_k=smem[2], smem_scr=smem[3],
+                    eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
+                    **{k: t.data_ptr() for k, t in tensors.items()})
+    return args, tensors
+
+
+def _k11_call(su: _Setup, fn, smem=(1, 1, 1, 1)) -> _St:
+    """Lay the set-up out for K11 (``_k11_args``), run ``fn(args)`` (the
+    CUDA launcher or the host build) and return its final state."""
+    args, t = _k11_args(su, smem)
+    fn(args)
+    return _St(t["dx"], t["h"], t["p"], t["nn"], t["z1"], t["y"], t["z5"],
+               t["z6"], t["it"], t["status"], t["rp"], t["rd"], t["fb"],
+               t["dxb"])
+
+
+def ipm_dense_cuda(su: _Setup) -> _St:
+    """K11 on the card: one launch runs every lane's whole loop on the
+    dense rows (the block route at su.bsz where su.nb > 0, else the dense
+    Cholesky)."""
+    if not su.q.is_cuda:
+        raise ValueError("ipm_dense_cuda: tensors must be on a CUDA device")
+    if not su.dense:
+        raise ValueError("ipm_dense_cuda: the rows are banded (K6's)")
+
+    def launch(args):
+        fn = _native.library(_native.k11_library(
+            su.q.dtype == torch.float64, args.b)).ipm_dense_run
+        stream = torch.cuda.current_stream(su.q.device).cuda_stream
+        _native.check("ipm_dense", fn(ctypes.byref(args), stream))
+        _native.LAUNCHES["ipm_dense"] += 1
+        _native.LAUNCHES[f"ipm_dense_b{args.b}" if args.nb
+                         else "ipm_dense_chol"] += 1
+
+    return _k11_call(su, launch)
+
+
+def dense_kernel_attributes() -> dict:
+    """{"f32_b1_9": {"num_regs", "local_bytes", "max_threads",
+    "static_smem_bytes"}, ...} of K11's libraries on the card
+    (``cudaFuncGetAttributes``; one kernel each, b at run time)."""
+    out = {}
+    for f64 in (False, True):
+        for lo, hi in _native.K11_GROUPS:
+            name = _native.k11_library(f64, lo)
+            buf = (ctypes.c_int * 4)()
+            _native.check("ipm_dense_attrs",
+                          _native.library(name).ipm_dense_attrs(buf))
+            out[name.split("ipm_dense_", 1)[1]] = dict(zip(
+                ("num_regs", "local_bytes", "max_threads",
+                 "static_smem_bytes"), list(buf)))
+    return out
+
+
+def ipm_dense_host(su: _Setup, smem=(1, 1, 1, 1)) -> _St:
+    """K11's device code built for the CPU (``csrc/ipm_host.cpp``), on CPU
+    tensors: for checking it without a card (``smem``: see
+    ``_k11_call``)."""
+    if su.q.is_cuda:
+        raise ValueError("ipm_dense_host: tensors must be on the CPU")
+
+    def launch(args):
+        lib = _native.host_library("ipm_host")
+        fn = lib.ipm_dense_f32 if su.q.dtype == torch.float32 \
+            else lib.ipm_dense_f64
+        _native.check("ipm_dense", fn(ctypes.byref(args), None))
+
+    return _k11_call(su, launch, smem=smem)
+
+
+# --------------------------------------------------------------------------
 # entry points
 # --------------------------------------------------------------------------
 
@@ -871,25 +1020,23 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
 
     (u0, y0) are accepted for interface parity; the IPM re-initializes
     from a well-centered point.  ``device`` is where the data must lie
-    (raises if CUDA is asked for and absent).  Banded rows: on a CUDA
-    device the loop is one K6 launch (``kernels=False`` runs the plain
-    PyTorch loop there), on the CPU the plain loop.  Dense rows
-    (``data.A_h`` set): the PyTorch loop on either device, its
-    block-tridiagonal factor and solves K2 / K3 on a CUDA device unless
-    ``kernels=False``, its dense Cholesky (n < 2 kkt_block, or no
-    kkt_block) ``torch.linalg``'s.  ``plan`` is K6's ``band_plan`` for
-    banded QPs of this structure (built, and P's band checked, here when
-    None).
+    (raises if CUDA is asked for and absent).  On a CUDA device the loop
+    is one launch: K6 on banded rows, K11 on dense rows (``data.A_h``
+    set; its block route where kkt_block gives a band, else its dense
+    Cholesky); a failed build or launch raises.  ``kernels=False`` there,
+    and every CPU tensor, runs the plain PyTorch loop.  ``plan`` is K6's
+    ``band_plan`` for banded QPs of this structure (built, and P's band
+    checked, here when None).
     """
     dev = resolve_device(device)
     if data.q.device.type != dev.type:
         raise ValueError(f"solve_ipm_qp: data on {data.q.device}, "
                          f"device={dev}")
     su = _setup(data, settings)
-    if su.dense:
-        return _finish(su, _loop_plain(su, kernels=kernels))
     if not (data.q.is_cuda and kernels):
         return _finish(su, _loop_plain(su))
+    if su.dense:
+        return _finish(su, ipm_dense_cuda(su))
     if plan is None:
         plan = band_plan(data, su.bsz)
     return _finish(su, ipm_banded_cuda(su, plan))
@@ -897,9 +1044,12 @@ def solve_ipm_qp(data: ProxQPData, settings: QPSettings = QPSettings(),
 
 def solve_ipm_qp_host(data: ProxQPData, settings: QPSettings = QPSettings(),
                       plan: Optional[BandPlan] = None) -> StructQPSolution:
-    """``solve_ipm_qp`` with the loop run by K6's host build, on CPU
-    tensors (the set-up and teardown are the same)."""
+    """``solve_ipm_qp`` with the loop run by K6's host build (banded rows)
+    or K11's (dense rows), on CPU tensors (the set-up and teardown are the
+    same)."""
     su = _setup(data, settings)
+    if su.dense:
+        return _finish(su, ipm_dense_host(su))
     if plan is None:
         plan = band_plan(data, su.bsz)
     return _finish(su, ipm_banded_host(su, plan))
