@@ -67,8 +67,10 @@ Every line printed is one JSON object.  Phases, in order:
    (its dense route), in float32 and float64 with phase 2d's rules; then
    on each, in float32, K11's time (the bare launch on the device clock,
    ``device_ms``, and the wrapper's CUDA events), the plain loop's, its
-   bound (``k11_work``), its shared-memory plan, and each K11 library's
-   registers and local memory;
+   bound (``k11_work``, over the nonzeros), the nonzeros per row kind and
+   of P (``k11_nonzero_counts``), the lists' bytes and where its
+   shared-memory plan put each region, and each K11 library's registers
+   and local memory;
 2e. the kernels of the reference's solve benchmarks against their plain
    versions, float32 and float64, with phase 2's value and Jacobian rules
    (a float32 Jacobian row over its tolerance must be one whose plain
@@ -499,33 +501,63 @@ def k6_work(qp, b, iters, es):
 
 
 
+def k11_nonzero_counts(qp, su):
+    """Per lane (numpy int64 arrays): the nonzeros K11's lists hold, of the
+    scaled Jh and Ja ("h", "a"), the raw rows ("rh", "ra"), P scaled and
+    raw ("p", "pr"); and "pairs", the pairs (r >= c) of a scaled row's
+    nonzeros that fall in the part of K the assembly fills (the block
+    route's band at su.bsz, else the lower triangle), summed over the
+    rows of both kinds."""
+    import torch
+
+    def nz(M):
+        return (M != 0).flatten(1).sum(1).cpu().numpy()
+    out = {"h": nz(su.Jh), "a": nz(su.Ja), "rh": nz(qp.A_h),
+           "ra": nz(qp.A_a), "p": nz(su.P), "pr": nz(qp.P)}
+    pairs = torch.zeros(qp.q.shape[0], dtype=torch.int64,
+                        device=qp.q.device)
+    for J in (su.Jh, su.Ja):
+        Z = (J != 0).to(torch.int64)
+        if su.nb:  # per block of b columns: D's triangles and O
+            c = Z.reshape(Z.shape[0], Z.shape[1], su.nb, su.bsz).sum(-1)
+            pairs += (c * (c + 1) // 2).sum((1, 2)) \
+                + (c[..., 1:] * c[..., :-1]).sum((1, 2))
+        else:
+            c = Z.sum(-1)
+            pairs += (c * (c + 1) // 2).sum(1)
+    out["pairs"] = pairs.cpu().numpy()
+    return out
+
+
 def k11_work(qp, su, iters, es):
     """(bytes, flops) that one K11 ipm_dense launch's function needs on
     these inputs: each input read once (P' scaled and raw, six n-vectors,
     the scaled and raw dense rows, four per-row vectors) and each output
-    written once; against the least arithmetic of the iterations this
-    run's lanes took (``iters``).  Per iteration: ten passes over the
-    dense rows (2 m n each: the matvecs of the barrier diagonals, the
-    residuals, two Newton solves with their refinement, the termination
-    test, the composite objective), five P products (2 n^2 each), the
-    assembly of K's band (block route: nb b (b + 1) / 2 + (nb - 1) b^2
-    entries) or lower triangle (dense route: n (n + 1) / 2), 2 flops per
-    entry and row with d a_i formed once (n per row), the factor (block
-    route nb (b^3 / 3 + 2 b^3), dense route n^3 / 3), four solves (block
-    4 n b each, dense 2 n^2), ~100 flops per column and 30 per row; plus
-    the initial point."""
+    written once; against the least arithmetic of the iterations each lane
+    took (``iters``) over that lane's nonzeros (``k11_nonzero_counts``: a
+    sum over zeros is no work).  Per iteration: twelve passes over the
+    scaled rows' nonzeros and one over the raw rows' (2 flops a nonzero:
+    the matvecs of the barrier diagonals, the residuals, two Newton solves
+    with their right-hand sides and refinement, the composite objective),
+    four products with P's nonzeros and one with the raw P's, the
+    assembly's share of J' D J: 2 flops per pair of a row's nonzeros in
+    the part of K it fills, with d a_i formed once (one per nonzero); the
+    factor (block route nb (b^3 / 3 + 2 b^3), dense route n^3 / 3), four
+    solves (block 4 n b each, dense 2 n^2), ~100 flops per column and 30
+    per row; plus the initial point."""
     lanes, n = qp.q.shape
     mh, ma = qp.e_h.shape[1], qp.e_a.shape[1]
     m, nb, b = mh + ma, su.nb, su.bsz
+    c = k11_nonzero_counts(qp, su)
+    nzj = c["h"] + c["a"]
     if nb:
-        entries = nb * b * (b + 1) / 2 + (nb - 1) * b * b
         fac, sol = nb * (b ** 3 / 3 + 2 * b ** 3), 4 * 4 * n * b
     else:
-        entries = n * (n + 1) / 2
         fac, sol = n ** 3 / 3, 4 * 2 * n * n
-    per_it = 20 * m * n + 10 * n * n + m * (n + 2 * entries) + fac + sol \
-        + 100 * n + 30 * m
-    flops = float(iters.double().sum()) * per_it + lanes * (2 * m * n + 10 * n)
+    per_it = 24 * nzj + 2 * (c["rh"] + c["ra"]) + 8 * c["p"] \
+        + 2 * c["pr"] + 2 * c["pairs"] + nzj + fac + sol + 100 * n + 30 * m
+    it = iters.double().cpu().numpy()
+    flops = float((it * per_it).sum()) + float((2 * nzj + 10 * n).sum())
     ins = 2 * n * n + 6 * n + 2 + 2 * m * n + 4 * m
     outs = 4 * n + 2 * mh + 3 * ma + 3
     nbytes = lanes * (es * (ins + outs) + 4 * 2)
@@ -3250,12 +3282,14 @@ def main():
             assert rec["ok"], "K11 ipm_dense disagrees with the plain " \
                 f"loop ({qname}, {rec['dtype']})"
     # K11's times on each captured QP (float32): the bare launch on the
-    # device clock, the wrapper's CUDA events, the plain loop, the bound
+    # device clock, the wrapper's CUDA events, the plain loop, the bound;
+    # the lists' nonzeros and sizes and where the plan put each region
     k11_attrs = ipm_qp.dense_kernel_attributes()
     for qname, (qd, qset) in dense_qps.items():
         su = ipm_qp._setup(qd, qset)
         args, keep = ipm_qp._k11_args(su)
-        run = _native.library(_native.k11_library(False, args.b)).ipm_dense_run
+        run = _native.library(_native.k11_library(
+            False, args.b, bool(args.lists))).ipm_dense_run
         stream = torch.cuda.current_stream(dev).cuda_stream
         it_k = ipm_qp.ipm_dense_cuda(su).it
         k11_bytes, k11_flops = k11_work(qd, su, it_k, es)
@@ -3263,6 +3297,12 @@ def main():
         t_ops = k11_flops / PEAK_FLOPS["float32"] * 1e3
         dev_ms, queue = device_ms(lambda: run(ctypes.byref(args), stream),
                                   reps=5)
+        nzc = k11_nonzero_counts(qd, su)
+        caps = tuple(getattr(args, f"nz_{k}") for k in (
+            "h", "a", "rh", "ra", "p", "pr"))
+        region_bytes = {k: v * es for k, v in ipm_qp.k11_region_sizes(
+            su.n, su.bsz if su.nb else 0, su.nb, su.mh, su.ma, caps,
+            es).items()}
         timing[f"ipm_dense_{qname}"] = dict(
             ms=dev_ms, queue=queue,
             wrapper_ms=time_ms(lambda: ipm_qp.ipm_dense_cuda(su), reps=5),
@@ -3272,8 +3312,15 @@ def main():
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             iters_mean=float(it_k.double().mean()), iters_max=int(it_k.max()),
             route=f"block, b {su.bsz}" if su.nb else "dense",
-            smem={k: getattr(args, k) for k in (
-                "smem_base", "smem_rows", "smem_k", "smem_scr")},
+            nonzeros_per_lane={k: {"mean": float(v.mean()),
+                                   "max": int(v.max())}
+                               for k, v in nzc.items()},
+            rows_per_lane={"h": su.mh, "a": su.ma}, list_capacities=caps,
+            region_bytes_per_lane=region_bytes,
+            regions={k: "shared" if getattr(args, f"smem_{k}") else
+                     "device scratch" for k in ipm_qp.K11_REGIONS},
+            sums="over the lists" if args.lists else "dense order "
+            f"(n < {ipm_qp.K11_LISTS_MIN_N})",
             shape=f"one batched QP: {lanes} lanes, n {qd.q.shape[1]}, "
             f"m_h {qd.e_h.shape[1]}, m_a {qd.e_a.shape[1]}")
         del keep

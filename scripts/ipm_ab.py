@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Time K6 ipm_banded of one checkout of the port on one CUDA card.
+"""Time K6 ipm_banded (or, with --k11, K11 ipm_dense) of one checkout of
+the port on one CUDA card.
 
     python3 scripts/ipm_ab.py [ROOT] [--label NAME] [--qps FILE]
                               [--out FILE] [--reps N] [--phases] [--e2e]
+    python3 scripts/ipm_ab.py [ROOT] --k11 [--label NAME] [--qps FILE]
+                              [--out FILE] [--reps N] [--phases]
     python3 scripts/ipm_ab.py --compare A.pt B.pt
 
 ROOT (default: this checkout) is the directory that holds the
@@ -28,11 +31,26 @@ count differ.  ``--phases``: the mean clock64 cycles per CTA and IPM
 iteration of each of K6's timer phases (``ipm_qp.K6_PHASES``), float32,
 where ROOT's K6 has the timer, and the factors per iteration that took
 their fallback.  ``--e2e``: the main paths' warm walls and
-gated solves/s, counted as ``cast_ab.py --e2e`` counts them.  Exits
-non-zero when CUDA is not available.
+gated solves/s, counted as ``cast_ab.py --e2e`` counts them.  Only the
+libraries a run needs are built.
+
+``--k11``: K11 ipm_dense on chip_smoke phase 2h's QPs instead, the first
+batched QP solve of each dense-row path, 128 lanes, captured in float32:
+6a's cartesian waypoints and 6b's IK goal (K11's block route at b 7),
+7c(i)'s timed velocity (b 8), 7c(ii)'s with total_time and
+simple_collision's (its dense route).  Per QP: K11's bare launch on the
+device clock (``chip_smoke.device_ms``), float32, its shared-memory plan
+and its lists' sizes where the checkout reports them; ``--phases`` each
+timer phase's cycles per CTA and IPM iteration and the set-up's cycles per
+CTA (float32, where ROOT's K11 has the timer); ``--out`` every output of
+the launch (dx, z5, z6, dxb, h, z1, p, nn, y, rp, rd, fb, it, status) in
+float32 and float64, which ``--compare`` holds element by element (equal,
+or NaN on both sides), per lane.  Exits non-zero when CUDA is not
+available.
 """
 
 import argparse
+import ctypes
 import dataclasses
 import inspect
 import json
@@ -126,11 +144,87 @@ def capture_qps(dev, lanes):
     return qps
 
 
+# K11's outputs (ipm_qp._St's fields, by the kernel's argument names)
+K11_OUTS = {"dx": "dx", "z5": "z5", "z6": "z6", "dxb": "dx_best", "h": "h",
+            "z1": "z1", "p": "p", "nn": "nn", "y": "y", "rp": "rp", "rd": "rd",
+            "fb": "f_best", "it": "it", "status": "status"}
+DENSE_FIELDS = QP_FIELDS + ("A_h", "A_a")
+
+
+def capture_dense_qps(dev, lanes):
+    """The QPs of chip_smoke phase 2h (float32), captured with ROOT's
+    package and the scenes of this checkout's chip_smoke."""
+    import torch
+
+    sys.path.insert(1, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from trajopt_tpu_torch.benchmarks import (bench_params,
+                                              make_simple_collision)
+    from trajopt_tpu_torch.solver import sqp as sqp_mod
+    from trajopt_tpu_torch.solver.types import SQPParams
+    f32 = torch.float32
+
+    def first_qp(spec, data, par):
+        got, orig = [], sqp_mod.solve_ipm_qp
+
+        def rec(qd, st, **kw):
+            if not got:
+                got.append({"data": {k: getattr(qd, k).cpu()
+                                     for k in DENSE_FIELDS},
+                            "settings": dataclasses.asdict(st)})
+            return orig(qd, st, **kw)
+        sqp_mod.solve_ipm_qp = rec
+        try:
+            sqp_mod.solve_batch(spec, data, dataclasses.replace(
+                par, max_total_qp_solves=1), device=dev)
+        finally:
+            sqp_mod.solve_ipm_qp = orig
+        return got[0]
+
+    inp = cs.cartesian_inputs(lanes, 30)
+    qps = {}
+    for kind in ("waypoints", "ik_goal"):
+        qps[f"cartesian_{kind}_qp1"] = first_qp(*cs.port_cartesian_problem(
+            kind, inp, f32, dev)[:2], SQPParams())
+    for kind in ("timed_vel", "timed_vel_total"):
+        qps[f"json_{kind}_qp1"] = first_qp(*cs.port_json_problem(
+            cs.json_docs(kind, lanes), f32, dev)[:3])
+    qps["simple_collision_qp1"] = first_qp(
+        *make_simple_collision(lanes, f32, device=dev)[:2], bench_params())
+    return qps
+
+
+def compare_dense(A, B, rec):
+    """K11's outputs of two --k11 runs, element by element per lane."""
+    import torch
+    for key in A["out"]:
+        a, b = A["out"][key], B["out"][key]
+        q = {"lanes": int(a["it"].shape[0]), "differ": {}}
+        bad = torch.zeros_like(a["it"], dtype=torch.bool)
+        for k in K11_OUTS:
+            x, y = a[k], b[k]
+            same = (x == y) | (torch.isnan(x) & torch.isnan(y)) \
+                if x.is_floating_point() else x == y
+            same = same.reshape(same.shape[0], -1).all(-1)
+            if not bool(same.all()):
+                q["differ"][k] = torch.nonzero(~same)[:, 0].tolist()
+            bad |= ~same
+        q["lanes_equal"] = int((~bad).sum())
+        d = (a["dx"].double() - b["dx"].double()).abs().amax(-1)
+        q["dx_max_abs_diff"] = float(d.max())
+        rec["qps"][key] = q
+    print(json.dumps(rec), flush=True)
+
+
 def compare(a_path, b_path):
     import torch
     A = torch.load(a_path, weights_only=True)
     B = torch.load(b_path, weights_only=True)
     rec = {"compare": [A["label"], B["label"]], "qps": {}}
+    if A.get("kernel") == "ipm_dense":
+        compare_dense(A, B, rec)
+        return
     for key in A["out"]:
         a, b = A["out"][key], B["out"][key]
         d = (a["x"] - b["x"]).abs().amax(-1)
@@ -159,6 +253,9 @@ def main():
                     "float32 and float64) here for --compare")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
                     help="compare two --out files and exit")
+    ap.add_argument("--k11", action="store_true",
+                    help="K11 ipm_dense on chip_smoke phase 2h's QPs "
+                    "instead of K6 on 2d's")
     ap.add_argument("--phases", action="store_true",
                     help="also K6's phase timer: mean clock64 cycles per "
                     "CTA and IPM iteration of each phase, float32")
@@ -186,7 +283,6 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    build_s = _native.build_all()
 
     def time_ms(fn):
         fn()
@@ -200,6 +296,16 @@ def main():
         torch.cuda.synchronize()
         return t0.elapsed_time(t1) / a.reps
 
+    if a.k11:
+        run_k11(a, dev, lanes, smi)
+        return
+    # the libraries this run needs: K6 at the QPs' block sizes (and its
+    # timer), the cast kernels of the captures and of --e2e
+    names = [_native.k6_library(f64, b) for f64 in (False, True)
+             for b in (7, 14, 21)] + ["cast_seg", "cast_cvx"]
+    if a.phases:
+        names.append("ipm_timer")
+    build_s = _native.build_all(sorted(set(names)) if not a.e2e else None)
     if a.qps and os.path.exists(a.qps):
         qps = torch.load(a.qps, weights_only=True)
     else:
@@ -295,6 +401,103 @@ def main():
     if hasattr(ipm_qp, "kernel_attributes"):
         rec["attributes"] = ipm_qp.kernel_attributes()
     rec.update(reps=a.reps, build_s=build_s, card=smi)
+    print(json.dumps(rec), flush=True)
+
+
+def run_k11(a, dev, lanes, smi):
+    """--k11: K11 of ROOT's package on phase 2h's QPs (see the module
+    docstring); prints one JSON line."""
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.ops import ipm_qp
+    from trajopt_tpu_torch.ops.prox_qp import ProxQPData
+    from trajopt_tpu_torch.ops.qp import QPSettings
+    sys.path.insert(1, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    from chip_smoke import device_ms
+
+    timed = "clk" in inspect.signature(ipm_qp.ipm_dense_cuda).parameters
+    # K11 at b 7, 8 and the dense route (the b 1-9 libraries), the timer,
+    # and the kernels the captures' SQP runs (K7, K8, K9)
+    libs = [_native.k11_library(f64, 1) for f64 in (False, True)]
+    # a checkout whose dense order is a library of its own: those too
+    split = "lists" in inspect.signature(_native.k11_library).parameters
+    if split:
+        libs += [_native.k11_library(f64, 0, False) for f64 in (False, True)]
+    timers = ["ipm_dense_timer"] + (["ipm_dense_timer_dense"] if split
+                                    else [])
+    names = libs + ["cart_pose", "solve_ik", "disc_dist"] \
+        + (timers if a.phases and timed else [])
+    build_s = _native.build_all(names)
+    if a.qps and os.path.exists(a.qps):
+        qps = torch.load(a.qps, weights_only=True)
+    else:
+        qps = capture_dense_qps(dev, lanes)
+        if a.qps:
+            torch.save(qps, a.qps)
+    rec = {"label": a.label, "root": os.path.abspath(a.root),
+           "kernel": "ipm_dense", "ms": {}, "iters_mean": {}, "plan": {}}
+    if a.phases:
+        rec["phase_cycles_per_cta_iteration"] = {} if timed else \
+            "this checkout's K11 has no timer"
+    outs = {}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for name, q in qps.items():
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            d = q["data"]
+            qd = ProxQPData(**{k: d[k].to(dev, dtype) for k in DENSE_FIELDS},
+                            Bh=(), Gh=(), Ba=(), Ga=())
+            su = ipm_qp._setup(qd, QPSettings(**q["settings"]))
+            st = ipm_qp.ipm_dense_cuda(su)
+            outs[f"{name}_{dname}"] = {k: getattr(st, f).cpu()
+                                       for k, f in K11_OUTS.items()}
+            if dtype != torch.float32:
+                continue
+            args, keep = ipm_qp._k11_args(su)
+            run = _native.library(_native.k11_library(
+                False, args.b, *([bool(args.lists)] if split else [])
+            )).ipm_dense_run
+            ms, queue = device_ms(lambda: run(ctypes.byref(args), stream),
+                                  reps=a.reps)
+            rec["ms"][name] = ms
+            rec["iters_mean"][name] = float(st.it.double().mean())
+            rec["plan"][name] = {
+                k: getattr(args, k) for k, _ in args._fields_
+                if k.startswith(("smem_", "nz_")) or k in ("n", "b", "nb",
+                                                          "mh", "ma")}
+            del keep
+            if a.phases and timed and (su.nb == 0 or su.bsz <= 9):
+                nph = len(ipm_qp.K6_PHASES)
+                clk = torch.zeros((lanes, ipm_qp.K11_CLK_SLOTS),
+                                  dtype=torch.int64, device=dev)
+                st_k = ipm_qp.ipm_dense_cuda(su, clk=clk)
+                torch.cuda.synchronize()
+                its = float(st_k.it.double().sum())
+                cyc = (clk[:, :nph].double().sum(0) / its).tolist()
+                rec["phase_cycles_per_cta_iteration"][name] = dict(
+                    zip(ipm_qp.K6_PHASES, cyc), total=sum(cyc),
+                    factor_fallbacks_per_iteration=float(
+                        clk[:, nph].double().sum()) / its,
+                    setup_cycles_per_cta=float(
+                        clk[:, nph + 1].double().mean()))
+                if clk.shape[1] > nph + 2:  # the dense factor's split
+                    rec["phase_cycles_per_cta_iteration"][name].update(
+                        factor_panels=float(clk[:, nph + 2].double().sum())
+                        / its, factor_trailing=float(
+                            clk[:, nph + 3].double().sum()) / its)
+    if a.out:
+        torch.save({"label": a.label, "kernel": "ipm_dense", "out": outs},
+                   a.out)
+    attrs = {}
+    for lib in libs:
+        buf = (ctypes.c_int * 4)()
+        _native.check("ipm_dense_attrs",
+                      _native.library(lib).ipm_dense_attrs(buf))
+        attrs[lib] = dict(zip(("num_regs", "local_bytes", "max_threads",
+                               "static_smem_bytes"), list(buf)))
+    rec.update(attributes=attrs, reps=a.reps, build_s=build_s, card=smi)
     print(json.dumps(rec), flush=True)
 
 

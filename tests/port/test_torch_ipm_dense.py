@@ -102,7 +102,7 @@ def test_k11_host_matches_plain_and_reference(route, tight):
     assert (su.nb > 0) == route.startswith("block")
     sol = solve_ipm_qp_host(dense, st)
     _assert_same_run(sol, t_solve(dense, st, device="cpu"), HOST_TOL)
-    for smem in ((0, 0, 0, 0), (1, 0, 0, 1), (0, 1, 1, 0)):
+    for smem in ((0, 0, 0, 0, 0), (1, 0, 0, 1, 1), (0, 1, 1, 0, 0)):
         other = _finish(su, ipm_dense_host(su, smem))
         assert torch.equal(other.x, sol.x) and torch.equal(other.u, sol.u)
     _against_jax(arrays, dense, kw, sol)
@@ -212,12 +212,24 @@ def test_dense_rows_on_cuda_reach_k11_and_never_fall_back(monkeypatch):
     monkeypatch.setattr(ipm_qp, "_loop_plain", plain)
     _assert_same_run(t_solve(dense, st, device="cpu", kernels=False), ref,
                      0.0)
-    # the device scratch: band, n-vectors, K (dense route), m-vectors
-    assert k11_scratch_size(35, 7, 5, 10, 4) == 5 * 49 + 4 * 49 + 35 \
-        + 19 * 35 + 12 * 14
-    assert k11_scratch_size(21, 0, 0, 10, 4) == 19 * 21 + 21 * 21 + 12 * 14
+    # the device scratch: K (dense route, packed), the lists (empty here:
+    # each its offsets, rows + 1 ints, two to a float64), band, n-vectors,
+    # m-vectors, the raw lists (Rh, Ra, P)
+    def offsets(*rows):
+        return sum(-(-(r + 1) // 2) for r in rows)
+    assert k11_scratch_size(35, 7, 5, 10, 4) == offsets(10, 35, 4, 35, 35) \
+        + 5 * 49 + 4 * 49 + 35 + 18 * 35 + 12 * 14 + offsets(10, 4, 35)
+    assert k11_scratch_size(21, 0, 0, 10, 4) == 21 * 22 // 2 \
+        + offsets(10, 21, 4, 21, 21) + 18 * 21 + 12 * 14 + offsets(10, 4, 21)
     assert _native.k11_library(True, 0) == _native.k11_library(True, 1)
     assert [_native.k11_library(False, b) for b in (9, 10, 21)] == [
         "ipm_dense_f32_b1_9", "ipm_dense_f32_b10_14", "ipm_dense_f32_b19_21"]
     with pytest.raises(ValueError, match="1..21"):
         _native.k11_library(False, 22)
+    # the dense order (a QP under K11_LISTS_MIN_N columns): a library of
+    # its own per dtype, b up to K11_DENSE_HI and the dense route
+    assert [_native.k11_library(f64, b, False) for f64, b in (
+        (False, 0), (True, 9))] == ["ipm_dense_f32_dense",
+                                    "ipm_dense_f64_dense"]
+    with pytest.raises(ValueError, match="dense order"):
+        _native.k11_library(False, 10, False)

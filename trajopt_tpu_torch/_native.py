@@ -17,7 +17,8 @@ solve_ik's), ``csrc/contact_select_host.cpp`` (K10 contact_select's) and
 ``csrc/ipm_banded.cu`` built once per dtype and range of block sizes,
 ``K6_GROUPS``, and ``ipm_timer`` float32 with the phase timer; and K11
 ipm_dense's, on the card ``csrc/ipm_dense.cu`` built likewise,
-``K11_GROUPS``) for the CPU
+``K11_GROUPS`` and the dense order's per dtype, and ``ipm_dense_timer`` /
+``_timer_dense`` float32 with its timer) for the CPU
 with the host's C++ compiler, for checking that code against the plain
 PyTorch version without a card.
 """
@@ -103,16 +104,27 @@ def k6_library(f64: bool, b: int) -> str:
 # K11 ipm_dense runs the dense-row QPs: its block route at every b from 1
 # to K6_BLOCK_MAX (a run-time b, each library one dtype and a range of b,
 # whose factor and solves it instantiates), its dense route in every
-# library
+# library; its sums over the lists of nonzeros.  The kernel that keeps the
+# dense order (a QP of a few columns) is a library of its own per dtype,
+# b 1-9 and the dense route (K11_DENSE_HI)
 K11_GROUPS = ((1, 9), (10, 14), (15, 18), (19, 21))
+K11_DENSE_HI = 9
 
 
-def k11_library(f64: bool, b: int) -> str:
+def k11_library(f64: bool, b: int, lists: bool = True) -> str:
     """The name of K11's library for the block route at block size b (b 0:
-    the dense route, which every library runs; float64 or float32)."""
+    the dense route, which every library runs; float64 or float32), over
+    the lists or (``lists`` False, b at most K11_DENSE_HI) in the dense
+    order."""
+    d = "f64" if f64 else "f32"
+    if not lists:
+        if 0 <= b <= K11_DENSE_HI:
+            return f"ipm_dense_{d}_dense"
+        raise ValueError(f"ipm_dense: the dense order at block size {b} "
+                         f"(it is built for 1..{K11_DENSE_HI})")
     for lo, hi in K11_GROUPS:
         if lo <= b <= hi or (b == 0 and lo == 1):
-            return f"ipm_dense_{'f64' if f64 else 'f32'}_b{lo}_{hi}"
+            return f"ipm_dense_{d}_b{lo}_{hi}"
     raise ValueError(f"ipm_dense: block size {b} outside 1..{K6_BLOCK_MAX}, "
                      "the sizes K11's block route is instantiated for")
 
@@ -129,9 +141,20 @@ for _name in _VARIANTS:
                           ("ipm_banded_attrs", [_I, _P])]
 for _f64 in (False, True):
     for _lo, _hi in K11_GROUPS:
-        _name = k11_library(_f64, _lo)
-        _VARIANTS[_name] = ("ipm_dense", [
+        _VARIANTS[k11_library(_f64, _lo)] = ("ipm_dense", [
             f"-DK11_F64={int(_f64)}", f"-DK11_LO={_lo}", f"-DK11_HI={_hi}"])
+    _VARIANTS[k11_library(_f64, 0, False)] = ("ipm_dense", [
+        f"-DK11_F64={int(_f64)}", "-DK11_LO=1", f"-DK11_HI={K11_DENSE_HI}",
+        "-DK11_LISTS=0"])
+# K11 float32 with its phase timer (b 1-9 and the dense route), over the
+# lists and in the dense order
+_VARIANTS["ipm_dense_timer"] = ("ipm_dense", [
+    "-DK11_F64=0", "-DK11_LO=1", "-DK11_HI=9", "-DK11_TIMED=1"])
+_VARIANTS["ipm_dense_timer_dense"] = ("ipm_dense", [
+    "-DK11_F64=0", "-DK11_LO=1", "-DK11_HI=9", "-DK11_TIMED=1",
+    "-DK11_LISTS=0"])
+for _name, (_src, _) in _VARIANTS.items():
+    if _src == "ipm_dense":
         _SIGNATURES[_name] = [("ipm_dense_run", [_P, _P]),
                               ("ipm_dense_attrs", [_P])]
 for _src, _sfx in (("cast_seg", ""), ("cast_cvx", "_cvx")):
@@ -140,9 +163,9 @@ for _src, _sfx in (("cast_seg", ""), ("cast_cvx", "_cvx")):
                                    for s in ("f32", "f64")] \
         + [(f"{_src}_attrs", [_I, _P])]
 SOURCES = tuple(_SIGNATURES)  # one library each
-# libraries that build_all() leaves out, built when first asked for: K6 with
-# its phase timer, which only scripts/ipm_ab.py --phases runs
-ON_DEMAND = ("ipm_timer",)
+# libraries that build_all() leaves out, built when first asked for: K6 and
+# K11 with their phase timers, which only scripts/ipm_ab.py --phases runs
+ON_DEMAND = ("ipm_timer", "ipm_dense_timer", "ipm_dense_timer_dense")
 # extra nvcc flags per source: the cast kernels keep every multiply and add
 # separate (no FMA contraction), as the plain PyTorch versions compute them,
 # so that their argmin decisions agree wherever there is no tie; so does
@@ -222,7 +245,8 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                                   for sig in _SIGNATURES[src]
                                   if not sig[0].endswith("_attrs")],
                     "ipm_host": [(f"{k}_{s}", [_P, _P])
-                                 for k in ("ipm_banded", "ipm_dense")
+                                 for k in ("ipm_banded", "ipm_dense",
+                                           "ipm_dense_all", "ipm_dense_sizes")
                                  for s in ("f32", "f64")],
                     # the team size in place of the stream
                     "contact_select_host": [

@@ -41,26 +41,62 @@ extern "C" int ipm_banded_f64(ipm::Args* a, void*) {
 }
 
 // K11: the dense route, and the block route at every b the card takes
-// (1..BLOCK_MAX; -1 for another)
-template <typename T>
+// (1..BLOCK_MAX; -1 for another); ALL: lists that hold every entry, zeros
+// too (the host's check that leaving the zeros out changes no output; the
+// card's libraries have no such entry)
+template <typename T, bool ALL>
 static int run_dense(const ipm_dense::Args* a) {
   if (a->nb > 0 && (a->b < 1 || a->b > banded::BLOCK_MAX)) return -1;
-  std::vector<T> smem(ipm_dense::smem_layout(
-                          a->n, a->b, a->nb, a->mh, a->ma, a->smem_base != 0,
-                          a->smem_rows != 0, a->smem_k != 0,
-                          a->smem_scr != 0)
+  std::vector<T> smem(ipm_dense::smem_layout<T>(
+                          *a, a->smem_k != 0, a->smem_lists != 0,
+                          a->smem_base != 0, a->smem_scr != 0,
+                          a->smem_raw != 0)
                           .total);
-  for (int lane = 0; lane < a->lanes; ++lane)
-    ipm_dense::ipm_dense_lane<
-        T, 1, ipm_dense::Blocks<T, 1, 1, banded::BLOCK_MAX>>(
-        *a, lane, smem.data(), 0, 1);
+  using Blk = ipm_dense::Blocks<T, 1, 1, banded::BLOCK_MAX>;
+  for (int lane = 0; lane < a->lanes; ++lane) {
+    if (a->lists)
+      ipm_dense::ipm_dense_lane<T, 1, Blk, false, true, ALL>(
+          *a, lane, smem.data(), 0, 1);
+    else
+      ipm_dense::ipm_dense_lane<T, 1, Blk, false, false, ALL>(
+          *a, lane, smem.data(), 0, 1);
+  }
   return 0;
 }
 
 extern "C" int ipm_dense_f32(ipm_dense::Args* a, void*) {
-  return run_dense<float>(a);
+  return run_dense<float, false>(a);
 }
 
 extern "C" int ipm_dense_f64(ipm_dense::Args* a, void*) {
-  return run_dense<double>(a);
+  return run_dense<double, false>(a);
+}
+
+extern "C" int ipm_dense_all_f32(ipm_dense::Args* a, void*) {
+  return run_dense<float, true>(a);
+}
+
+extern "C" int ipm_dense_all_f64(ipm_dense::Args* a, void*) {
+  return run_dense<double, true>(a);
+}
+
+// the elements of each region per lane (K, lists, base, scratch, raw
+// lists: ipm_dense.cuh's sizes, in the plan's order) into out[5], for the
+// wrapper's mirror (ops.ipm_qp.k11_region_sizes) to be held against
+template <typename T>
+static int dense_sizes(const ipm_dense::Args* a, long* out) {
+  out[0] = ipm_dense::k_size(a->n, a->nb);
+  out[1] = ipm_dense::lists_size<T>(*a);
+  out[2] = ipm_dense::base_size(a->n, a->b, a->nb);
+  out[3] = ipm_dense::scr_size(a->mh, a->ma);
+  out[4] = ipm_dense::raw_size<T>(*a);
+  return 0;
+}
+
+extern "C" int ipm_dense_sizes_f32(ipm_dense::Args* a, long* out) {
+  return dense_sizes<float>(a, out);
+}
+
+extern "C" int ipm_dense_sizes_f64(ipm_dense::Args* a, long* out) {
+  return dense_sizes<double>(a, out);
 }

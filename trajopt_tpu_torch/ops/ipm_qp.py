@@ -822,13 +822,14 @@ def ipm_banded_host(su: _Setup, plan: BandPlan, smem=(1, 1),
 # K11 ipm_dense: the dense-row loop as one launch (csrc/ipm_dense.cu)
 # --------------------------------------------------------------------------
 
-_K11_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "max_iter", "smem_base",
-             "smem_rows", "smem_k", "smem_scr")
-_K11_PTRS = ("PT", "PrT", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
+_K11_INTS = ("lanes", "n", "b", "nb", "mh", "ma", "max_iter", "smem_k",
+             "smem_lists", "smem_base", "smem_scr", "smem_raw", "lists", "nz_h",
+             "nz_a", "nz_rh", "nz_ra", "nz_p", "nz_pr")
+_K11_PTRS = ("P", "Pr", "q", "qr", "lb", "ub", "lbr", "ubr", "cf",
              "Jh", "Rh", "eh", "wh", "ehr", "whr",
              "Ja", "Ra", "ea", "wa", "ear", "war",
              "dx", "z5", "z6", "dxb", "h", "z1", "p", "nn", "y", "rp", "rd",
-             "fb", "dscr", "it", "status")
+             "fb", "dscr", "it", "status", "clk")
 
 
 class _K11Args(ctypes.Structure):
@@ -839,26 +840,76 @@ class _K11Args(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _K11_PTRS])
 
 
-K11_VECS, K11_SCRATCH_VECS = 19, 12  # ipm_dense.cuh N_VEC, N_SCR_VEC
+K11_VECS, K11_SCRATCH_VECS = 18, 12  # ipm_dense.cuh N_VEC, N_SCR_VEC
+# K11's phase timer (ipm_dense::CLK_SLOTS per lane): K6's phases, the
+# factors that took their fallback, the cycles of the lane's set-up before
+# its loop, and of the dense route's factor its panels' columns and its
+# trailing updates
+K11_CLK_SLOTS = len(K6_PHASES) + 4
+# K11's sums run over its lists of nonzeros from this many columns on; a
+# narrower QP keeps the dense order, where the lists would only add
+# latency (the outputs are the same either way), on its dense route or
+# its block route at b up to _native.K11_DENSE_HI (the dense order's
+# library; at a larger b the lists)
+K11_LISTS_MIN_N = 33
+# K11's smem flags (``ipm_dense::Args``), in its plan's priority
+K11_REGIONS = ("k", "lists", "base", "scr", "raw")
 
 
-def k11_scratch_size(n: int, b: int, nb: int, mh: int, ma: int) -> int:
-    """Elements of K11's device scratch per lane (``ipm_dense::
-    scratch_size``): the band and the n-vectors, the dense route's n x n
-    K, the scratch m-vectors; each used where the launcher's plan leaves
-    that region out of shared memory."""
+def k11_region_sizes(n: int, b: int, nb: int, mh: int, ma: int,
+                     nz=(0,) * 6, es: int = 8) -> dict:
+    """Elements of each of K11's regions per lane (``ipm_dense.cuh``'s
+    k_size, lists_size, base_size, scr_size, raw_size), by
+    ``K11_REGIONS``, for elements of ``es`` bytes: the dense route's
+    packed K, the lists of the scaled rows and of P, the band and the
+    n-vectors, the scratch m-vectors, the raw lists.  ``nz``: the lists'
+    capacities (Jh, Ja, Rh, Ra, P, raw P), as ``k11_nonzeros``."""
+    def lst(rows, cap):  # values, then int indices and offsets
+        return cap + -(-4 * (cap + rows + 1) // es)
+    nz_h, nz_a, nz_rh, nz_ra, nz_p, nz_pr = nz
     band = (nb * b * b + (nb - 1) * b * b + nb * b) if nb else 0
-    return band + K11_VECS * n + (0 if nb else n * n) \
-        + K11_SCRATCH_VECS * (mh + ma)
+    return {"k": 0 if nb else n * (n + 1) // 2,
+            "lists": lst(mh, nz_h) + lst(n, nz_h) + lst(ma, nz_a)
+            + lst(n, nz_a) + lst(n, nz_p),
+            "base": band + K11_VECS * n,
+            "scr": K11_SCRATCH_VECS * (mh + ma),
+            "raw": lst(mh, nz_rh) + lst(ma, nz_ra) + lst(n, nz_pr)}
 
 
-def _k11_args(su: _Setup, smem=(1, 1, 1, 1)):
+def k11_scratch_size(n: int, b: int, nb: int, mh: int, ma: int,
+                     nz=(0,) * 6, es: int = 8) -> int:
+    """Elements of K11's device scratch per lane (``ipm_dense::
+    scratch_size``): every region of ``k11_region_sizes``, each used where
+    the launcher's plan leaves it out of shared memory."""
+    return sum(k11_region_sizes(n, b, nb, mh, ma, nz, es).values())
+
+
+def k11_nonzeros(su: _Setup, every_index: bool = False) -> tuple:
+    """K11's list capacities for the set-up: the most nonzeros of any lane
+    in the scaled Jh and Ja, the raw rows, P scaled and raw (one host
+    sync); ``every_index``: every entry (the host build's lists of every
+    index)."""
+    d, n, mh, ma = su.data, su.n, su.mh, su.ma
+    if every_index:
+        return (mh * n, ma * n, mh * n, ma * n, n * n, n * n)
+    Ms = (su.Jh, su.Ja, d.A_h, d.A_a, su.P, d.P)
+    return tuple(int(c) for c in torch.stack(
+        [(M != 0).flatten(1).sum(1).amax() for M in Ms]).tolist())
+
+
+def _k11_args(su: _Setup, smem=(1,) * 5, clk=None, every_index=False,
+              lists=None):
     """K11's launch arguments for the set-up: (args, tensors), ``tensors``
     every input and output the arguments point at (keep them while the
     arguments are used).  ``smem``: where the host build keeps the regions
-    (base, scaled rows, the dense K, the scratch; 1 its shared-memory
-    array, 0 the device scratch); the card's launcher decides by its
-    budget."""
+    (``K11_REGIONS``: the packed K, the lists, base, the scratch, the raw
+    lists; 1 its shared-memory array, 0 the device scratch); the card's
+    launcher decides by its budget.  ``clk``: the phase timer, an int64
+    (lanes, K11_CLK_SLOTS) tensor the timed library adds to (see
+    ``ipm_dense_cuda``).  ``every_index``: capacities for lists of every
+    entry (``ipm_dense_host``).  ``lists``: whether the sums run over the
+    lists (None: from ``K11_LISTS_MIN_N`` columns on, and at a block size
+    above ``_native.K11_DENSE_HI``)."""
     d, lanes, n, mh, ma = su.data, su.lanes, su.n, su.mh, su.ma
     dt = su.q.dtype
     if dt not in (torch.float32, torch.float64):
@@ -875,8 +926,11 @@ def _k11_args(su: _Setup, smem=(1, 1, 1, 1)):
     def empty(*shape):
         return su.q.new_empty((lanes,) + shape)
 
+    if lists is None:
+        lists = n >= K11_LISTS_MIN_N or b > _native.K11_DENSE_HI
+    nz = k11_nonzeros(su, every_index) if lists else (0,) * 6
     tensors = dict(
-        PT=cont(su.P.transpose(1, 2)), PrT=cont(d.P.transpose(1, 2)),
+        P=cont(su.P), Pr=cont(d.P),
         q=cont(su.q), qr=cont(d.q), lb=cont(su.lb), ub=cont(su.ub),
         lbr=cont(d.lb), ubr=cont(d.ub),
         cf=cont(torch.stack([su.c, su.f_zero], -1)),
@@ -887,7 +941,8 @@ def _k11_args(su: _Setup, smem=(1, 1, 1, 1)):
         dx=empty(n), z5=empty(n), z6=empty(n), dxb=empty(n),
         h=empty(mh), z1=empty(mh), p=empty(ma), nn=empty(ma),
         y=empty(ma), rp=empty(), rd=empty(), fb=empty(),
-        dscr=empty(k11_scratch_size(n, b, su.nb, mh, ma)),
+        dscr=empty(k11_scratch_size(n, b, su.nb, mh, ma, nz,
+                                    su.q.element_size())),
         it=torch.empty((lanes,), dtype=torch.int32, device=su.q.device),
         status=torch.empty((lanes,), dtype=torch.int32, device=su.q.device))
     for k, t in tensors.items():
@@ -895,52 +950,73 @@ def _k11_args(su: _Setup, smem=(1, 1, 1, 1)):
             raise TypeError(f"ipm_dense: {k} is on {t.device}, not "
                             f"{su.q.device}")
     args = _K11Args(lanes=lanes, n=n, b=b, nb=su.nb, mh=mh, ma=ma,
-                    max_iter=su.s.max_ipm_iter, smem_base=smem[0],
-                    smem_rows=smem[1], smem_k=smem[2], smem_scr=smem[3],
+                    max_iter=su.s.max_ipm_iter,
+                    **{f"smem_{k}": f for k, f in zip(K11_REGIONS, smem)},
+                    lists=int(lists),
+                    **dict(zip(("nz_h", "nz_a", "nz_rh", "nz_ra", "nz_p",
+                                "nz_pr"), nz)),
                     eps_abs=su.s.eps_abs, eps_rel=su.s.eps_rel,
+                    clk=0 if clk is None else clk.data_ptr(),
                     **{k: t.data_ptr() for k, t in tensors.items()})
     return args, tensors
 
 
-def _k11_call(su: _Setup, fn, smem=(1, 1, 1, 1)) -> _St:
+def _k11_call(su: _Setup, fn, smem=(1,) * 5, clk=None, every_index=False,
+              lists=None) -> _St:
     """Lay the set-up out for K11 (``_k11_args``), run ``fn(args)`` (the
     CUDA launcher or the host build) and return its final state."""
-    args, t = _k11_args(su, smem)
+    args, t = _k11_args(su, smem, clk, every_index, lists)
     fn(args)
     return _St(t["dx"], t["h"], t["p"], t["nn"], t["z1"], t["y"], t["z5"],
                t["z6"], t["it"], t["status"], t["rp"], t["rd"], t["fb"],
                t["dxb"])
 
 
-def ipm_dense_cuda(su: _Setup) -> _St:
+def ipm_dense_cuda(su: _Setup, clk=None) -> _St:
     """K11 on the card: one launch runs every lane's whole loop on the
     dense rows (the block route at su.bsz where su.nb > 0, else the dense
-    Cholesky)."""
+    Cholesky).  ``clk``: the phase timer (float32, b 1-9 or the dense
+    route; the library ``ipm_dense_timer``), an int64 contiguous CUDA
+    tensor (lanes, K11_CLK_SLOTS) each lane adds its phases' clock64
+    cycles, its factors' fallbacks and its set-up's cycles to."""
     if not su.q.is_cuda:
         raise ValueError("ipm_dense_cuda: tensors must be on a CUDA device")
     if not su.dense:
         raise ValueError("ipm_dense_cuda: the rows are banded (K6's)")
+    if clk is not None and (su.q.dtype != torch.float32
+                            or (su.nb and su.bsz > _native.K11_DENSE_HI)
+                            or clk.shape != (su.lanes, K11_CLK_SLOTS)
+                            or clk.dtype != torch.int64 or not clk.is_cuda
+                            or not clk.is_contiguous()):
+        raise ValueError("ipm_dense_cuda: the timer runs in float32 at b 1-9 "
+                         "or on the dense route, on a contiguous int64 CUDA "
+                         f"tensor clk ({su.lanes}, {K11_CLK_SLOTS})")
 
     def launch(args):
-        fn = _native.library(_native.k11_library(
-            su.q.dtype == torch.float64, args.b)).ipm_dense_run
+        if clk is not None:
+            name = "ipm_dense_timer" + ("" if args.lists else "_dense")
+        else:
+            name = _native.k11_library(su.q.dtype == torch.float64, args.b,
+                                       bool(args.lists))
+        fn = _native.library(name).ipm_dense_run
         stream = torch.cuda.current_stream(su.q.device).cuda_stream
         _native.check("ipm_dense", fn(ctypes.byref(args), stream))
         _native.LAUNCHES["ipm_dense"] += 1
         _native.LAUNCHES[f"ipm_dense_b{args.b}" if args.nb
                          else "ipm_dense_chol"] += 1
 
-    return _k11_call(su, launch)
+    return _k11_call(su, launch, clk=clk)
 
 
 def dense_kernel_attributes() -> dict:
     """{"f32_b1_9": {"num_regs", "local_bytes", "max_threads",
-    "static_smem_bytes"}, ...} of K11's libraries on the card
-    (``cudaFuncGetAttributes``; one kernel each, b at run time)."""
+    "static_smem_bytes"}, ..., "f32_dense": {...}} of K11's libraries on
+    the card (``cudaFuncGetAttributes``; one kernel each, b at run time:
+    over the lists, or in the dense order)."""
     out = {}
     for f64 in (False, True):
-        for lo, hi in _native.K11_GROUPS:
-            name = _native.k11_library(f64, lo)
+        names = [_native.k11_library(f64, lo) for lo, _ in _native.K11_GROUPS]
+        for name in names + [_native.k11_library(f64, 0, False)]:
             buf = (ctypes.c_int * 4)()
             _native.check("ipm_dense_attrs",
                           _native.library(name).ipm_dense_attrs(buf))
@@ -950,20 +1026,23 @@ def dense_kernel_attributes() -> dict:
     return out
 
 
-def ipm_dense_host(su: _Setup, smem=(1, 1, 1, 1)) -> _St:
+def ipm_dense_host(su: _Setup, smem=(1,) * 5, every_index: bool = False,
+                   lists=None) -> _St:
     """K11's device code built for the CPU (``csrc/ipm_host.cpp``), on CPU
-    tensors: for checking it without a card (``smem``: see
-    ``_k11_call``)."""
+    tensors: for checking it without a card (``smem``, ``lists``: see
+    ``_k11_args``; ``every_index``: lists that hold every entry, zeros
+    too, which must give the same outputs bit for bit)."""
     if su.q.is_cuda:
         raise ValueError("ipm_dense_host: tensors must be on the CPU")
 
     def launch(args):
         lib = _native.host_library("ipm_host")
-        fn = lib.ipm_dense_f32 if su.q.dtype == torch.float32 \
-            else lib.ipm_dense_f64
+        fn = getattr(lib, f"ipm_dense{'_all' if every_index else ''}_"
+                     f"{'f32' if su.q.dtype == torch.float32 else 'f64'}")
         _native.check("ipm_dense", fn(ctypes.byref(args), None))
 
-    return _k11_call(su, launch, smem=smem)
+    return _k11_call(su, launch, smem=smem, every_index=every_index,
+                     lists=lists)
 
 
 # --------------------------------------------------------------------------
