@@ -13,8 +13,8 @@ Every line printed is one JSON object.  Phases, in order:
    K7v instantiation and of K6's (float32 and float64 at every b from 1 to
    21) (``cudaFuncGetAttributes``),
    which the kernel summary repeats; the float32 K4 (n_dof 7) and K4v
-   without the CONVEX routes, and the float32 K6 at b 7, must use no local
-   memory; then the registers and local memory of K10 / K10v (float32 and
+   without the CONVEX routes, and the float32 K6 at every b up to
+   ``K6_F32_NO_LOCAL_MAX_B``, must use no local memory; then the registers and local memory of K10 / K10v (float32 and
    float64), of K6 at b 8 and (their ptxas lines) of K1-K3 at b 8;
 2. each kernel held against its plain PyTorch version on the same inputs
    (tolerances below), in float32 and float64, then its time, its plain
@@ -41,7 +41,9 @@ Every line printed is one JSON object.  Phases, in order:
    the pick-and-place transfer's first, 128 lanes
    each, and the flagship's first regrouped to superblocks of two and
    three steps (K6 at b 14 and 21), in float32 and float64 (the float32
-   capture cast up).  Per lane:
+   capture cast up), each with the launcher's shared-memory plan for it
+   (``ipm_qp.k6_smem_plan``: the factor's block inverses, M then W, V and
+   the solves' scratch beside the n-vectors).  Per lane:
    status, iteration count and dx.  float64: equal statuses, and dx within
    K6_DX_TOL of the lane's largest |dx| on every lane whose iteration count
    is equal; a lane whose runs end apart must be a termination-threshold
@@ -62,15 +64,15 @@ Every line printed is one JSON object.  Phases, in order:
    128 lanes x 10 steps) in float64, with the same checks;
 2h. (run after 2d) K11 ipm_dense against the plain IPM loop on the first
    QPs of the dense-row paths, captured from their solves on the card (128
-   lanes each; each QP's shapes and route printed): 6a's and 6b's (K11's
-   block route at b 7), 7c(i)'s (b 8), 7c(ii)'s and simple_collision's
-   (its dense route), in float32 and float64 with phase 2d's rules; then
+   lanes each; each QP's shapes, route and block-route band printed):
+   6a's and 6b's (K11's block route at b 7), 7c(i)'s (b 8), 7c(ii)'s and
+   simple_collision's (its dense route), in float32 and float64 with phase 2d's rules; then
    on each, in float32, K11's time (the bare launch on the device clock,
    ``device_ms``, and the wrapper's CUDA events), the plain loop's, its
    bound (``k11_work``, over the nonzeros), the nonzeros per row kind and
    of P (``k11_nonzero_counts``), the lists' bytes and where its
    shared-memory plan put each region, and each K11 library's registers
-   and local memory;
+   and local memory (at most ``K11_LOCAL_BYTES``);
 2e. the kernels of the reference's solve benchmarks against their plain
    versions, float32 and float64, with phase 2's value and Jacobian rules
    (a float32 Jacobian row over its tolerance must be one whose plain
@@ -340,6 +342,16 @@ K6_F32_DX_TOL = 2e-2
 # largest apart (PERF.md section 6)
 K6_F32_DX_REPORTED = ("json_table_time_qp1", "cartesian_waypoints_qp1")
 K6_F32_GAP_TOL = 0.05
+# K6 in float32 keeps its lane view in registers and shared memory up to
+# this block size (cudaFuncGetAttributes: no local memory)
+K6_F32_NO_LOCAL_MAX_B = 16
+# K11's local memory per library (cudaFuncGetAttributes), at most the
+# bytes it took before its block route's factor and solves took the
+# block-inverse form (on an H100 80GB HBM3 at 700 W)
+K11_LOCAL_BYTES = {"f32_b1_9": 336, "f32_b10_14": 672, "f32_b15_18": 1024,
+                   "f32_b19_21": 1280, "f64_b1_9": 624, "f64_b10_14": 800,
+                   "f64_b15_18": 880, "f64_b19_21": 944, "f32_dense": 96,
+                   "f64_dense": 256}
 # H100 SXM peaks (NVIDIA data sheet): HBM 3.35 TB/s; non-tensor-core
 # float32 67 TFLOP/s, float64 34 TFLOP/s
 PEAK_BYTES = 3.35e12
@@ -2438,11 +2450,13 @@ def main():
     # (cudaFuncGetAttributes)
     cast_attrs = kernel_attributes()
     emit({"phase": "cast_attributes", "attributes": cast_attrs, "card": smi})
-    # and of K6's instantiations; the float32 one at the flagship's b=7
-    # keeps its lane view in registers and shared memory
+    # and of K6's instantiations; the float32 ones up to
+    # K6_F32_NO_LOCAL_MAX_B keep their lane view in registers and shared
+    # memory
     ipm_attrs = ipm_qp.kernel_attributes()
     emit({"phase": "ipm_attributes", "attributes": ipm_attrs, "card": smi})
-    assert ipm_attrs["f32_b7"]["local_bytes"] == 0, ipm_attrs
+    assert all(ipm_attrs[f"f32_b{b}"]["local_bytes"] == 0
+               for b in range(1, K6_F32_NO_LOCAL_MAX_B + 1)), ipm_attrs
     # the instantiations this slice added: K10 / K10v (one kernel, float32
     # and float64), K6 at b 8 (above) and K1-K3 at b 8 (their ptxas lines;
     # K1 takes b at run time, one instantiation per dtype)
@@ -3202,7 +3216,14 @@ def main():
     for qname, (qd0, qset) in qps.items():
         for dtype in (torch.float64,) if qname.startswith("fixture_") \
                 else (torch.float32, torch.float64):
-            rec = ipm_vs_plain("ipm_banded", qname, qd0, qset, dtype)
+            # the launcher's shared-memory plan for the QP (the factor's
+            # block inverses D, M then W in O, V, the solves' scratch w)
+            n_q, b_q = qd0.q.shape[1], qset.kkt_block
+            smem_plan = ipm_qp.k6_smem_plan(
+                n_q, b_q, n_q // b_q, qd0.e_h.shape[1], qd0.e_a.shape[1],
+                torch.finfo(dtype).bits // 8)
+            rec = ipm_vs_plain("ipm_banded", qname, qd0, qset, dtype,
+                               smem_plan=smem_plan)
             k6_recs.append(rec)
             assert rec["ok"], "K6 ipm_banded disagrees with the plain " \
                 f"loop ({qname}, {rec['dtype']})"
@@ -3271,10 +3292,20 @@ def main():
     for qname, (qd0, qset) in dense_qps.items():
         su = ipm_qp._setup(qd0, qset)
         route = f"block, b {su.bsz}" if su.nb else "dense"
+        # the block route's band in the base region: D (the factor's block
+        # inverses), O (M, then W), V, the solves' scratch w (bytes per
+        # lane, float32 / float64); the plan is printed with the times
+        bb_, nb_ = su.bsz * su.bsz, su.nb
+        band = {k: {d: v * es_ for d, es_ in (("float32", 4),
+                                              ("float64", 8))}
+                for k, v in (("D", nb_ * bb_), ("O", (nb_ - 1) * bb_),
+                             ("V", (nb_ - 1) * bb_), ("w", nb_ * su.bsz))
+                } if nb_ else None
         emit({"phase": "dense_qp", "qp": qname, "lanes": lanes,
               "n": qd0.q.shape[1], "kkt_block": qset.kkt_block,
               "route": route, "m_h": qd0.e_h.shape[1],
-              "m_a": qd0.e_a.shape[1], "max_ipm_iter": qset.max_ipm_iter})
+              "m_a": qd0.e_a.shape[1], "max_ipm_iter": qset.max_ipm_iter,
+              "band_bytes_per_lane": band})
         for dtype in (torch.float32, torch.float64):
             rec = ipm_vs_plain("ipm_dense", qname, qd0, qset, dtype,
                                route=route)
@@ -3327,7 +3358,9 @@ def main():
         emit({"time": f"ipm_dense_{qname}", **timing[f"ipm_dense_{qname}"],
               "card": smi})
     emit({"phase": "ipm_dense_attributes", "attributes": k11_attrs,
-          "card": smi})
+          "local_bytes_limit": K11_LOCAL_BYTES, "card": smi})
+    assert all(k11_attrs[k]["local_bytes"] <= v
+               for k, v in K11_LOCAL_BYTES.items()), k11_attrs
 
     # ---- 2e: K7 / K7v, K4 / K4v at n_sub 8 and K4 at n_dof 9 against
     # their plain versions, then their times ----
@@ -4494,6 +4527,8 @@ def main():
                 **{k: v[name] for k, v in json_paths.items()},
                 **{k: v[name] for k, v in box_paths.items()}}
 
+    emit({"phase": "total", "seconds": time.perf_counter() - _T0,
+          "build_s": build_s, "limit_s": 1200})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": source[name],
          "replaces": replaces[name], "launches": launches[name],

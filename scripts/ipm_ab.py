@@ -15,22 +15,25 @@ to compare two versions of K6 on one card.
 
 The QPs are chip_smoke phase 2d's: the SQP's batched QP solves captured
 from real runs, 128 lanes each, float32: the full flagship's first and
-second (128 x T=30, b 7) and the pick-and-place transfer's first (128 x
-T=12).  The flagship's first is also regrouped to superblocks of two and
-three steps (b 14, 21).  ``--qps FILE`` loads them from FILE, or captures
-them with ROOT's package and saves them there when FILE does not exist, so
-that every checkout of one call solves the same QPs.
+second (128 x T=30, b 7), the pick-and-place transfer's first (128 x
+T=12), the redundant rail's first (b 9) and 7b's (``json_table_time``:
+the 1/dt grid, b 8).  The flagship's first is also regrouped to
+superblocks of two and three steps (b 14, 21).  ``--qps FILE`` loads
+them from FILE, or captures them with ROOT's package and saves them there
+when FILE does not exist, so that every checkout of one call solves the
+same QPs.
 
 Prints one JSON line: K6's ms per launch on each QP in float32 (CUDA
 events over N launches after a warm-up), with the card's name and power
 limit.  ``--out FILE`` saves K6's outputs on every QP in float32 and
 float64 (the solution x, status, iterations per lane) for ``--compare``,
-which prints per QP and dtype the largest |dx| difference per lane, the
-lanes whose x is bitwise equal, and the lanes whose status or iteration
-count differ.  ``--phases``: the mean clock64 cycles per CTA and IPM
-iteration of each of K6's timer phases (``ipm_qp.K6_PHASES``), float32,
-where ROOT's K6 has the timer, and the factors per iteration that took
-their fallback.  ``--e2e``: the main paths' warm walls and
+which prints per QP and dtype each lane's largest |dx| difference
+(absolute, and relative to the lane's largest |x|), the lanes whose x is
+bitwise equal, and the lanes that end apart (status or iteration count)
+with both sides' statuses and iterations.  ``--phases``: the mean clock64
+cycles per CTA and IPM iteration of each of K6's timer phases
+(``ipm_qp.K6_PHASES``), float32, where ROOT's K6 has the timer, and the
+factors per iteration that took their fallback.  ``--e2e``: the main paths' warm walls and
 gated solves/s, counted as ``cast_ab.py --e2e`` counts them.  Only the
 libraries a run needs are built.
 
@@ -45,7 +48,8 @@ timer phase's cycles per CTA and IPM iteration and the set-up's cycles per
 CTA (float32, where ROOT's K11 has the timer); ``--out`` every output of
 the launch (dx, z5, z6, dxb, h, z1, p, nn, y, rp, rd, fb, it, status) in
 float32 and float64, which ``--compare`` holds element by element (equal,
-or NaN on both sides), per lane.  Exits non-zero when CUDA is not
+or NaN on both sides), per lane, with each lane's |dx| differences and
+the lanes that end apart, as for K6.  Exits non-zero when CUDA is not
 available.
 """
 
@@ -100,8 +104,15 @@ def _regrouped(rec, c):
 
 
 def capture_qps(dev, lanes):
-    """The QPs of chip_smoke phase 2d, captured with this package."""
+    """The QPs of chip_smoke phase 2d, captured with this package (and the
+    documents of this checkout's chip_smoke)."""
     import torch
+
+    sys.path.insert(1, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+    from trajopt_tpu_torch.benchmarks import make_redundant_rail
+    from trajopt_tpu_torch.solver.sqp import solve_batch
 
     from trajopt_tpu_torch.benchmarks import (bench_params, chain_transfer,
                                               make_glass_upright,
@@ -139,6 +150,15 @@ def capture_qps(dev, lanes):
         sc, rA.x.reshape(lanes, 12, -1)[:, -1].cpu().numpy())
     qps["transfer_qp1"] = capture(lambda: solve_batch_compact(
         specB, dataB, params, phase_qp_solves=8, device=dev), {0})[0]
+    spec_r, data_r = make_redundant_rail(lanes, dtype=f32, device=dev)[:2]
+    qps["rail_qp1"] = capture(lambda: solve_batch(
+        spec_r, data_r, dataclasses.replace(params, max_total_qp_solves=1),
+        device=dev), {0})[0]
+    spec_t, data_t, par_t = cs.port_json_problem(
+        cs.json_docs("table_time", lanes), f32, dev)[:3]
+    qps["json_table_time_qp1"] = capture(lambda: solve_batch(
+        spec_t, data_t, dataclasses.replace(par_t, max_total_qp_solves=1),
+        device=dev), {0})[0]
     qps["flagship_qp1_b14"] = _regrouped(qps["flagship_qp1"], 2)
     qps["flagship_qp1_b21"] = _regrouped(qps["flagship_qp1"], 3)
     return qps
@@ -195,6 +215,22 @@ def capture_dense_qps(dev, lanes):
     return qps
 
 
+def lane_diffs(xa, xb, st_a, st_b, it_a, it_b):
+    """Per lane: x's largest |difference|, absolute and relative to the
+    lane's largest |x| on side A; the lanes that end apart (status or
+    iterations), with both sides' statuses and iterations."""
+    import torch
+    d = (xa.double() - xb.double()).abs().amax(-1)
+    rel = d / xa.double().abs().amax(-1).clamp(min=1e-30)
+    apart = torch.nonzero((st_a != st_b) | (it_a != it_b))[:, 0].tolist()
+    return {"dx_abs_per_lane": d.tolist(), "dx_rel_per_lane": rel.tolist(),
+            "dx_rel_max": float(rel.max()),
+            "dx_rel_median": float(rel.median()),
+            "lanes_apart": apart,
+            "apart_status": [[int(st_a[i]), int(st_b[i])] for i in apart],
+            "apart_iters": [[int(it_a[i]), int(it_b[i])] for i in apart]}
+
+
 def compare_dense(A, B, rec):
     """K11's outputs of two --k11 runs, element by element per lane."""
     import torch
@@ -213,6 +249,8 @@ def compare_dense(A, B, rec):
         q["lanes_equal"] = int((~bad).sum())
         d = (a["dx"].double() - b["dx"].double()).abs().amax(-1)
         q["dx_max_abs_diff"] = float(d.max())
+        q.update(lane_diffs(a["dx"], b["dx"], a["status"], b["status"],
+                            a["it"], b["it"]))
         rec["qps"][key] = q
     print(json.dumps(rec), flush=True)
 
@@ -234,7 +272,9 @@ def compare(a_path, b_path):
             "lanes_x_bitwise_equal": int((a["x"] == b["x"]).all(-1).sum()),
             "lanes_status_differ": int((a["status"] != b["status"]).sum()),
             "lanes_iters_differ": int((a["iters"] != b["iters"]).sum()),
-            "iters_diff_max": int((a["iters"] - b["iters"]).abs().max())}
+            "iters_diff_max": int((a["iters"] - b["iters"]).abs().max()),
+            **lane_diffs(a["x"], b["x"], a["status"], b["status"],
+                         a["iters"], b["iters"])}
     print(json.dumps(rec), flush=True)
 
 
@@ -300,9 +340,10 @@ def main():
         run_k11(a, dev, lanes, smi)
         return
     # the libraries this run needs: K6 at the QPs' block sizes (and its
-    # timer), the cast kernels of the captures and of --e2e
+    # timer), the cast kernels of the captures and of --e2e, K10 of 7b's
     names = [_native.k6_library(f64, b) for f64 in (False, True)
-             for b in (7, 14, 21)] + ["cast_seg", "cast_cvx"]
+             for b in (7, 8, 9, 14, 21)] + ["cast_seg", "cast_cvx",
+                                             "contact_select"]
     if a.phases:
         names.append("ipm_timer")
     build_s = _native.build_all(sorted(set(names)) if not a.e2e else None)

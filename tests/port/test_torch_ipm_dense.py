@@ -213,12 +213,14 @@ def test_dense_rows_on_cuda_reach_k11_and_never_fall_back(monkeypatch):
     _assert_same_run(t_solve(dense, st, device="cpu", kernels=False), ref,
                      0.0)
     # the device scratch: K (dense route, packed), the lists (empty here:
-    # each its offsets, rows + 1 ints, two to a float64), band, n-vectors,
-    # m-vectors, the raw lists (Rh, Ra, P)
+    # each its offsets, rows + 1 ints, two to a float64), band (D, O, V and
+    # the solves' scratch n-vector), n-vectors, m-vectors, the raw lists
+    # (Rh, Ra, P)
     def offsets(*rows):
         return sum(-(-(r + 1) // 2) for r in rows)
     assert k11_scratch_size(35, 7, 5, 10, 4) == offsets(10, 35, 4, 35, 35) \
-        + 5 * 49 + 4 * 49 + 35 + 18 * 35 + 12 * 14 + offsets(10, 4, 35)
+        + 5 * 49 + 4 * 49 + 4 * 49 + 35 + 18 * 35 + 12 * 14 \
+        + offsets(10, 4, 35)
     assert k11_scratch_size(21, 0, 0, 10, 4) == 21 * 22 // 2 \
         + offsets(10, 21, 4, 21, 21) + 18 * 21 + 12 * 14 + offsets(10, 4, 21)
     assert _native.k11_library(True, 0) == _native.k11_library(True, 1)

@@ -247,7 +247,11 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                     "ipm_host": [(f"{k}_{s}", [_P, _P])
                                  for k in ("ipm_banded", "ipm_dense",
                                            "ipm_dense_all", "ipm_dense_sizes")
-                                 for s in ("f32", "f64")],
+                                 for s in ("f32", "f64")]
+                    + [(f"btd_inverse_{s}", [_P] * 5 + [_I] * 4 + [t])
+                       for s, t in (("f32", ctypes.c_float),
+                                    ("f64", ctypes.c_double))]
+                    + [("ipm_banded_layout", [_I] * 7 + [_P])],
                     # the team size in place of the stream
                     "contact_select_host": [
                         (f"contact_select_{s}", _CSEL[:-1] + [_I])

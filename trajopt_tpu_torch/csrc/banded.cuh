@@ -16,9 +16,10 @@
 // Row groups are those of ops.banded_rows: B (n_g, r, 2b) windows over
 // column blocks G[g] and G[g] + 1.
 //
-// K6 runs its factor and solves through the warp versions at the end of
-// this file (btd_factor_warp, btd_solve_warp): the same arithmetic as K2's
-// and K3's, with the rows in registers.
+// K6 and K11's block route run the block-inverse form at the end of this
+// file (btd_factor_warp, btd_couple_v / _w, btd_apply_inv, btd_sweep): the
+// same K x = r as K2's and K3's steps, with the solves as recurrences over
+// the pivot blocks' inverses formed in the factor.
 #pragma once
 
 #include <math.h>
@@ -283,24 +284,37 @@ BHD void btd_solve_lane(const T* LD, const T* LM, const T* r, T* x, int nT,
                         t < nT - 1 ? x + (t + 1) * BS : x, x + t * BS, tid);
 }
 
-// ------------------------------------------------- K2, K3: K6's warp form
+// ---------------------------- K2, K3: K6's and K11's block-inverse form
 //
-// The block Cholesky and the block solves as K6 runs them on one warp:
-// the same arithmetic as btd_factor_inplace and btd_solve_lane, every sum
-// in the same order, but with the rows in registers and no branch in the
-// chains.  Row r of a block is held by member r % NT in slot r / NT (V =
+// K6 and K11's block route factor K and solve K x = r through the inverses
+// of the pivot blocks' Cholesky factors, Linv_t = L_t^{-1}, so that a solve
+// is two recurrences of b x b products with no division:
+// - the factor (btd_factor_warp; one warp, over t in order): M_t = O_{t-1}
+//   Linv_{t-1}^T (a product in place of the reference's triangular solve),
+//   S_t = D_t - M_t M_t^T (the sum taken first), L_t = chol(S_t) with each
+//   pivot floored at tiny, and Linv_t formed beside L_t: row j of Linv as
+//   soon as L's column j is known.  D_t <- Linv_t (lower), O_{t-1} <- M_t;
+//   L itself is not kept.
+// - the couplings (btd_couple_v, btd_couple_w; the whole team, every t at
+//   once): V_t = Linv_t^T M_{t+1}^T into V, then W_t = Linv_t M_t in place
+//   of M_t.
+// - the solve (btd_apply_inv, btd_sweep): c = Linv r (the team, every row
+//   at once), y_t = c_t - W_t y_{t-1} (one warp: a b x b product a step),
+//   d = Linv^T y (the team), x_t = d_t - V_t x_{t+1} (one warp).
+// Row r of a block is held by team member r % NT in slot r / NT (V =
 // ceil(BS / NT) slots: one on the card, where NT = 32 > b, BS on the host,
 // where NT = 1); a value of another member's row comes by team_bcast (a
-// warp shuffle).  A float division by a pivot L[j, j] takes its reciprocal
-// refined once (qm::qrcp, kept in rc beside the factor), and every float
-// division and root takes qmath's fast path with a flag (qdiv_f,
-// qsqrt_f): a triangular b-step whose flag is cleared (an operand out of
-// the fast path's range, as the tiny values of pinned coordinates) is done
-// again with qdiv, and a factor whose Cholesky steps' flag is cleared
-// returns false, and the caller does it again, whole, with
-// btd_factor_inplace, so the results are those of the operators bit for
-// bit.
-// Only D's lower triangle is read or written.
+// warp shuffle).  The only divisions are the pivots' reciprocals 1 / L_jj
+// and the only roots the pivots: EXACT takes qm::qdiv / qm::qsqrt, else
+// qmath's flagged fast paths (qdiv_f, qsqrt_f), and a factor whose flag is
+// cleared returns false and the caller does it again, whole, with EXACT:
+// the same arithmetic with the exact operators, so the two agree bit for
+// bit.  The sums: the
+// passes' and the couplings' in index order, a sweep step's dot product as
+// a balanced tree (log2 b dependent adds).  No
+// tensor cores: at b <= 21 the off-chain products are ~20k multiply-adds
+// a factor, far from any limit, and a float32 mma would round through
+// TF32.  Only D's lower triangle is read or written.
 
 // every member's flag, and-ed over the team
 template <int NT>
@@ -311,49 +325,30 @@ BHD bool team_all(bool ok) {
   return ok;
 }
 
-// The triangular solve of one b-step in registers: L x = s (LOWER, the
-// terms subtracted in column order) or L^T x = s (the terms subtracted
-// from the last column down); s is consumed.  EXACT: qdiv, else the
-// flagged fast path (returns false where it did not hold).
-template <typename T, int BS, bool LOWER, bool EXACT>
-BHD bool tri_pass(T (&s)[BS], const T* L, const T* rcp, T (&x)[BS]) {
-  bool ok = true;
-#pragma unroll
-  for (int jj = 0; jj < BS; ++jj) {
-    const int j = LOWER ? jj : BS - 1 - jj;
-    const T xj = EXACT ? qm::qdiv(s[j], L[j * BS + j])
-                       : qm::qdiv_f(s[j], L[j * BS + j], rcp[j], ok);
-    x[j] = xj;
-    if (LOWER) {
-#pragma unroll
-      for (int i = j + 1; i < BS; ++i) s[i] -= L[i * BS + j] * xj;
-    } else {
-#pragma unroll
-      for (int i = 0; i < j; ++i) s[i] -= L[j * BS + i] * xj;
-    }
+// p[LO] + ... + p[LO + N - 1] as a balanced tree (the halves summed apart)
+template <int LO, int N, typename T, int BS>
+BHD T tree_sum(const T (&p)[BS]) {
+  if constexpr (N == 1) {
+    return p[LO];
+  } else {
+    return tree_sum<LO, N / 2>(p) + tree_sum<LO + N / 2, N - N / 2>(p);
   }
-  return ok;
 }
 
-// the b-step's triangular solve: the fast path, and where it did not
-// hold (an operand out of its range), the same step again with qdiv
-template <typename T, int BS, bool LOWER>
-BHD void tri_solve(const T (&s)[BS], const T* L, const T* rcp, T (&x)[BS]) {
-  T w[BS];
-#pragma unroll
-  for (int i = 0; i < BS; ++i) w[i] = s[i];
-  if (tri_pass<T, BS, LOWER, false>(w, L, rcp, x)) return;
-#pragma unroll
-  for (int i = 0; i < BS; ++i) w[i] = s[i];
-  tri_pass<T, BS, LOWER, true>(w, L, rcp, x);
-}
-
-// The Cholesky of the lower triangle of A (my rows), column by column, in
-// place
-template <typename T, int BS, int NT>
-BHD void chol_rows(T (&A)[(BS + NT - 1) / NT][BS], T tiny, int tid,
-                   bool& ok) {
+// The Cholesky of the lower triangle of A (my rows) in place, column by
+// column, and beside it the rows of its inverse into Li: Li[j][j] =
+// 1 / L[j][j], Li[j][m] = -(sum over p = m .. j-1 of L[j][p] Li[p][m]) *
+// Li[j][j] (m < j), the sum gathered in row j's slot as each row p is
+// formed.  A member past the block's last row works on that row too.
+template <typename T, int BS, int NT, bool EXACT>
+BHD void chol_inv_rows(T (&A)[(BS + NT - 1) / NT][BS],
+                       T (&Li)[(BS + NT - 1) / NT][BS], T tiny, int tid,
+                       bool& ok) {
   constexpr int V = (BS + NT - 1) / NT;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int m = 0; m < BS; ++m) Li[v][m] = T(0);
 #pragma unroll
   for (int j = 0; j < BS; ++j) {
     T s = A[j / NT][j];
@@ -361,13 +356,14 @@ BHD void chol_rows(T (&A)[(BS + NT - 1) / NT][BS], T tiny, int tid,
     for (int k = 0; k < j; ++k) s -= A[j / NT][k] * A[j / NT][k];
     s = s > tiny ? s : tiny;
     bool okj = true;
-    const T d = qm::qsqrt_f(s, okj);
+    const T d = EXACT ? qm::qsqrt(s) : qm::qsqrt_f(s, okj);
     ok = ok & (okj | (tid != j % NT));
     const T ljj = team_bcast<NT>(d, j % NT);
     T ljk[BS > 1 ? BS - 1 : 1];
 #pragma unroll
     for (int k = 0; k < j; ++k) ljk[k] = team_bcast<NT>(A[j / NT][k], j % NT);
-    const T inv = qm::qdiv_f(T(1), ljj, qm::qrcp(ljj), ok);
+    const T inv = EXACT ? qm::qdiv(T(1), ljj)
+                        : qm::qdiv_f(T(1), ljj, qm::qrcp(ljj), ok);
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int i = tid + v * NT;
@@ -375,19 +371,34 @@ BHD void chol_rows(T (&A)[(BS + NT - 1) / NT][BS], T tiny, int tid,
 #pragma unroll
       for (int k = 0; k < j; ++k) r -= A[v][k] * ljk[k];
       if (i > j) A[v][j] = r * inv;
-      if (i == j) A[v][j] = ljj;
+      if (i == j) {
+        A[v][j] = ljj;
+#pragma unroll
+        for (int m = 0; m < j; ++m) Li[v][m] = -Li[v][m] * inv;
+        Li[v][j] = inv;
+      }
+    }
+    T lj[BS];
+#pragma unroll
+    for (int m = 0; m <= j; ++m) lj[m] = team_bcast<NT>(Li[j / NT][m], j % NT);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT;
+      if (i > j) {
+#pragma unroll
+        for (int m = 0; m <= j; ++m) Li[v][m] += A[v][j] * lj[m];
+      }
     }
   }
 }
 
-// One block step of the factor: M <- M Lp^{-T} (M = O[t-1] in place; Lp,
-// rcp the previous block's factor), A <- Dt - M M^T, Dt <- chol(A) in
-// place, rct its pivots' reciprocals.  FIRST (t = 0): Dt <- chol(Dt)
-// alone.  A member past the block's last row works on that row too and
-// stores nothing, so no branch splits the warp.
-template <typename T, int BS, int NT, bool FIRST>
-BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
-                     int tid, bool& ok) {
+// One block step of the factor: M <- M Lp^T (M = O[t-1] in place, Lp the
+// previous block's inverse), A <- Dt - M M^T, Dt <- the inverse of
+// chol(A).  FIRST (t = 0): Dt <- the inverse of chol(Dt) alone.  A member
+// past the block's last row works on that row too and stores nothing, so
+// no branch splits the warp.
+template <typename T, int BS, int NT, bool FIRST, bool EXACT>
+BHD void factor_step(const T* Lp, T* M, T* Dt, T tiny, int tid, bool& ok) {
   constexpr int V = (BS + NT - 1) / NT;
   T A[V][BS];
   if (!FIRST) {
@@ -395,10 +406,16 @@ BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
 #pragma unroll
     for (int v = 0; v < V; ++v) {
       const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
-      T row[BS];
+      T o[BS];
 #pragma unroll
-      for (int j = 0; j < BS; ++j) row[j] = M[ic * BS + j];
-      tri_solve<T, BS, true>(row, Lp, rcp, m[v]);
+      for (int k = 0; k < BS; ++k) o[k] = M[ic * BS + k];
+#pragma unroll
+      for (int j = 0; j < BS; ++j) {
+        T acc = T(0);
+#pragma unroll
+        for (int k = 0; k <= j; ++k) acc += o[k] * Lp[j * BS + k];
+        m[v][j] = acc;
+      }
     }
     WSYNC();
 #pragma unroll
@@ -429,91 +446,152 @@ BHD void factor_step(const T* Lp, const T* rcp, T* M, T* Dt, T* rct, T tiny,
       for (int j = 0; j < BS; ++j) A[v][j] = j <= ic ? Dt[ic * BS + j] : T(0);
     }
   }
-  chol_rows<T, BS, NT>(A, tiny, tid, ok);
+  T Li[V][BS];
+  chol_inv_rows<T, BS, NT, EXACT>(A, Li, tiny, tid, ok);
+  WSYNC();
 #pragma unroll
   for (int v = 0; v < V; ++v) {
     const int i = tid + v * NT;
     if (i < BS) {
 #pragma unroll
       for (int j = 0; j < BS; ++j)
-        if (j <= i) Dt[i * BS + j] = A[v][j];
+        if (j <= i) Dt[i * BS + j] = Li[v][j];
     }
   }
-#pragma unroll
-  for (int j = 0; j < BS; ++j)
-    if (tid == j % NT) rct[j] = qm::qrcp(A[j / NT][j]);
   WSYNC();
 }
 
-// The whole factor of one lane in place: D -> LD (lower), O -> LM, rc
-// (nT, BS) the pivots' reciprocals.  Returns false (on every member) where
-// a fast path did not hold: the caller then assembles D and O again and
-// factors them with btd_factor_inplace.
-template <typename T, int BS, int NT>
-BHD bool btd_factor_warp(T* D, T* O, T* rc, int nT, T tiny, int tid) {
+// The whole factor of one lane in place: D -> the blocks' inverses Linv
+// (lower), O -> M.  Returns false (on every member) where a fast path did
+// not hold (never with EXACT): the caller then assembles D and O again and
+// factors them with EXACT.
+template <typename T, int BS, int NT, bool EXACT>
+BHD bool btd_factor_warp(T* D, T* O, int nT, T tiny, int tid) {
   constexpr int BB = BS * BS;
   bool ok = true;
-  factor_step<T, BS, NT, true>(nullptr, nullptr, nullptr, D, rc, tiny, tid,
-                               ok);
+  factor_step<T, BS, NT, true, EXACT>(nullptr, nullptr, D, tiny, tid, ok);
   for (int t = 1; t < nT; ++t)
-    factor_step<T, BS, NT, false>(D + (long)(t - 1) * BB, rc + (t - 1) * BS,
-                                  O + (long)(t - 1) * BB, D + (long)t * BB,
-                                  rc + t * BS, tiny, tid, ok);
+    factor_step<T, BS, NT, false, EXACT>(D + (long)(t - 1) * BB,
+                                         O + (long)(t - 1) * BB,
+                                         D + (long)t * BB, tiny, tid, ok);
   return team_all<NT>(ok);
 }
 
-// One b-step's right-hand side gathered to every member: s = v - M u
-// (TRANS: v - M^T u; without M, hasM false, at the chain's first step),
-// row i formed by its owner (a member past the last row repeats that row)
-template <typename T, int BS, int NT, bool TRANS>
-BHD void gather_rhs(const T* v, const T* M, bool hasM, const T (&u)[BS],
-                    T (&s)[BS], int tid) {
-  constexpr int V = (BS + NT - 1) / NT;
-  T part[V];
-#pragma unroll
-  for (int w = 0; w < V; ++w) {
-    const int i = tid + w * NT, ic = i < BS ? i : BS - 1;
-    T si = v[ic];
-    if (hasM) {
-      T acc = T(0);
-#pragma unroll
-      for (int c = 0; c < BS; ++c)
-        acc += (TRANS ? M[c * BS + ic] : M[ic * BS + c]) * u[c];
-      si = si - acc;
-    }
-    part[w] = si;
+// V_t = Linv_t^T M_{t+1}^T (t < nT - 1; M_{t+1} lies at O[t]), an entry a
+// member in turn: V_t[i][j] = sum over k >= i of Linv_t[k][i] M_{t+1}[j][k]
+template <typename T, int BS>
+BHD void btd_couple_v(const T* Li, const T* M, T* V, int nT, int tid,
+                      int nthr) {
+  constexpr int BB = BS * BS;
+  for (long e = tid; e < (long)(nT - 1) * BB; e += nthr) {
+    const long t = e / BB;
+    const int i = (int)(e / BS) % BS, j = (int)(e % BS);
+    const T* L = Li + t * BB;
+    const T* Mn = M + t * BB + j * BS;
+    T acc = T(0);
+    for (int k = i; k < BS; ++k) acc += L[k * BS + i] * Mn[k];
+    V[e] = acc;
   }
-#pragma unroll
-  for (int j = 0; j < BS; ++j) s[j] = team_bcast<NT>(part[j / NT], j % NT);
 }
 
-// K x = r for one lane from the factor (LD, LM, rc); x (T, b) may not be
-// r.  Each b-step's right-hand side is formed row by row, gathered to
-// every member, and the triangular solve runs in every member's
-// registers.  The owner of row i stores it and is the only member that
-// reads it back, so the forward solve's y lies in x with no barrier.
-template <typename T, int BS, int NT>
-BHD void btd_solve_warp(const T* LD, const T* LM, const T* rc, const T* r,
-                        T* x, int nT, int tid) {
+// W_t = Linv_t M_t in place of M_t (t >= 1, at O[t-1]), a column a member
+// in turn: W_t[i][j] = sum over k <= i of Linv_t[i][k] M_t[k][j]
+template <typename T, int BS>
+BHD void btd_couple_w(const T* Li, T* M, int nT, int tid, int nthr) {
   constexpr int BB = BS * BS;
-  T xv[BS], s[BS];
-  // forward: y_t = L_t^{-1} (r_t - M_t y_{t-1})
-  for (int t = 0; t < nT; ++t) {
-    gather_rhs<T, BS, NT, false>(r + t * BS, LM + (long)(t - 1) * BB, t > 0,
-                                 xv, s, tid);
-    tri_solve<T, BS, true>(s, LD + (long)t * BB, rc + t * BS, xv);
+  for (long e = tid; e < (long)(nT - 1) * BS; e += nthr) {
+    const long t = e / BS + 1;
+    const int j = (int)(e % BS);
+    const T* L = Li + t * BB;
+    T* Mt = M + (t - 1) * BB;
+    T w[BS];
 #pragma unroll
-    for (int j = 0; j < BS; ++j)
-      if (tid == j % NT) x[t * BS + j] = xv[j];
+    for (int i = 0; i < BS; ++i) {
+      T acc = T(0);
+#pragma unroll
+      for (int k = 0; k <= i; ++k) acc += L[i * BS + k] * Mt[k * BS + j];
+      w[i] = acc;
+    }
+#pragma unroll
+    for (int i = 0; i < BS; ++i) Mt[i * BS + j] = w[i];
   }
-  // backward: x_t = L_t^{-T} (y_t - M_{t+1}^T x_{t+1})
-  for (int t = nT - 1; t >= 0; --t) {
-    gather_rhs<T, BS, NT, true>(x + t * BS, LM + (long)t * BB, t < nT - 1,
-                                xv, s, tid);
-    tri_solve<T, BS, false>(s, LD + (long)t * BB, rc + t * BS, xv);
+}
+
+// w = Linv r (TRANS: Linv^T r), block by block, an entry a member in turn;
+// w may not be r
+template <typename T, int BS, bool TRANS>
+BHD void btd_apply_inv(const T* Li, const T* r, T* w, int nT, int tid,
+                       int nthr) {
+  constexpr int BB = BS * BS;
+  for (int e = tid; e < nT * BS; e += nthr) {
+    const int t = e / BS, i = e % BS;
+    const T* L = Li + (long)t * BB;
+    const T* rt = r + t * BS;
+    T acc = T(0);
+    if (TRANS) {
+      for (int k = i; k < BS; ++k) acc += L[k * BS + i] * rt[k];
+    } else {
+      for (int k = 0; k <= i; ++k) acc += L[i * BS + k] * rt[k];
+    }
+    w[e] = acc;
+  }
+}
+
+// a sweep step's operands for my rows: row i of the coupling block and
+// entry i of c (step s of btd_sweep)
+template <typename T, int BS, int NT, bool FWD>
+BHD void sweep_load(const T* C, const T* c, int nT, int s, int tid,
+                    T (&cr)[(BS + NT - 1) / NT][BS],
+                    T (&cv)[(BS + NT - 1) / NT]) {
+  constexpr int V = (BS + NT - 1) / NT, BB = BS * BS;
+  const int t = FWD ? s : nT - 1 - s;
+  const T* Cb = C + (long)(FWD ? t - 1 : t) * BB;
 #pragma unroll
-    for (int j = 0; j < BS; ++j)
-      if (tid == j % NT) x[t * BS + j] = xv[j];
+  for (int v = 0; v < V; ++v) {
+    const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
+#pragma unroll
+    for (int k = 0; k < BS; ++k) cr[v][k] = Cb[ic * BS + k];
+    cv[v] = c[t * BS + ic];
+  }
+}
+
+// One sweep over the blocks on the team: FWD x_0 = c_0, x_t = c_t - W_t
+// x_{t-1} (W_t at C[t-1]); else x_{T-1} = c_{T-1}, x_t = c_t - V_t x_{t+1}
+// (V_t at C[t]).  Member i keeps x's row i of the last step in registers
+// and stores it; the step's product gathers that step by shuffles, and
+// the next step's operands are loaded ahead of it.  x may not be c.
+template <typename T, int BS, int NT, bool FWD>
+BHD void btd_sweep(const T* C, const T* c, T* x, int nT, int tid) {
+  constexpr int V = (BS + NT - 1) / NT;
+  const int t0 = FWD ? 0 : nT - 1;
+  T xv[V], cr[V][BS], cv[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    const int i = tid + v * NT, ic = i < BS ? i : BS - 1;
+    xv[v] = c[t0 * BS + ic];
+    if (i < BS) x[t0 * BS + i] = xv[v];
+  }
+  if (nT > 1) sweep_load<T, BS, NT, FWD>(C, c, nT, 1, tid, cr, cv);
+  for (int s = 1; s < nT; ++s) {
+    T crn[V][BS], cvn[V];
+    sweep_load<T, BS, NT, FWD>(C, c, nT, s + 1 < nT ? s + 1 : s, tid, crn,
+                               cvn);
+    T u[BS];
+#pragma unroll
+    for (int k = 0; k < BS; ++k) u[k] = team_bcast<NT>(xv[k / NT], k % NT);
+    const int t = FWD ? s : nT - 1 - s;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int i = tid + v * NT;
+      T p[BS];
+#pragma unroll
+      for (int k = 0; k < BS; ++k) p[k] = cr[v][k] * u[k];
+      xv[v] = cv[v] - tree_sum<0, BS>(p);
+      if (i < BS) x[t * BS + i] = xv[v];
+#pragma unroll
+      for (int k = 0; k < BS; ++k) cr[v][k] = crn[v][k];
+      cv[v] = cvn[v];
+    }
   }
 }
 

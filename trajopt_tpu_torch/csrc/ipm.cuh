@@ -10,12 +10,15 @@
 // iteration, in the plain loop's order: the barrier diagonals; the block
 // assembly of K = P + Jh' Dh Jh + Ja' Da Ja + Dbox (K1's sums, over each
 // block's cover list) and the relative regularization; the block Cholesky
-// (K2's steps, banded::btd_factor_warp) and, beside it, the residuals, mu
-// and the predictor's right-hand side; the predictor and corrector Newton
-// solves (K3's steps, banded::btd_solve_warp), each with one refinement
-// step against the exact condensed matrix; the step lengths and sigma;
-// the NaN-guarded update; best-iterate tracking by the exact composite
-// objective; the unscaled termination test.  A lane leaves its loop when its status is
+// (K2's steps in banded.cuh's block-inverse form, banded::btd_factor_warp,
+// each pivot block's Cholesky factor inverted beside it) and, beside it,
+// the residuals, mu and the predictor's right-hand side, then the
+// couplings W_t, V_t (btd_couple_team); the predictor and corrector Newton
+// solves (K3's steps as recurrences over those inverses, btd_solve_team),
+// each with one refinement step against the exact condensed matrix; the
+// step lengths and sigma; the NaN-guarded update; best-iterate tracking
+// by the exact composite objective; the unscaled termination test.  A
+// lane leaves its loop when its status is
 // set or it reaches max_iter, so a stopped lane never changes again.  The
 // set-up (pinned-coordinate elimination, column and row scaling, the cost
 // scale c, P's blocks, f(0)) and the teardown run in PyTorch in the
@@ -27,9 +30,10 @@
 // members write one entry.  TEAM_SYNC separates phases that read what
 // another member wrote.  The factor and the solves run on the first WT
 // members (one warp on the card), the residuals beside the factor on the
-// others (side_sync their barrier).  On the card the team is the CTA
-// (ipm_launch.cuh); in the host build (ipm_host.cpp) it is one thread and
-// TEAM_SYNC is empty.
+// others (side_sync their barrier); the couplings and the solves' passes
+// on the whole team, the solves' sweeps on the first WT members.  On the
+// card the team is the CTA (ipm_launch.cuh); in the host build
+// (ipm_host.cpp) it is one thread and TEAM_SYNC is empty.
 //
 // Sums: every sum runs in a fixed order (a row's window in column order,
 // Jh' w by column over the windows that cover its block in row-group then
@@ -42,9 +46,10 @@
 // (half 0: the window starts at t; half 1: at t - 1).  Block t's column
 // sums and D[t] visit only those windows, and O[t] their half-0 entries.
 //
-// Memory per lane: D (lower triangle), O, the pivots' reciprocals and the
-// n-vectors in shared memory; the lane's scaled rows and its scratch
-// m-vectors (12 per row kind) in shared memory where the launcher's budget
+// Memory per lane: D (lower triangle; the factor's block inverses), O (M,
+// then W), V, the solves' scratch n-vector and the n-vectors in shared
+// memory; the lane's scaled rows and its scratch m-vectors (12 per row
+// kind) in shared memory where the launcher's budget
 // holds them (Args::smem_rows, smem_scr; smem_layout), else in device
 // memory; the raw rows, the per-row inputs and the m-vector state in
 // device memory.
@@ -107,20 +112,21 @@ enum { PH_DIAG, PH_ASSEMBLY, PH_FACTOR, PH_RESID, PH_PRED_PASS,
        PH_PRED_SOLVE, PH_CORR_PASS, PH_CORR_SOLVE, PH_UPDATE, PH_OBJECTIVE,
        N_PHASES };
 
-// A lane's shared memory, in elements of T: D, O, the pivots'
-// reciprocals, the n-vectors, the reduction buffer, two scalars (the
+// A lane's shared memory, in elements of T: D, O, V, the solves' scratch
+// n-vector w, the n-vectors, the reduction buffer, two scalars (the
 // factor's fallback flag, mu); then, as planned, the scaled rows (hinge,
-// abs) and the scratch.
+// abs) and the scratch.  (ops.ipm_qp.k6_smem_plan mirrors it.)
 struct Layout {
-  long o_O, o_rc, o_v, o_red, o_sc, o_Sh, o_Sa, o_scr, total;
+  long o_O, o_V, o_w, o_v, o_red, o_sc, o_Sh, o_Sa, o_scr, total;
 };
 
 BHD Layout smem_layout(int n, int b, int nb, int mh, int ma, bool rows,
                        bool scr) {
   Layout L;
   L.o_O = (long)nb * b * b;
-  L.o_rc = L.o_O + (long)(nb - 1) * b * b;
-  L.o_v = L.o_rc + (long)nb * b;
+  L.o_V = L.o_O + (long)(nb - 1) * b * b;
+  L.o_w = L.o_V + (long)(nb - 1) * b * b;
+  L.o_v = L.o_w + (long)nb * b;
   L.o_red = L.o_v + (long)N_SMEM_VEC * n;
   L.o_sc = L.o_red + N_RED * 32;
   L.o_Sh = L.o_sc + 2;
@@ -277,6 +283,34 @@ BHD T pmv(const T* PD, const T* PO, const T* v, int nb, int t, int i) {
   return acc;
 }
 
+// K2 / K3's block-inverse form on the team (banded.cuh): after the factor
+// (Li the blocks' inverses in D, M in O), the couplings V_t, then W_t in
+// place of M_t; every member returns after the last barrier
+template <typename T, int BS>
+IHD void btd_couple_team(const T* Li, T* O, T* V, int nb, int tid, int nthr) {
+  banded::btd_couple_v<T, BS>(Li, O, V, nb, tid, nthr);
+  TEAM_SYNC();
+  banded::btd_couple_w<T, BS>(Li, O, nb, tid, nthr);
+  TEAM_SYNC();
+}
+
+// K x = r from the factor and its couplings (W in O): the team's passes
+// c = Linv r and d = Linv^T y into the scratch n-vector w, the first WT
+// members' sweeps y_t = c_t - W_t y_{t-1} and x_t = d_t - V_t x_{t+1};
+// x may not be r; every member returns after the last barrier
+template <typename T, int BS, int WT>
+IHD void btd_solve_team(const T* Li, const T* W, const T* V, T* w,
+                        const T* r, T* x, int nb, int tid, int nthr) {
+  banded::btd_apply_inv<T, BS, false>(Li, r, w, nb, tid, nthr);
+  TEAM_SYNC();
+  if (tid < WT) banded::btd_sweep<T, BS, WT, true>(W, w, x, nb, tid);
+  TEAM_SYNC();
+  banded::btd_apply_inv<T, BS, true>(Li, x, w, nb, tid, nthr);
+  TEAM_SYNC();
+  if (tid < WT) banded::btd_sweep<T, BS, WT, false>(V, w, x, nb, tid);
+  TEAM_SYNC();
+}
+
 // The loop of one lane, shared by K6 (banded rows: Lane below) and K11
 // ipm_dense (dense rows: ipm_dense.cuh).  LaneT, the derived lane (CRTP),
 // supplies the rows' and P's products: hdot / adot (a row of Jh / Ja times
@@ -284,9 +318,10 @@ BHD T pmv(const T* PD, const T* PO, const T* v, int nb, int t, int i) {
 // u may be null), pmv / rpmv (row k of P v, scaled / raw); the condensed
 // matrix and its factor: assemble() (K + reg I), team_factor() (true
 // where the whole team factors it: factor_team(); else the first WT
-// members: factor_warp(), false where a fast path did not hold, then
-// factor_exact()); and solve(r, x) (K x = r, every member returning after
-// the barrier).
+// members: factor_warp(false), false where a fast path did not hold, then
+// factor_warp(true) with the exact operators; then the whole team:
+// couple()); and solve(r, x) (K x = r by every member, each returning
+// after the last barrier).
 template <typename T, int WT, bool TIMED, typename LaneT>
 struct Loop {
   int tid, nthr, n, max_iter;
@@ -451,8 +486,9 @@ struct Loop {
   // route: K2's steps, their fast paths) and beside it, on the other
   // members, the residuals, mu and the predictor's right-hand side (they
   // read neither the factor nor K); where a fast path did not hold, the
-  // assembly again and the exact factor.  Where the whole team factors
-  // (K11's dense route), the residuals follow it on the same members.
+  // assembly again and the exact factor; then the couplings on the whole
+  // team.  Where the whole team factors (K11's dense route), the
+  // residuals follow it on the same members.
   // Returns mu.
   IHD T factor_beside() {
     LaneT& L = self();
@@ -462,7 +498,7 @@ struct Loop {
     if (team) {
       L.factor_team();
     } else if (tid < WT) {
-      const bool ok = L.factor_warp();
+      const bool ok = L.factor_warp(false);
       if (tid == 0) sc[0] = ok ? T(0) : T(1);
     }
     if (tid >= WT || nthr == 1) {
@@ -474,9 +510,10 @@ struct Loop {
     if (!team && sc[0] != T(0)) {
       count_fallback();
       L.assemble();
-      if (tid < WT) L.factor_exact();
+      if (tid < WT) L.factor_warp(true);
       sync();
     }
+    if (!team) L.couple();
     stamp(PH_FACTOR);
     return sc[1];
   }
@@ -808,8 +845,9 @@ struct Lane : Loop<T, WT, TIMED, Lane<T, BS, WT, TIMED>> {
   using B::sync;
   using B::tid;
   int nb;
-  // shared memory
-  T *D, *O, *rc;
+  // shared memory: the factor's block inverses, M (then W), V; the solves'
+  // scratch n-vector
+  T *D, *O, *V, *w;
   // device memory
   const T *PD, *PO, *RD, *RO;
 
@@ -838,9 +876,8 @@ struct Lane : Loop<T, WT, TIMED, Lane<T, BS, WT, TIMED>> {
     return ipm::pmv<T, BS>(RD, RO, v, nb, k / BS, k % BS);
   }
 
-  BHD void solve(const T* r, T* x) const {
-    if (tid < WT) banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid);
-    sync();
+  IHD void solve(const T* r, T* x) const {
+    btd_solve_team<T, BS, WT>(D, O, V, w, r, x, nb, tid, nthr);
   }
 
   // K = P + Jh' Dh Jh + Ja' Da Ja + Dbox + reg I into (D's lower triangle,
@@ -877,19 +914,17 @@ struct Lane : Loop<T, WT, TIMED, Lane<T, BS, WT, TIMED>> {
     sync();
   }
 
-  // the factor on the first warp: btd_factor_warp's fast paths, and the
-  // exact btd_factor_inplace with the pivots' reciprocals formed after it
+  // the factor on the first warp: btd_factor_warp's fast paths, or the
+  // same with the exact operators; the couplings on the whole team
   static BHD bool team_factor() { return false; }
   BHD void factor_team() {}
-  BHD bool factor_warp() {
-    return banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, chol_tiny(), tid);
+  BHD bool factor_warp(bool exact) {
+    return exact ? banded::btd_factor_warp<T, BS, WT, true>(D, O, nb,
+                                                            chol_tiny(), tid)
+                 : banded::btd_factor_warp<T, BS, WT, false>(D, O, nb,
+                                                             chol_tiny(), tid);
   }
-  BHD void factor_exact() {
-    banded::btd_factor_inplace<T, BS, WT>(D, O, nb, chol_tiny(), tid);
-    WSYNC();
-    for (int k = tid; k < nb * BS; k += WT)
-      rc[k] = qm::qrcp(D[(long)(k / BS) * BS * BS + (k % BS) * (BS + 1)]);
-  }
+  IHD void couple() { btd_couple_team<T, BS>(D, O, V, nb, tid, nthr); }
 };
 
 // One row kind of lane `lane`: its slices of the arguments, its scaled
@@ -945,7 +980,8 @@ IHD void ipm_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.fzero = ((const T*)a.cf)[2 * lane + 1];
   L.D = sm;
   L.O = sm + lay.o_O;
-  L.rc = sm + lay.o_rc;
+  L.V = sm + lay.o_V;
+  L.w = sm + lay.o_w;
   T* v = sm + lay.o_v;
   L.dx = v;
   L.z5 = v + n;

@@ -18,15 +18,19 @@
 // matvecs, the slack and dual updates) and column passes (A' w by column
 // over each block's cover list, P v, the box terms) are strided over all
 // 256; the assembly forms D's lower triangle and O entry by entry over the
-// cover lists.  The block Cholesky and the four block solves per
-// iteration run on warp 0 (banded.cuh's warp forms: the block's rows in
-// registers, values of other rows by shuffle, the solves' triangular
-// steps in every lane's registers, divisions by a pivot through its
-// reciprocal formed once) while the other warps wait at the barrier.  D,
-// O, the pivots' reciprocals and the n-vectors sit in dynamic shared
-// memory; so do the lane's scaled rows and its scratch m-vectors where
+// cover lists.  The block Cholesky runs on warp 0 in banded.cuh's
+// block-inverse form (the block's rows in registers, values of other rows
+// by shuffle; each pivot block's Cholesky factor inverted beside its
+// columns, M_t a product with the previous inverse, so no triangular
+// solve sits in the chain) while the other warps form the residuals; then
+// the whole CTA forms the couplings W_t = L_t^{-1} M_t and V_t = L_t^{-T}
+// M_{t+1}^T.  Each of the four block solves per iteration is two passes of
+// the whole CTA (c = L^{-1} r, d = L^{-T} y) and two sweeps on warp 0 (y_t
+// = c_t - W_t y_{t-1}, x_t = d_t - V_t x_{t+1}: a b x b product a step,
+// with no division).  D (the inverses), O (W), V, the solves' scratch and
+// the n-vectors sit in dynamic shared memory; so do the lane's scaled rows and its scratch m-vectors where
 // they fit (at the flagship's shape in float32, 1,624 + 67 rows: 94.7 KB
-// of rows, 81.2 KB of scratch, 204.4 KB in all), else device memory
+// of rows, 81.2 KB of scratch, 210.0 KB in all), else device memory
 // (float64; b 14 and 21 keep the rows there).  Built with -fmad=false, as
 // the plain version computes every multiply and add apart.
 //
@@ -35,9 +39,12 @@
 // float32), take less time than its least arithmetic (~1.1e6 flops per IPM
 // iteration and lane, mostly the rows' passes and their share of the
 // symmetric assembly), so operations bound it.  The kernel's own limit is
-// neither: per iteration the factor and four solves are sequential over T
-// block steps of b dependent pivots each, on one warp, and the passes
-// read the rows ~10 times from shared memory.
+// neither: per iteration the factor is sequential over T block steps of b
+// dependent pivots each, and the solves' sweeps over T steps of one b x b
+// product each, on one warp, and the passes read the rows ~10 times from
+// shared memory.  No tensor cores: the factor's and couplings' products
+// are ~20k multiply-adds per factor at b <= 21, far from any limit, and a
+// float32 mma would round through TF32, which the QP math keeps out.
 //
 // The phase timer (Args::clk) runs in a second instantiation of the
 // float32 kernels (ipm_timer.cu), so the kernel the solver launches

@@ -19,13 +19,15 @@
 // w, P v, the box terms) a thread per column; the assembly forms each
 // entry of K's band (block route) or packed lower triangle (dense route)
 // from P's lists and a merge of its two columns' row lists.  The loop is
-// K6's (ipm::Loop): the block Cholesky runs on warp 0 (banded.cuh's warp
-// forms at the run-time b: a non-inlined instantiation per b of the
-// library's range) while the other warps form the residuals and the
-// predictor's right-hand side, and the four block solves per iteration on
-// warp 0 while the others wait; the dense Cholesky runs on the whole CTA
-// by panels of eight columns (one barrier a column, the trailing updates
-// in 4 x 4 register tiles), its triangular solves on warp 0.  A QP of at
+// K6's (ipm::Loop): the block Cholesky runs on warp 0 (banded.cuh's
+// block-inverse form at the run-time b: a non-inlined instantiation per b
+// of the library's range) while the other warps form the residuals and
+// the predictor's right-hand side, then the whole CTA forms its
+// couplings; each of the four block solves per iteration is two passes of
+// the CTA and two division-free sweeps on warp 0; the dense Cholesky runs
+// on the whole CTA by panels of eight columns (one barrier a column, the
+// trailing updates in 4 x 4 register tiles), its triangular solves on
+// warp 0.  A QP of at
 // most 32 columns keeps the dense order (no lists; its own library,
 // -DK11_LISTS=0, at b 1-9 and the dense route).
 // The shared-memory plan (ipm_dense::smem_layout) keeps the packed K, the
@@ -39,8 +41,9 @@
 // P's passes, the assembly's share of J' D J, the factor and solves),
 // against each input read once: the dense inputs' bytes bound the block
 // route, the dense route's n^3 / 3 factor operations bind it.  The
-// kernel's own limits are latency: K2 / K3's chains on one warp (block
-// route), the factor's column steps and the solves' row chains on one
+// kernel's own limits are latency: K2's factor chain and K3's sweeps on
+// one warp (block route; no tensor cores: the products are small and a
+// float32 mma would round through TF32), the factor's column steps and the solves' row chains on one
 // warp (dense route), at 255 registers a thread.
 
 #include <cuda_runtime.h>

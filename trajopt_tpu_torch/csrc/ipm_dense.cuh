@@ -44,9 +44,12 @@
 // kkt_block b is set, n % b == 0 and n >= 2b):
 // - block route: only the block-tridiagonal band of the symmetrized K is
 //   formed (D's lower triangles, O), and factored and solved by K2's and
-//   K3's device functions (banded::btd_factor_warp, btd_solve_warp, their
-//   exact fallback btd_factor_inplace) on the first warp, at the run-time
-//   b through Blocks (every b of the library's range LO..HI);
+//   K3's device functions in banded.cuh's block-inverse form (the factor
+//   banded::btd_factor_warp on the first warp, its fast paths or the exact
+//   operators; the couplings and the solves' passes on the whole team,
+//   their sweeps on the first warp: ipm::btd_couple_team, btd_solve_team),
+//   at the run-time b through Blocks (every b of the library's range
+//   LO..HI);
 // - dense route (nb == 0): the lower triangle of K + reg I, packed by rows
 //   (n (n + 1) / 2 entries), a blocked Cholesky by the whole team
 //   (factor_team: a panel of PANEL columns a column at a time, one barrier
@@ -70,9 +73,9 @@
 // (Args::smem_k, smem_lists, smem_base, smem_scr, smem_raw, in that
 // priority), else in the lane's slice of the device scratch (Args::dscr):
 // K (the dense route's packed triangle), the lists of the scaled rows and
-// of P, base (the block route's D, O and pivots' reciprocals, and the
-// n-vectors), the scratch m-vectors (12 per row kind) and the raw lists;
-// the lists' table (8 descriptors) beside the flags.  The dense rows and
+// of P, base (the block route's D, O, V and the solves' scratch n-vector,
+// and the n-vectors), the scratch m-vectors (12 per row kind) and the raw
+// lists; the lists' table (8 descriptors) beside the flags.  The dense rows and
 // P stay in device memory, read by the lists' build and by the dense
 // order.
 #pragma once
@@ -170,10 +173,12 @@ BHD long tab_size() {
   return ((long)N_LISTS * sizeof(List<T>) + sizeof(T) - 1) / sizeof(T);
 }
 
-// elements of each region
+// elements of each region; the block route's band: D, O and V, and the
+// solves' scratch n-vector
 BHD long band_size(int b, int nb) {
-  return nb > 0 ? (long)nb * b * b + (long)(nb - 1) * b * b + (long)nb * b
-                : 0;
+  return nb > 0
+             ? (long)nb * b * b + 2L * (nb - 1) * b * b + (long)nb * b
+             : 0;
 }
 BHD long base_size(int n, int b, int nb) {
   return band_size(b, nb) + (long)N_VEC * n;
@@ -448,52 +453,54 @@ BHD long pk(int i, int k) { return (long)i * (i + 1) / 2 + k; }
 
 // ---- the block route: K2 / K3's device functions at the run-time b ----
 
-template <typename T, int BS, int WT>
-K11_NOINLINE bool factor_b(T* D, T* O, T* rc, int nb, T tiny, int tid) {
-  return banded::btd_factor_warp<T, BS, WT>(D, O, rc, nb, tiny, tid);
+// the factor on the first warp: its fast paths, or (EXACT, the fallback)
+// the same with the exact operators
+template <typename T, int BS, int WT, bool EXACT>
+K11_NOINLINE bool factor_b(T* D, T* O, int nb, T tiny, int tid) {
+  return banded::btd_factor_warp<T, BS, WT, EXACT>(D, O, nb, tiny, tid);
 }
 
-// the exact fallback: K2's btd_factor_inplace, then the pivots'
-// reciprocals
-template <typename T, int BS, int WT>
-K11_NOINLINE void factor_exact_b(T* D, T* O, T* rc, int nb, T tiny,
-                                 int tid) {
-  banded::btd_factor_inplace<T, BS, WT>(D, O, nb, tiny, tid);
-  WSYNC();
-  for (int k = tid; k < nb * BS; k += WT)
-    rc[k] = qm::qrcp(D[(long)(k / BS) * BS * BS + (k % BS) * (BS + 1)]);
+// the couplings on the whole team
+template <typename T, int BS>
+K11_NOINLINE void couple_b(const T* D, T* O, T* V, int nb, int tid,
+                           int nthr) {
+  ipm::btd_couple_team<T, BS>(D, O, V, nb, tid, nthr);
 }
 
+// K x = r on the whole team
 template <typename T, int BS, int WT>
-K11_NOINLINE void solve_b(const T* D, const T* O, const T* rc, const T* r,
-                          T* x, int nb, int tid) {
-  banded::btd_solve_warp<T, BS, WT>(D, O, rc, r, x, nb, tid);
+K11_NOINLINE void solve_b(const T* D, const T* O, const T* V, T* w,
+                          const T* r, T* x, int nb, int tid, int nthr) {
+  ipm::btd_solve_team<T, BS, WT>(D, O, V, w, r, x, nb, tid, nthr);
 }
 
-// The block route's factor and solves at run-time block size b, for every
-// b in LO..HI (the launcher refuses another)
+// The block route's factor, couplings and solves at run-time block size
+// b, for every b in LO..HI (the launcher refuses another)
 template <typename T, int WT, int LO, int HI>
 struct Blocks {
-  static BHD bool factor(int b, T* D, T* O, T* rc, int nb, T tiny, int tid) {
+  static BHD bool factor(int b, T* D, T* O, int nb, T tiny, int tid,
+                         bool exact) {
     if constexpr (LO > HI) {
       return false;
     } else {
-      if (b == LO) return factor_b<T, LO, WT>(D, O, rc, nb, tiny, tid);
-      return Blocks<T, WT, LO + 1, HI>::factor(b, D, O, rc, nb, tiny, tid);
+      if (b == LO)
+        return exact ? factor_b<T, LO, WT, true>(D, O, nb, tiny, tid)
+                     : factor_b<T, LO, WT, false>(D, O, nb, tiny, tid);
+      return Blocks<T, WT, LO + 1, HI>::factor(b, D, O, nb, tiny, tid, exact);
     }
   }
-  static BHD void factor_exact(int b, T* D, T* O, T* rc, int nb, T tiny,
-                               int tid) {
+  static BHD void couple(int b, const T* D, T* O, T* V, int nb, int tid,
+                         int nthr) {
     if constexpr (LO <= HI) {
-      if (b == LO) return factor_exact_b<T, LO, WT>(D, O, rc, nb, tiny, tid);
-      Blocks<T, WT, LO + 1, HI>::factor_exact(b, D, O, rc, nb, tiny, tid);
+      if (b == LO) return couple_b<T, LO>(D, O, V, nb, tid, nthr);
+      Blocks<T, WT, LO + 1, HI>::couple(b, D, O, V, nb, tid, nthr);
     }
   }
-  static BHD void solve(int b, const T* D, const T* O, const T* rc,
-                        const T* r, T* x, int nb, int tid) {
+  static BHD void solve(int b, const T* D, const T* O, const T* V, T* w,
+                        const T* r, T* x, int nb, int tid, int nthr) {
     if constexpr (LO <= HI) {
-      if (b == LO) return solve_b<T, LO, WT>(D, O, rc, r, x, nb, tid);
-      Blocks<T, WT, LO + 1, HI>::solve(b, D, O, rc, r, x, nb, tid);
+      if (b == LO) return solve_b<T, LO, WT>(D, O, V, w, r, x, nb, tid, nthr);
+      Blocks<T, WT, LO + 1, HI>::solve(b, D, O, V, w, r, x, nb, tid, nthr);
     }
   }
 };
@@ -518,9 +525,10 @@ struct Lane : ipm::Loop<T, WT, TIMED, Lane<T, WT, Blk, TIMED, LISTS>> {
   using B::sync;
   using B::tid;
   int b, nb;
-  // shared memory (or the device scratch): the band's blocks and pivots'
-  // reciprocals (block route), the dense route's packed K and its pivots
-  T *D, *O, *rc, *K, *ld;
+  // shared memory (or the device scratch): the band's blocks (block route:
+  // the factor's block inverses, M then W, V) and the solves' scratch
+  // n-vector, the dense route's packed K and its pivots
+  T *D, *O, *V, *w, *K, *ld;
   // device memory: P scaled and raw
   const T *P, *Pr;
   // the lists' table (LH ..): in shared memory on the card (LISTS: the
@@ -677,14 +685,13 @@ struct Lane : ipm::Loop<T, WT, TIMED, Lane<T, WT, Blk, TIMED, LISTS>> {
     sync();
   }
 
-  // the block route: K2's steps on the first warp at the run-time b
+  // the block route: K2's steps on the first warp at the run-time b, then
+  // the couplings on the whole team
   BHD bool team_factor() const { return nb == 0; }
-  BHD bool factor_warp() {
-    return Blk::factor(b, D, O, rc, nb, chol_tiny(), tid);
+  BHD bool factor_warp(bool exact) {
+    return Blk::factor(b, D, O, nb, chol_tiny(), tid, exact);
   }
-  BHD void factor_exact() {
-    Blk::factor_exact(b, D, O, rc, nb, chol_tiny(), tid);
-  }
+  BHD void couple() { Blk::couple(b, D, O, V, nb, tid, nthr); }
 
   // the first row at or after s that this member owns (row i: member i %
   // nthr)
@@ -791,17 +798,20 @@ struct Lane : ipm::Loop<T, WT, TIMED, Lane<T, WT, Blk, TIMED, LISTS>> {
     sync();
   }
 
-  // K x = r on the first WT members (the others wait at the barrier); x
-  // may not be r.  The dense route: L y = r by rows (row i's dot product
-  // with y summed over the warp, y_i stored by the member that reads it
-  // back), then L' x = y by columns (x_j formed by its owner and
-  // broadcast, the owners of the rows above it update theirs); NaN where
-  // the factor broke.
+  // K x = r, every member returning after the last barrier; x may not be
+  // r.  The block route on the whole team (btd_solve_team).  The dense
+  // route on the first WT members (the others wait at the barrier): L y =
+  // r by rows (row i's dot product with y summed over the warp, y_i stored
+  // by the member that reads it back), then L' x = y by columns (x_j
+  // formed by its owner and broadcast, the owners of the rows above it
+  // update theirs); NaN where the factor broke.
   BHD void solve(const T* r, T* x) const {
+    if (nb > 0) {
+      Blk::solve(b, D, O, V, w, r, x, nb, tid, nthr);
+      return;
+    }
     if (tid < WT) {
-      if (nb > 0) {
-        Blk::solve(b, D, O, rc, r, x, nb, tid);
-      } else if (sc[2] != T(0)) {
+      if (sc[2] != T(0)) {
         for (int k = tid; k < n; k += WT) x[k] = T(NAN);
       } else {
         for (int i = 0; i < n; ++i) {
@@ -960,7 +970,8 @@ IHD void ipm_dense_lane(const Args& a, int lane, T* sm, int tid, int nthr) {
   L.sc = sm + lay.o_sc;
   L.D = base;
   L.O = base + (nb > 0 ? (long)nb * b * b : 0);
-  L.rc = L.O + (nb > 0 ? (long)(nb - 1) * b * b : 0);
+  L.V = L.O + (nb > 0 ? (long)(nb - 1) * b * b : 0);
+  L.w = L.V + (nb > 0 ? (long)(nb - 1) * b * b : 0);
   L.K = kreg;
   T* v = base + band_size(b, nb);
   L.dx = v;

@@ -16,9 +16,13 @@ the explicit pair ``(LD (lanes, T, b, b), LM (lanes, T-1, b, b))``.
 ``btd_factor`` (K2, ``csrc/btd_factor.cu``) and ``btd_solve`` (K3,
 ``csrc/btd_solve.cu``) launch their CUDA kernels on CUDA tensors and run
 their plain PyTorch versions (``btd_factor_plain``, ``btd_solve_plain``)
-on CPU tensors.  On the card the IPM runs their block steps as device
-functions of K6 ``ipm_banded`` (``csrc/banded.cuh``); the plain IPM loop
-takes the plain versions.
+on CPU tensors.  On the card the IPM runs the same factor and solves as
+device functions of K6 ``ipm_banded`` and K11 ``ipm_dense`` in another
+form (``csrc/banded.cuh``): the pivot blocks' Cholesky factors inverted in
+the factor, L_i^{-1}, and each solve two recurrences over products with
+them, y_i = L_i^{-1} r_i - (L_i^{-1} M_i) y_{i-1} and x_i = L_i^{-T} y_i -
+(M_{i+1} L_i^{-1})' x_{i+1}, with no division (``btd_inverse_host`` runs
+that form on the CPU); the plain IPM loop takes the plain versions.
 """
 
 from __future__ import annotations
@@ -106,6 +110,40 @@ def btd_solve_plain(LD: torch.Tensor, LM: torch.Tensor,
         rhs = ys[t] - (LM[:, t].transpose(-1, -2) @ xs[-1][..., None])[..., 0]
         xs.append(upper(LD[:, t], rhs))
     return torch.stack(xs[::-1], dim=1)
+
+
+def btd_inverse_host(D: torch.Tensor, O: torch.Tensor, R: torch.Tensor,
+                     fallback: bool = False):
+    """K2 / K3's block-inverse form, as K6 and K11's block route run it on
+    the card (``csrc/banded.cuh``: the factor with each pivot block's
+    Cholesky factor inverted beside it, the couplings W_t, V_t, the solves
+    as two recurrences over them), built for the CPU (``csrc/ipm_host.cpp``),
+    on CPU tensors: D (lanes, T, b, b) and O (lanes, T-1, b, b) factored
+    once, then K x = r for each right-hand side of R (lanes, k, T, b) ->
+    (X (lanes, k, T, b), fell (lanes,) bool: the factor took its exact
+    fallback).  ``fallback``: a build whose fast paths all report that
+    they did not hold (csrc/qmath.cuh's QM_TEST_FALLBACK)."""
+    if D.is_cuda:
+        raise ValueError("btd_inverse_host: tensors must be on the CPU")
+    lanes, T, b = D.shape[0], D.shape[1], D.shape[-1]
+    dt = D.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"btd_inverse_host: dtype {dt} is not "
+                        "float32/float64")
+    D, O, R = (t.to(dt).contiguous() for t in (D, O, R))
+    if O.shape != (lanes, T - 1, b, b) or R.shape[0] != lanes \
+            or R.shape[2:] != (T, b):
+        raise ValueError("btd_inverse_host: O (lanes, T-1, b, b) and R "
+                         "(lanes, k, T, b) must match D (lanes, T, b, b)")
+    X = torch.empty_like(R)
+    fell = torch.zeros(lanes, dtype=torch.int32)
+    lib = _native.host_library(
+        "ipm_host", ("QM_TEST_FALLBACK",) if fallback else ())
+    fn = lib.btd_inverse_f32 if dt == torch.float32 else lib.btd_inverse_f64
+    _native.check("btd_inverse", fn(D.data_ptr(), O.data_ptr(), R.data_ptr(),
+                                    X.data_ptr(), fell.data_ptr(), lanes, T,
+                                    b, R.shape[1], _tiny(dt)))
+    return X, fell.bool()
 
 
 # --------------------------------------------------------------------------

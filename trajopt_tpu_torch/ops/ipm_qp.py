@@ -612,6 +612,45 @@ K6_PHASES = ("diagonals", "assembly", "factor", "residuals", "pred_pass",
 K6_CLK_SLOTS = len(K6_PHASES) + 1
 
 
+# K6's shared memory (csrc/ipm.cuh smem_layout, csrc/ipm_launch.cuh
+# plan_smem): n-vectors, the reduction buffer's elements, the scalars, and
+# the card's limit per CTA in bytes
+K6_SMEM_VECS, K6_SMEM_RED, K6_SMEM_SCALARS = 17, 14 * 32, 2
+K6_MAX_SMEM = 232448
+
+
+def k6_smem_layout(n: int, b: int, nb: int, mh: int, ma: int, rows: bool,
+                   scr: bool) -> dict:
+    """Elements of each part of a K6 lane's shared memory, in
+    ``ipm::smem_layout``'s order: the factor's block inverses D, M then W
+    in O, V, the solves' scratch n-vector w, the n-vectors, the reduction
+    buffer and scalars, and where ``rows`` / ``scr`` put them there, the
+    scaled rows (hinge, abs) and the scratch m-vectors."""
+    return {"D": nb * b * b, "O": (nb - 1) * b * b, "V": (nb - 1) * b * b,
+            "w": nb * b, "vectors": K6_SMEM_VECS * n,
+            "reduction": K6_SMEM_RED + K6_SMEM_SCALARS,
+            "rows_h": mh * 2 * b if rows else 0,
+            "rows_a": ma * 2 * b if rows else 0,
+            "scratch": K6_SCRATCH_VECS * (mh + ma) if scr else 0}
+
+
+def k6_smem_plan(n: int, b: int, nb: int, mh: int, ma: int, es: int):
+    """K6's shared-memory plan for a QP's sizes, as its launcher chooses it
+    (``plan_smem``: the rows and the scratch in shared memory where both
+    fit, else the one that fits, the rows first, else neither):
+    {"rows", "scratch": "shared" or "device", "bytes", "bytes_by_part"},
+    or None where even the base does not fit."""
+    for rows, scr in ((True, True), (True, False), (False, True),
+                      (False, False)):
+        parts = {k: v * es for k, v in k6_smem_layout(
+            n, b, nb, mh, ma, rows, scr).items()}
+        if sum(parts.values()) <= K6_MAX_SMEM:
+            where = {True: "shared", False: "device"}
+            return {"rows": where[rows], "scratch": where[scr],
+                    "bytes": sum(parts.values()), "bytes_by_part": parts}
+    return None
+
+
 class _RowTables(NamedTuple):
     """One row kind's int tables for K6, shared by the lanes."""
 
@@ -861,13 +900,15 @@ def k11_region_sizes(n: int, b: int, nb: int, mh: int, ma: int,
     """Elements of each of K11's regions per lane (``ipm_dense.cuh``'s
     k_size, lists_size, base_size, scr_size, raw_size), by
     ``K11_REGIONS``, for elements of ``es`` bytes: the dense route's
-    packed K, the lists of the scaled rows and of P, the band and the
-    n-vectors, the scratch m-vectors, the raw lists.  ``nz``: the lists'
-    capacities (Jh, Ja, Rh, Ra, P, raw P), as ``k11_nonzeros``."""
+    packed K, the lists of the scaled rows and of P, the band (the block
+    route's factor: D, O, V and the solves' scratch) and the n-vectors,
+    the scratch m-vectors, the raw lists.  ``nz``: the lists' capacities
+    (Jh, Ja, Rh, Ra, P, raw P), as ``k11_nonzeros``."""
     def lst(rows, cap):  # values, then int indices and offsets
         return cap + -(-4 * (cap + rows + 1) // es)
     nz_h, nz_a, nz_rh, nz_ra, nz_p, nz_pr = nz
-    band = (nb * b * b + (nb - 1) * b * b + nb * b) if nb else 0
+    # the block route's D, O, V and the solves' scratch n-vector
+    band = (nb * b * b + 2 * (nb - 1) * b * b + nb * b) if nb else 0
     return {"k": 0 if nb else n * (n + 1) // 2,
             "lists": lst(mh, nz_h) + lst(n, nz_h) + lst(ma, nz_a)
             + lst(n, nz_a) + lst(n, nz_p),
