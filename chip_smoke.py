@@ -151,9 +151,11 @@ Every line printed is one JSON object.  Phases, in order:
    with equal counts q and the error norms within ``IK_Q_TOL`` /
    ``IK_ERR_CONV_TOL`` where both converged and ``IK_Q_STUCK_TOL`` /
    ``IK_ERR_TOL`` where both ran to the iteration limit (``ik_compare``);
-   then their times (the bare launch on the device clock, ``device_ms``,
-   and the whole wrapper), their plain versions' and their bounds, and
-   their registers and local memory;
+   K8 at every n_dof from 1 to 12 (``serial_urdf`` chains, 16 lanes)
+   against the plain loop by the same rule, float64, and at 12 also
+   float32 and ``pos_only``; then their times (the bare launch on the
+   device clock, ``device_ms``, and the whole wrapper), their plain
+   versions' and their bounds, and their registers and local memory;
 6a. cartesian waypoints (BASELINE config 2): arm7, 128 lanes x T=30,
    float32, ``cartesian_inputs`` (seed 0) built by
    ``port_cartesian_problem("waypoints")`` (cart_pose EQ at three waypoint
@@ -168,7 +170,10 @@ Every line printed is one JSON object.  Phases, in order:
    (the JAX package's CPU counts less 5);
 6b. the IK goal: the same starts, ik_term EQ at the last step (the goal's
    pose), joint_vel cost, from start -> goal + 0.2: as 6a, and K8 at least
-   once per batched QP solve;
+   once per batched QP solve; the K8 launches of one more run (untimed,
+   after the warm runs' counts are read) replayed on the device clock
+   (``ik_launch_times``: each launch's ms and largest iteration count,
+   their sum and its share of the warm runs' mean wall);
 6c. ``solve_ik`` alone on ``ik_inputs`` (128 lanes, float32), plain and
    ``pos_only``: converged at or above ``CART_LIMITS``, iterations, error
    norms, K8's time;
@@ -807,6 +812,47 @@ def ik_inputs(lanes, seed=0):
             "target_p": p[:, tool].numpy(), "q0": seed_q, "link": tool}
 
 
+def serial_urdf(n):
+    """A serial arm of n revolute joints as a URDF string (axes z, y, x
+    in turn, every fourth origin turned), then a fixed ``tool`` link:
+    K8's chains of every n_dof (phase 2f)."""
+    axes = ("0 0 1", "0 1 0", "1 0 0")
+    links = ['<link name="base"/>'] + [f'<link name="s{i}"/>'
+                                       for i in range(1, n + 1)]
+    joints = []
+    for i in range(1, n + 1):
+        parent = "base" if i == 1 else f"s{i - 1}"
+        rpy = "0.1 0 0.2" if i % 4 == 0 else "0 0 0"
+        joints.append(
+            f'<joint name="q{i}" type="revolute">'
+            f'<origin xyz="0.01 0 {0.08 + 0.01 * (i % 3)}" rpy="{rpy}"/>'
+            f'<parent link="{parent}"/><child link="s{i}"/>'
+            f'<axis xyz="{axes[i % 3]}"/>'
+            '<limit lower="-2.6" upper="2.6" velocity="2"/></joint>')
+    links.append('<link name="tool"/>')
+    joints.append('<joint name="tool_fix" type="fixed">'
+                  '<origin xyz="0 0 0.1"/>'
+                  f'<parent link="s{n}"/><child link="tool"/></joint>')
+    return '<robot name="serial">' + "".join(links + joints) + "</robot>"
+
+
+def serial_ik_queries(chain, lanes, seed):
+    """IK queries on a chain as ``ik_inputs`` makes them (numpy draws):
+    q in the middle half of the joint box, the tool's float64 pose there,
+    the seed q + 0.3 (1, -1, 1, ...); (link, R, p, q0) float64 CPU
+    tensors."""
+    import numpy as np
+    import torch
+
+    tool = chain.link_index("tool")
+    rng = np.random.default_rng(seed)
+    q = chain.lb + (chain.ub - chain.lb) * (
+        0.25 + 0.5 * rng.uniform(0.0, 1.0, (lanes, chain.n_dof)))
+    R, p = chain.fk(torch.as_tensor(q, dtype=torch.float64))
+    sign = np.where(np.arange(chain.n_dof) % 2 == 0, 1.0, -1.0)
+    return tool, R[:, tool], p[:, tool], torch.as_tensor(q + 0.3 * sign)
+
+
 def port_cartesian_problem(kind, inp, dtype, device):
     """(spec, batched data, chain) of a cartesian scene through the port's
     public term API.  ``kind`` "waypoints" (BASELINE config 2, phase 6a):
@@ -1260,37 +1306,102 @@ def pose_work(chain, lanes, src, tgt, band, jac, es):
 
 def ik_work(chain, link, iters, ne, es):
     """(bytes, flops) of one K8 launch at the iterations its lanes ran
-    (``iters`` (lanes,)): per iteration the Jacobian (the value and n_dof
-    dual columns), A = J J' + lam^2 I (2 ne^2 n_dof), its elimination
-    (2/3 ne^3 + 2 ne^2), dq and the clamp (2 ne n_dof + 2 n_dof), the
-    error at the new q (a value and its norm); per lane the first error."""
+    (``iters`` (lanes,)): per iteration the error and its Jacobian at the
+    trial point (the value, its norm and n_dof dual columns: the next
+    iteration's J and e when the step is accepted), A = J J' + lam^2 I
+    (2 ne^2 n_dof), its elimination (2/3 ne^3 + 2 ne^2), dq and the clamp
+    (2 ne n_dof + 2 n_dof); per lane the first error and Jacobian.  No
+    second value evaluation per iteration: the loop does not need one."""
     nd = chain.n_dof
     val = pose_value_flops(pose_path_kinds(chain, link), 0, False) + 2 * ne
-    per_it = val * (1 + 1.5 * nd) + 2 * ne * ne * nd \
-        + (2 / 3) * ne ** 3 + 2 * ne * ne + 2 * ne * nd + 2 * nd + val
+    evaluation = val * (1 + 1.5 * nd)
+    per_it = evaluation + 2 * ne * ne * nd \
+        + (2 / 3) * ne ** 3 + 2 * ne * ne + 2 * ne * nd + 2 * nd
     lanes = iters.numel()
-    flops = float(iters.double().sum()) * per_it + lanes * val
+    flops = float(iters.double().sum()) * per_it + lanes * evaluation
     nbytes = lanes * (es * (9 + 3 + 2 * nd + 1) + 8) + es * (
         33 * chain.n_links + 2 * nd)
     return nbytes, flops
 
 
+def recording_solve_ik(calls):
+    """kinematics.ik.solve_ik that also records each call's chain, link
+    and arguments into ``calls`` (a 6b run's K8 launches)."""
+    from trajopt_tpu_torch.kinematics import ik
+
+    solve = ik.solve_ik
+
+    def rec(chain, link, target_R, target_p, max_iters=60, tol=1e-6,
+            damping=1e-3, pos_only=False, q0=None, kernels=True):
+        calls.append((chain, link, target_R.clone(), target_p.clone(),
+                      max_iters, tol, damping, pos_only, q0.clone()))
+        return solve(chain, link, target_R, target_p, max_iters, tol,
+                     damping, pos_only, q0, kernels)
+    return rec
+
+
+def ik_launch_times(calls, wall_s):
+    """The recorded K8 launches of one run, each replayed alone (its
+    arguments built once) on the device clock (``device_ms``): per launch
+    its ms and largest iteration count, the largest-iteration launch's,
+    their sum and its share of ``wall_s``, the mean wall of the runs
+    timed without the recording."""
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.kinematics.ik import _ik_args
+
+    lib, out = _native.library("solve_ik"), []
+    for chain, link, *args in calls:
+        fn, a, res, _keep = _ik_args(lib, chain, link, *args)
+        _native.check("solve_ik", fn(*a))
+        torch.cuda.synchronize()
+        ms, _ = device_ms(lambda: _native.check("solve_ik", fn(*a)), reps=10)
+        out.append({"ms": ms, "iters_max": int(res.iters.max()),
+                    "iters_mean": float(res.iters.double().mean())})
+    total = sum(r["ms"] for r in out)
+    top = max(out, key=lambda r: r["iters_max"]) if out else None
+    return {"launches": len(out), "per_launch": out,
+            "largest_iteration_launch": top, "device_ms_sum": total,
+            "share_of_wall": total * 1e-3 / wall_s}
+
+
+# K8's instantiations, in solve_ik_attrs' order: n_e 6 / 3 (pos_only) at
+# row teams of 3 (n_dof up to 10) or of 1 (n_dof 11-12)
+IK_INSTANCES = ("ne6_rt3", "ne6_rt1", "ne3_rt3", "ne3_rt1")
+
+
 def pose_attributes():
     """numRegs / localSizeBytes of K9 (cart_pose.cu, one kernel for K9
-    and K9v) and K8 (solve_ik.cu), float32 and float64."""
+    and K9v), float32 and float64, and of each of K8's instantiations
+    (solve_ik.cu, ``IK_INSTANCES``; one taken from a checkout without it
+    is left out), with the largest of them (``worst``)."""
     import ctypes
 
     from trajopt_tpu_torch import _native
 
+    def read(fn, sym, which):
+        a = (ctypes.c_int * 4)()
+        rc = fn(which, a)
+        return rc, {"registers": a[0], "local_bytes": a[1],
+                    "max_threads": a[2], "static_smem": a[3]}
+
     out = {}
-    for src, sym in (("cart_pose", "cart_pose_attrs"),
-                     ("solve_ik", "solve_ik_attrs")):
-        fn = getattr(_native.library(src), sym)
-        for which, d in ((0, "f32"), (1, "f64")):
-            a = (ctypes.c_int * 4)()
-            _native.check(sym, fn(which, a))
-            out[f"{src}_{d}"] = {"registers": a[0], "local_bytes": a[1],
-                                 "max_threads": a[2], "static_smem": a[3]}
+    cart = _native.library("cart_pose").cart_pose_attrs
+    ik = _native.library("solve_ik").solve_ik_attrs
+    for which, d in ((0, "f32"), (1, "f64")):
+        rc, out[f"cart_pose_{d}"] = read(cart, "cart_pose_attrs", which)
+        _native.check("cart_pose_attrs", rc)
+        inst = {}
+        for k, name in enumerate(IK_INSTANCES):
+            rc, r = read(ik, "solve_ik_attrs", 2 * k + which)
+            if rc == -1 and k > 0:  # a checkout with one instantiation
+                continue
+            _native.check("solve_ik_attrs", rc)
+            inst[name] = r
+        inst["worst"] = {k: max(r[k] for r in inst.values())
+                         for k in ("registers", "local_bytes")}
+        out[f"solve_ik_{d}"] = inst
     return out
 
 
@@ -1322,28 +1433,19 @@ def device_ms(fn, reps=50):
     return ev[1].elapsed_time(ev[2]) / reps, queue
 
 
-def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
-    """Phases 2f and 6a-6d (module docstring).  Returns (summary entries
-    of K9, K9v and K8, launches by path of every kernel on 6a and 6b)."""
+def pose_inputs(lanes, dev, T=30):
+    """Phase 2f's K9 / K9v inputs, float64: the free flagship's chain and
+    x (its x0 plus seeded noise, 128 x T), and per configuration the
+    cart_pose params and target link: "world" (the tool's pose at step 25
+    as a world target, a source offset, row coefficients),
+    "moving_target" (an offset on link l3) and "band" (the world target
+    with a tolerance band).  The term sits at step 20."""
     import numpy as np
     import torch
 
-    from trajopt_tpu_torch import _native
     from trajopt_tpu_torch.benchmarks import make_glass_upright_free
-    from trajopt_tpu_torch.kinematics.ik import _ik_args, solve_ik
     from trajopt_tpu_torch.ops.lie import rpy_to_matrix
-    from trajopt_tpu_torch.solver.sqp import solve_batch
-    from trajopt_tpu_torch.solver.types import CONVERGED, SQPParams
-    from trajopt_tpu_torch.terms.cartesian import _pose_args, cart_pose_rows
 
-    def sync():
-        torch.cuda.synchronize()
-
-    T, step = 30, 20
-    attrs = pose_attributes()
-    emit({"phase": "pose_attributes", "attributes": attrs, "card": smi})
-
-    # ---------------- phase 2f: K9 / K9v against the plain version
     _, data64, chain = make_glass_upright_free(lanes, T, torch.float64,
                                                device=dev)
     nd = chain.n_dof
@@ -1358,22 +1460,49 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
     def lanes_of(t):
         return t.expand((lanes,) + tuple(t.shape)).contiguous()
 
+    def vec(v):
+        return lanes_of(torch.tensor(v, device=dev, dtype=torch.float64))
+
     common = {"source_off_R": lanes_of(offR[0]),
-              "source_off_p": lanes_of(torch.tensor([0.0, 0.0, 0.1],
-                                                    device=dev,
-                                                    dtype=torch.float64)),
-              "coeffs": lanes_of(torch.tensor([1, 1, 1, 0.5, 0.5, 0.5],
-                                              device=dev,
-                                              dtype=torch.float64))}
+              "source_off_p": vec([0.0, 0.0, 0.1]),
+              "coeffs": vec([1, 1, 1, 0.5, 0.5, 0.5])}
     world = dict(common, target_R=Rw[:, tool], target_p=pw[:, tool])
     moving = dict(common, target_R=lanes_of(offR[1]),
-                  target_p=lanes_of(torch.tensor([0.1, 0.0, 0.2], device=dev,
-                                                 dtype=torch.float64)))
-    tol = torch.tensor([0.05] * 3 + [0.1] * 3, device=dev,
-                       dtype=torch.float64)
-    band = dict(world, lower_tols=lanes_of(-tol), upper_tols=lanes_of(tol))
-    configs = {"world": (world, None), "moving_target": (moving, l3),
-               "band": (band, None)}
+                  target_p=vec([0.1, 0.0, 0.2]))
+    tol = [0.05] * 3 + [0.1] * 3
+    band = dict(world, lower_tols=vec([-t for t in tol]),
+                upper_tols=vec(tol))
+    return chain, x64, {"world": (world, None),
+                        "moving_target": (moving, l3), "band": (band, None)}
+
+
+def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
+    """Phases 2f and 6a-6d (module docstring).  Returns (summary entries
+    of K9, K9v and K8, launches by path of every kernel on 6a and 6b)."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.kinematics import ik as ik_mod
+    from trajopt_tpu_torch.kinematics.chain import build_chain
+    from trajopt_tpu_torch.kinematics.ik import _ik_args, solve_ik
+    from trajopt_tpu_torch.kinematics.urdf import parse_urdf
+    from trajopt_tpu_torch.solver.sqp import solve_batch
+    from trajopt_tpu_torch.solver.types import CONVERGED, SQPParams
+    from trajopt_tpu_torch.terms.cartesian import _pose_args, cart_pose_rows
+
+    def sync():
+        torch.cuda.synchronize()
+
+    T, step = 30, 20
+    attrs = pose_attributes()
+    emit({"phase": "pose_attributes", "attributes": attrs, "card": smi})
+
+    # ---------------- phase 2f: K9 / K9v against the plain version
+    chain, x64, configs = pose_inputs(lanes, dev, T)
+    nd = chain.n_dof
+    tool = chain.link_index("tool")
+    world = configs["world"][0]
     k9_recs, k9_err = [], {"cart_pose": [], "cart_pose_value": []}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
@@ -1429,6 +1558,34 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
             emit(rec)
             k8_recs.append(rec)
             assert rec["ok"], rec
+    # K8 at every n_dof 1..CAST_ND_MAX (serial chains, 16 lanes) against
+    # the plain loop by the same rule: float64 and the full pose at each,
+    # and at the ceiling float32 and pos_only too
+    cases = [(n, torch.float64, False)
+             for n in range(1, _native.CAST_ND_MAX + 1)] + [
+        (_native.CAST_ND_MAX, dt, po) for dt, po in (
+            (torch.float64, True), (torch.float32, False),
+            (torch.float32, True))]
+    chains = {}
+    for n, dt, po in cases:
+        name = str(dt).split(".")[-1]
+        if n not in chains:
+            chains[n] = build_chain(parse_urdf(serial_urdf(n)),
+                                    [f"q{i}" for i in range(1, n + 1)])
+        sch = chains[n]
+        slink, sR, sp, sq0 = (t if isinstance(t, int) else t.to(dev, dt)
+                              for t in serial_ik_queries(sch, 16, seed=n))
+        kr = solve_ik(sch, slink, sR, sp, q0=sq0, pos_only=po)
+        pr, tie = solve_ik_plain_ties(sch, slink, sR, sp, sq0, po)
+        sync()
+        rec = {"phase": "ik_kernel_ndof", "n_dof": n, "dtype": name,
+               "pos_only": po, **ik_compare(kr, pr, tie, name),
+               "iters_max": int(kr.iters.max()),
+               "finite": bool(torch.isfinite(kr.q).all())}
+        rec["ok"] = rec["ok"] and rec["finite"]
+        emit(rec)
+        k8_recs.append(rec)
+        assert rec["ok"], rec
 
     # times (float32): K9 / K9v on the world target, K8 on 6c's queries.
     # ms: the bare launch on the card (its arguments built once, the
@@ -1535,6 +1692,17 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
                "limits": CART_LIMITS[key], "card": smi}
         if kind == "waypoints":
             rec["max_displacement"] = inp["max_displacement"]
+        else:  # K8's launches, recorded in one more run (untimed, after
+            # the counts were read) and replayed on the device clock
+            ik_calls = []
+            ik_mod.solve_ik = recording_solve_ik(ik_calls)
+            try:
+                solve_batch(spec, data, params, device=dev)
+                sync()
+            finally:
+                ik_mod.solve_ik = solve_ik
+            rec["k8"] = ik_launch_times(ik_calls, rec["warm_wall_s"])
+            timing["solve_ik"]["launches_6b"] = rec["k8"]
         emit(rec)
         assert rec["finite"], rec
         assert rec["converged"] >= CART_LIMITS[key]["converged"] \
@@ -1608,6 +1776,9 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
                      "pos_only": timing["solve_ik_pos_only"],
                      "launches_are": "phase 6b's three warm runs (ik_term's "
                      "fn, every convexify and evaluate)",
+                     "on_6b": {k: t["launches_6b"][k] for k in (
+                         "launches", "largest_iteration_launch",
+                         "device_ms_sum", "share_of_wall")},
                      "library_ms_null_because": "no one PyTorch call runs "
                      "the damped-least-squares loop",
                      "attributes": {d: attrs[f"solve_ik_{d}"]

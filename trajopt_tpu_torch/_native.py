@@ -45,9 +45,9 @@ _CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _P, _P]
 _ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
 _DISC = [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-_POSE = [_P, _P, _P, _L, _I, _I, _I, _I] + [_P] * 9 + [_L, _I, _I, _P]
-_IK = [_P, _P, _I, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P, _P, _P, _P,
-       _I, _P]
+_POSE = [_P, _P, _P, _L, _I, _I, _I, _I, _I] + [_P] * 9 + [_L, _I, _I, _P]
+_IK = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P, _P, _P,
+       _P, _I, _P]
 _CSEL = [_P] * 7 + [_I] * 7 + [_D, _P]
 # C signatures: (source stem, [(symbol, argtypes)])
 _SIGNATURES = {
@@ -75,6 +75,9 @@ _SIGNATURES = {
     # K8: damped-least-squares IK, a lane's loop per warp
     "solve_ik": [(f"solve_ik_{s}", _IK) for s in ("f32", "f64")]
     + [("solve_ik_attrs", [_I, _P])],
+    # K8 float32 with its phase timer (clk last)
+    "solve_ik_timer": [("solve_ik_timed_f32", _IK + [_P]),
+                       ("solve_ik_attrs", [_I, _P])],
     # K10 / K10v: the collision terms' worst-contact selection
     "contact_select": [(f"contact_select_{s}", _CSEL) for s in ("f32", "f64")]
     + [("contact_select_attrs", [_I, _P])],
@@ -157,15 +160,18 @@ for _name, (_src, _) in _VARIANTS.items():
     if _src == "ipm_dense":
         _SIGNATURES[_name] = [("ipm_dense_run", [_P, _P]),
                               ("ipm_dense_attrs", [_P])]
+_VARIANTS["solve_ik_timer"] = ("solve_ik", ["-DIK_TIMED=1"])
 for _src, _sfx in (("cast_seg", ""), ("cast_cvx", "_cvx")):
     _VARIANTS[f"{_src}_ceil"] = (_src, ["-DCAST_CEIL"])
     _SIGNATURES[f"{_src}_ceil"] = [(f"cast_seg{_sfx}_{s}", _CAST)
                                    for s in ("f32", "f64")] \
         + [(f"{_src}_attrs", [_I, _P])]
 SOURCES = tuple(_SIGNATURES)  # one library each
-# libraries that build_all() leaves out, built when first asked for: K6 and
-# K11 with their phase timers, which only scripts/ipm_ab.py --phases runs
-ON_DEMAND = ("ipm_timer", "ipm_dense_timer", "ipm_dense_timer_dense")
+# libraries that build_all() leaves out, built when first asked for: K6,
+# K11 and K8 with their phase timers, which only scripts/ipm_ab.py and
+# scripts/pose_ab.py --phases run
+ON_DEMAND = ("ipm_timer", "ipm_dense_timer", "ipm_dense_timer_dense",
+             "solve_ik_timer")
 # extra nvcc flags per source: the cast kernels keep every multiply and add
 # separate (no FMA contraction), as the plain PyTorch versions compute them,
 # so that their argmin decisions agree wherever there is no tie; so does
@@ -176,8 +182,8 @@ _EXTRA_FLAGS = {"cast_seg": ["-fmad=false"], "cast_cvx": ["-fmad=false"],
                 "ipm_banded": ["-fmad=false"], "ipm_timer": ["-fmad=false"],
                 "ipm_dense": ["-fmad=false"]}
 
-# the n_dof K4's Jacobian runs at (1..CAST_ND_MAX; csrc/cast_block.cuh
-# ND_MAX)
+# the n_dof K4's Jacobian and K8 run at (1..CAST_ND_MAX; csrc/cast_block.cuh
+# and csrc/pose.cuh ND_MAX)
 CAST_ND_MAX = 12
 
 # kernel name -> launch count; the cast sources hold three kernels
@@ -364,8 +370,10 @@ def check(name: str, code: int) -> None:
                          "in its library's range; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
-                         "on the host; disc_dist's of 32-128 threads; solve_ik at "
-                         "most 9 dofs; contact_select 1 <= K <= P with its "
+                         "on the host; disc_dist's of 32-128 threads; solve_ik "
+                         f"n_dof 1 to {CAST_ND_MAX} and n_e 3 or 6; the "
+                         "pose kernels' staged chain paths within the "
+                         "shared memory; contact_select 1 <= K <= P with its "
                          "keys within 48 KB of shared memory)")
     if code != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {code}")

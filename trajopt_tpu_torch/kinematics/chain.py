@@ -59,6 +59,14 @@ class Chain:
     def link_index(self, name: str) -> int:
         return self.link_names.index(name)
 
+    def path_len(self, link: int) -> int:
+        """The links on ``link``'s chain path, the root's and its own
+        included (the pose kernels stage that many rows of the tables)."""
+        n, a = 0, link
+        while a >= 0:
+            n, a = n + 1, int(self.parent[a])
+        return n
+
     def _tensors(self, dtype, device):
         key = (dtype, str(device))
         c = self._consts.get(key)

@@ -8,12 +8,12 @@ Jacobian, with the lane axis leading: ``target_R`` (B, 3, 3),
 ``target_p`` (B, 3), ``q0`` (B, n_dof).
 
 On a CUDA tensor :func:`solve_ik` is one launch of K8 (``csrc/solve_ik.cu``:
-each lane's whole loop on one warp); on a CPU tensor, or with
-``kernels=False``, the plain version, which mirrors the JAX package's loop
-step for step (``torch.linalg.solve`` for ``jnp.linalg.solve``, the clamp,
-the accept test ``err_new < err``, lam halved with a floor of 1e-5 or
-doubled) and, as its ``while_loop`` under ``vmap``, keeps each lane's own
-iteration count.
+each lane's whole loop on one warp, n_dof 1 to ``_native.CAST_ND_MAX``); on
+a CPU tensor, or with ``kernels=False``, the plain version, which mirrors
+the JAX package's loop step for step (``torch.linalg.solve`` for
+``jnp.linalg.solve``, the clamp, the accept test ``err_new < err``, lam
+halved with a floor of 1e-5 or doubled) and, as its ``while_loop`` under
+``vmap``, keeps each lane's own iteration count.
 """
 
 from __future__ import annotations
@@ -119,12 +119,16 @@ def solve_ik_plain(chain: Chain, link: int, target_R, target_p,
 
 
 def _ik_args(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
-             damping, pos_only, q0):
+             damping, pos_only, q0, clk=None):
     """K8 from ``lib`` (the card's library or the host build) with its
     arguments, and the result it writes: (fn, args, IKResult, tensors the
-    arguments point into)."""
+    arguments point into).  ``clk`` (B, 6) int64: the timed build's
+    (``solve_ik_timer``) cycles per phase."""
     dt, dev = target_p.dtype, target_p.device
     B, nd = target_p.shape[0], chain.n_dof
+    if nd > _native.CAST_ND_MAX:
+        raise ValueError(f"solve_ik: a chain of {nd} dofs; K8 takes 1 to "
+                         f"{_native.CAST_ND_MAX}")
     I, F = chain.kernel_tables(dt, dev)
     lb, ub = _bounds(chain, dt, dev)
     tR = target_R.to(dt).reshape(B, 9).contiguous()
@@ -134,14 +138,17 @@ def _ik_args(lib, chain: Chain, link, target_R, target_p, max_iters, tol,
     err = torch.empty((B,), dtype=dt, device=dev)
     conv = torch.empty((B,), dtype=torch.int32, device=dev)
     iters = torch.empty((B,), dtype=torch.int32, device=dev)
-    fn = lib.solve_ik_f32 if dt == torch.float32 else lib.solve_ik_f64
     stream = torch.cuda.current_stream(dev).cuda_stream \
         if target_p.is_cuda else None
-    args = (I.data_ptr(), F.data_ptr(), link, tR.data_ptr(), tp.data_ptr(),
-            qi.data_ptr(), lb.data_ptr(), ub.data_ptr(), max_iters,
-            float(tol), float(damping), 3 if pos_only else 6, nd,
-            q.data_ptr(), err.data_ptr(), conv.data_ptr(), iters.data_ptr(),
-            B, stream)
+    args = (I.data_ptr(), F.data_ptr(), link, chain.path_len(link),
+            tR.data_ptr(), tp.data_ptr(), qi.data_ptr(), lb.data_ptr(),
+            ub.data_ptr(), max_iters, float(tol), float(damping),
+            3 if pos_only else 6, nd, q.data_ptr(), err.data_ptr(),
+            conv.data_ptr(), iters.data_ptr(), B, stream)
+    if clk is not None:
+        fn, args = lib.solve_ik_timed_f32, args + (clk.data_ptr(),)
+    else:
+        fn = lib.solve_ik_f32 if dt == torch.float32 else lib.solve_ik_f64
     res = IKResult(q=q, err_norm=err, converged=conv, iters=iters)
     return fn, args, res, (I, F, lb, ub, tR, tp, qi)
 
@@ -182,8 +189,8 @@ def solve_ik_host(chain: Chain, link: int, target_R, target_p,
                   damping: float = 1e-3, pos_only: bool = False,
                   q0: Optional[torch.Tensor] = None) -> IKResult:
     """K8's device code built for the host (``csrc/pose_host.cpp``, each
-    lane's loop by one thread playing the warp), on CPU tensors: a check
-    of the kernel on a CPU."""
+    lane's loop by a team of one thread that holds every column), on CPU
+    tensors: a check of the kernel on a CPU."""
     if target_p.is_cuda:
         raise ValueError("solve_ik_host takes CPU tensors")
     return _ik_call(_native.host_library("pose_host"), chain, link, target_R,

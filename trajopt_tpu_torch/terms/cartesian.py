@@ -108,8 +108,9 @@ def _pose_args(lib, chain: Chain, x, p, step, nc, src, tgt, jac):
     stream = torch.cuda.current_stream(dev).cuda_stream if x.is_cuda else None
     # the tensors stay referenced by the returned tuple while fn runs
     keep = (I, F, xc, prm)
+    plen = chain.path_len(src) + (0 if tgt is None else chain.path_len(tgt))
     args = (I.data_ptr(), F.data_ptr(), xc.data_ptr(), xc.stride(0),
-            step * nc, nd, src, -1 if tgt is None else tgt,
+            step * nc, nd, src, -1 if tgt is None else tgt, plen,
             *[None if t is None else t.data_ptr() for t in prm],
             E.data_ptr(), None if J is None else J.data_ptr(), n_x,
             step * nc, B, stream)
