@@ -188,9 +188,15 @@ Every line printed is one JSON object.  Phases, in order:
    on arm7's table world (128 x 30 x 28); the selected values and rows
    bitwise equal on every (lane, group) off a near tie (two of the K + 1
    largest keys within ``SELECT_TIE_ULPS``; counted), K10's values
-   K10v's; then their times (the bare launch on the device clock,
-   ``device_ms``), the plain version's, torch.topk's for the selection
-   alone (``library_ms``) and the bound (``select_work``);
+   K10v's (inputs: ``select_inputs``); then ``SELECT_SIZES`` on seeded
+   inputs (``select_case``: exact ties, NaN distances, signed-zero keys,
+   inactive pairs), both routes of ``select_route`` (P 33, 64, 65, 300; S
+   47; K = P), float32 and float64, every output's bits equal to the
+   plain selection's; then their times (the bare launch on the device
+   clock, ``device_ms``; one (lane, group) for the launch floor), the
+   plain version's, torch.topk's for the selection alone
+   (``library_ms``), the bound (``select_work``) and the four
+   instantiations' registers and local bytes (``kernel_attributes``);
 7a. the ``arm_around_table.json`` form (``json_docs("table")``: one
    document per lane, ``port_json_problem``: ``load_problem`` with its
    defaults, n_sub 8, cull on; 28 pairs), 128 x T=30, float32, through
@@ -1849,6 +1855,141 @@ def select_work(D, K, nc, es, jac, n_jac):
     return nb, ops
 
 
+# phase 2g's selection settings (max_num_cnt 3, a 0.5 window buffer)
+SELECT_K, SELECT_BUFFER = 3, 0.5
+# phase 2g's added sizes, (form, S, P, K, nc) on select_case's seeded
+# inputs: the register route's edges (P 33 and 64: a lane's second pair;
+# K = P with S K up to 64) and the shared-memory route (P 65 and 300 above
+# the register cap of 64, S 47 above its 8, K = P with S K above 64)
+SELECT_SIZES = (("cast", 7, 33, 3, 7), ("cast", 7, 64, 3, 8),
+                ("cast", 1, 32, 32, 7), ("cast", 1, 64, 64, 2),
+                ("cast", 7, 65, 3, 7), ("cast", 7, 300, 3, 13),
+                ("cast", 47, 28, 3, 7), ("cast", 7, 28, 28, 7),
+                ("discrete", 1, 33, 3, 7), ("discrete", 1, 5, 5, 13),
+                ("discrete", 1, 65, 65, 8))
+
+
+def select_inputs(prob, lanes, dt, kernels=True):
+    """Phase 2g's inputs at dtype ``dt``, {form: (D, margins, coeffs, Ja,
+    Jb, right_group)}: the cast form on the cost term's distance pipeline
+    (K4 at the problem's n_sub, lane 0's pruned world) for x0 plus seeded
+    noise, with the term's margins and coefficients per pair; the discrete
+    form on K7's on the full world (margins 0.025, coefficients 20).
+    ``prob``: a phase-7 problem (``port_json_problem``); ``kernels=False``:
+    the plain distance pipelines."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch.terms.collision import DiscreteDistancePre
+
+    spec, data, world = prob[0], prob[1], prob[4]
+    ci = next(i for i, t in enumerate(spec.cost_terms)
+              if t.pre_fn is not None)
+    cpre = spec.cost_terms[ci].pre_fn
+    P = cpre.P
+    m64, c64 = (data.cost_params[ci][k].double().reshape(lanes, -1).expand(
+        lanes, P).contiguous() for k in ("margins", "coeffs"))
+    x = (data.x0.double() + torch.as_tensor(np.random.default_rng(15).normal(
+        0.0, 0.05, tuple(data.x0.shape)), device=data.x0.device)).to(dt)
+    Dc, (Ja, Jb) = cpre.value_jac(x, kernels=kernels)
+    dpre = DiscreteDistancePre(world, spec.n_steps, n_cols=spec.n_cols)
+    Dd, Js = dpre.value_jac(x, kernels=kernels)
+    full = lambda v: m64.new_full((lanes, Dd.shape[-1]), v).to(dt)  # noqa
+    return {"cast": (Dc.contiguous(), m64.to(dt), c64.to(dt),
+                     Ja.contiguous(), Jb.contiguous(), -1),
+            "discrete": (Dd[:, :, None, :].contiguous(), full(0.025),
+                         full(20.0), Js.contiguous(), None,
+                         spec.n_steps - 1)}
+
+
+def select_case(rng, S, P, nc, cast, lanes=2, groups=4,
+                buffer=SELECT_BUFFER):
+    """Seeded selection inputs (numpy float64: D (lanes, groups, S, P),
+    margins, coeffs (lanes, P), Ja and, cast, Jb (lanes, groups, S P,
+    nc)): group 0 as drawn with keys of -0 (pair P // 4) and +0 (P // 2),
+    group 1 with exact ties between pairs (2 and 34: two pairs of one
+    lane on the card), group 2 with NaN distances (one segment of pair 0,
+    every segment of pairs P // 2 and P - 1), group 3 with every pair
+    inactive (err < -buffer)."""
+    import numpy as np
+
+    D = rng.uniform(-0.2, 0.6, (lanes, groups, S, P))
+    m = rng.uniform(0.0, 0.3, (lanes, P))
+    c = rng.uniform(1.0, 20.0, (lanes, P))
+    if P > 1:
+        z0, z1 = P // 4, P // 2
+        m[:, z0], m[:, z1] = -0.0, 0.0
+        D[:, 0, :, z0] = 0.0
+        D[:, 0, :, z1] = 0.0
+        for p, q in ((0, P - 1), (1, P // 3), (2, min(P - 1, 34)),
+                     (P - 2, min(P - 1, 33))):
+            if p != q and p >= 0:
+                D[:, 1, :, q] = D[:, 1, :, p]
+                m[:, q] = m[:, p]
+                c[:, q] = c[:, p]
+    D[:, 2, S // 2, 0] = np.nan
+    D[:, 2, :, P // 2] = np.nan
+    D[:, 2, :, P - 1] = np.nan
+    D[:, 3] = m[:, None, :] + buffer + rng.uniform(0.01, 1.0,
+                                                   (lanes, S, P))
+    Ja = rng.normal(size=(lanes, groups, S * P, nc))
+    Jb = rng.normal(size=(lanes, groups, S * P, nc)) if cast else None
+    return D, m, c, Ja, Jb
+
+
+def same_bits(a, b):
+    """Elements of a and b whose bits differ (the shapes must agree)."""
+    import torch
+
+    assert a.shape == b.shape, (a.shape, b.shape)
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    return int((a.contiguous().view(it) != b.contiguous().view(it)).sum())
+
+
+def select_sizes_check(dev, lanes=8):
+    """Phase 2g's added sizes (SELECT_SIZES): K10 and K10v on the card
+    against the plain selection on the same inputs, float32 and float64,
+    every output's bits equal.  Returns one record per size and dtype."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch.terms.collision import (contact_select,
+                                                   contact_select_plain,
+                                                   select_route)
+
+    recs = []
+    for i, (form, S, P, K, nc) in enumerate(SELECT_SIZES):
+        cast = form == "cast"
+        arrs = select_case(np.random.default_rng(160 + i), S, P, nc, cast,
+                           lanes=lanes)
+        for dt in (torch.float32, torch.float64):
+            D, m, c, Ja, Jb = (None if a is None else torch.as_tensor(
+                a, dtype=dt, device=dev).contiguous() for a in arrs)
+            right = -1 if cast else D.shape[1] - 1
+            kv = contact_select(D, m, c, SELECT_BUFFER, K)
+            kr = contact_select(D, m, c, SELECT_BUFFER, K, Ja, Jb, right)
+            pv, pr = contact_select_plain(D, m, c, SELECT_BUFFER, K, Ja, Jb,
+                                          right)
+            torch.cuda.synchronize()
+            rec = {"phase": "contact_select_size", "form": form,
+                   "dtype": str(dt).split(".")[-1], "lanes": lanes,
+                   "groups": D.shape[1], "S": S, "P": P, "K": K, "nc": nc,
+                   "route": select_route(P, S, K),
+                   "differ_K10v": same_bits(kv, pv),
+                   "differ_K10_values": same_bits(kr[0], pv),
+                   "differ_K10_rows": same_bits(kr[1], pr),
+                   "negative_zero_rows": int(torch.signbit(pr).logical_and(
+                       pr == 0).sum()),
+                   "active_rows": int((pv != -1).sum())}
+            rec["max_abs_err"] = float(max(
+                (kv - pv).abs().nan_to_num().max(),
+                (kr[1] - pr).abs().nan_to_num().max()))
+            rec["ok"] = rec["differ_K10v"] == rec["differ_K10_values"] \
+                == rec["differ_K10_rows"] == 0
+            recs.append(rec)
+    return recs
+
+
 def select_ties(D, m, K):
     """(B, G) groups whose K + 1 largest keys (a pair's largest m - D
     over segments) hold two adjacent keys within SELECT_TIE_ULPS ulps:
@@ -1881,9 +2022,10 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
     from trajopt_tpu_torch.problem.json_io import load_problem
     from trajopt_tpu_torch.solver.sqp import solve, solve_batch
     from trajopt_tpu_torch.solver.types import CONVERGED
-    from trajopt_tpu_torch.terms.collision import (DiscreteDistancePre,
-                                                   contact_select,
+    from trajopt_tpu_torch.terms.collision import (contact_select,
                                                    contact_select_plain,
+                                                   kernel_attributes,
+                                                   select_route,
                                                    trajectory_in_collision)
     from trajopt_tpu_torch.utils.lanes import tree_map
 
@@ -1897,36 +2039,12 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
         return same.reshape(a.shape[0], a.shape[1], -1).all(-1)
 
     # ---------------- phase 2g: K10 / K10v against the plain selection
-    spec_a, data_a = json_probs["table"][:2]
-    world_full = json_probs["table"][4]
-    ci = next(i for i, t in enumerate(spec_a.cost_terms)
-              if t.pre_fn is not None)
-    cpre = spec_a.cost_terms[ci].pre_fn  # n_sub 8, lane 0's pruned world
-    m64 = data_a.cost_params[ci]["margins"].double()
-    c64 = data_a.cost_params[ci]["coeffs"].double()
-    P = cpre.P
-    m64 = m64.reshape(lanes, -1).expand(lanes, P).contiguous()
-    c64 = c64.reshape(lanes, -1).expand(lanes, P).contiguous()
-    x64 = data_a.x0.double() + torch.as_tensor(np.random.default_rng(15).normal(
-        0.0, 0.05, tuple(data_a.x0.shape)), device=dev)
-    dpre = DiscreteDistancePre(world_full, spec_a.n_steps)
-    K, buf = 3, 0.5
+    K, buf = SELECT_K, SELECT_BUFFER
     sel_recs, inputs = [], {}
     for dt in (torch.float32, torch.float64):
         name = str(dt).split(".")[-1]
-        x = x64.to(dt)
-        m, c = m64.to(dt), c64.to(dt)
-        Dc, (Ja, Jb) = cpre.value_jac(x)          # K4
-        Dd, Js = dpre.value_jac(x)                # K7
-        forms = {"cast": (Dc.contiguous(), Ja.contiguous(), Jb.contiguous(),
-                          -1),
-                 "discrete": (Dd[:, :, None, :].contiguous(), Js.contiguous(),
-                              None, spec_a.n_steps - 1)}
-        for form, (D, A, Bj, right) in forms.items():
-            mm = m if form == "cast" else m64.new_full(
-                (lanes, D.shape[-1]), 0.025).to(dt)
-            cc = c if form == "cast" else c64.new_full(
-                (lanes, D.shape[-1]), 20.0).to(dt)
+        forms = select_inputs(json_probs["table"], lanes, dt)
+        for form, (D, mm, cc, A, Bj, right) in forms.items():
             kv = contact_select(D, mm, cc, buf, K)
             kr = contact_select(D, mm, cc, buf, K, A, Bj, right)
             pv, pr = contact_select_plain(D, mm, cc, buf, K, A, Bj, right)
@@ -1938,6 +2056,7 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
                 kr[0].reshape(B_, G_, -1), pv.reshape(B_, G_, -1))
             rec = {"phase": "contact_select", "form": form, "dtype": name,
                    "shape": list(D.shape), "K": K, "buffer": buf,
+                   "route": select_route(D.shape[3], D.shape[2], K),
                    "groups": B_ * G_, "near_tie_groups": int(ties.sum()),
                    "groups_apart_K10v": int((~ok_v).sum()),
                    "groups_apart_K10": int((~ok_r).sum()),
@@ -1956,6 +2075,13 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
             assert rec["ok"], rec
             if name == "float32":
                 inputs[form] = (D, mm, cc, A, Bj, right)
+    # every route and size class: seeded inputs with exact ties, NaN
+    # distances, signed-zero keys and inactive pairs, each output's bits
+    # equal to the plain selection's on the card
+    size_recs = select_sizes_check(dev)
+    for rec in size_recs:
+        emit(rec)
+        assert rec["ok"], rec
     # times (float32): the bare wrapper launch on the device clock, the
     # plain version's, torch.topk's for the selection alone (the keys
     # given), and the bound
@@ -1981,8 +2107,22 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
                 "bound_by": "bytes" if t_b >= t_o else "operations",
                 "work": {"bytes": nb, "operations": ops},
                 "shape": list(D.shape) + [A.shape[-1]]}
+    # the launch floor: one (lane, group) of the cast form
+    D, mm, cc, A, Bj, right = inputs["cast"]
+    one = (D[:1, :1].contiguous(), mm[:1].contiguous(), cc[:1].contiguous())
+    for kname, args in (("contact_select", (A[:1, :1].contiguous(),
+                                            Bj[:1, :1].contiguous(), -1)),
+                        ("contact_select_value", ())):
+        ms, enq = device_ms(lambda: contact_select(*one, buf, K, *args))
+        sel_timing[f"{kname}_one_group"] = {
+            "ms": ms, "queue": enq, "shape": list(one[0].shape)}
+    attrs = {k: v for k, v in kernel_attributes().items()
+             if k.startswith("contact_select")}
     emit({"phase": "contact_select_timing", "timing": sel_timing,
-          "card": smi})
+          "attributes": attrs, "card": smi})
+    # every instantiation keeps its lanes' pairs, errors and rows in
+    # registers and shared memory
+    assert all(v["local_bytes"] == 0 for v in attrs.values()), attrs
 
     # ---------------- phases 7a-7c: the documents through the SQP
     by_path = {}
@@ -2211,9 +2351,12 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
             "also_replaces": ["trajopt_tpu/terms/collision.py:70",
                               "trajopt_tpu/terms/collision.py:252"],
             "launches": ta[kname], "ok": True,
-            "max_abs_err": max(r["max_abs_err"] for r in sel_recs),
+            "max_abs_err": max(r["max_abs_err"] for r in sel_recs
+                               + size_recs),
             "max_abs_err_of": "values and rows against the plain selection, "
-            "float32 and float64, both forms (phase 2g)",
+            "float32 and float64, both forms, 7a's inputs and "
+            "SELECT_SIZES (phase 2g)",
+            "sizes_bitwise_equal": len(size_recs),
             "near_tie_groups": {f"{r['form']}_{r['dtype']}":
                                 r["near_tie_groups"] for r in sel_recs},
             "groups_apart": {f"{r['form']}_{r['dtype']}":

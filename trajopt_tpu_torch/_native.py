@@ -261,7 +261,8 @@ _HOST_SIGNATURES = {"cast_host": [sig for src in ("cast_seg", "cast_cvx",
                     # the team size in place of the stream
                     "contact_select_host": [
                         (f"contact_select_{s}", _CSEL[:-1] + [_I])
-                        for s in ("f32", "f64")]}
+                        for s in ("f32", "f64")]
+                    + [("contact_select_route", [_I] * 4)]}
 
 
 def _lib_path(name: str, suffix: str = ".cu", flags=None) -> Path:

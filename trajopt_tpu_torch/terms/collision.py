@@ -150,6 +150,20 @@ def contact_select_plain(D, margins, coeffs, buffer: float, K: int, Ja=None,
                             torch.cat([Ra, z], -1))
 
 
+# the register route's caps (csrc/contact_select.cuh NP_MAX, S_MAX, NR):
+# pairs and row slots per lane, segments
+SELECT_PAIRS_PER_LANE, SELECT_SEG_MAX, SELECT_ROW_SLOTS = 2, 8, 2
+
+
+def select_route(P: int, S: int, K: int, team: int = 32) -> str:
+    """The route K10 / K10v take at (P, S, K) for a team of ``team``
+    threads (the card's: 32), as ``contact_select.cuh reg_route``:
+    "registers" or "shared"."""
+    regs = P <= team * SELECT_PAIRS_PER_LANE and S <= SELECT_SEG_MAX \
+        and S * K <= team * SELECT_ROW_SLOTS
+    return "registers" if regs else "shared"
+
+
 def _select_call(fn, D, margins, coeffs, buffer, K, Ja, Jb, right_group,
                  last):
     """Check the selection's arguments, allocate its outputs and call
@@ -213,8 +227,10 @@ def contact_select(D, margins, coeffs, buffer: float, K: int, Ja=None,
 def contact_select_host(D, margins, coeffs, buffer: float, K: int, Ja=None,
                         Jb=None, right_group: int = -1, team: int = 32):
     """K10 / K10v built for the host (``csrc/contact_select_host.cpp``), on
-    CPU tensors: each group run by ``team`` threads in turn, the round's
-    arg-max by the warp's butterfly (``team`` a power of two up to 32)."""
+    CPU tensors: each group run by ``team`` threads in turn (``team`` a
+    power of two up to 32), on the route the card takes at that team size
+    (:func:`select_route`): the register route's warp reductions and
+    shuffles, or the shared-memory route's butterfly, over the team."""
     if D.is_cuda:
         raise ValueError("contact_select: the host build takes CPU tensors")
     fn = _select_fn(_native.host_library("contact_select_host"), D.dtype)
@@ -340,7 +356,9 @@ def kernel_attributes():
                                "cast_seg_cvx_ceil_f64"],
              "disc_dist": [f"{k}_{s}" for k in ("disc_dist", "disc_dist_value")
                            for s in ("f32", "f64")],
-             "contact_select": ["contact_select_f32", "contact_select_f64"]}
+             "contact_select": ["contact_select_f32", "contact_select_f64",
+                                "contact_select_np2_f32",
+                                "contact_select_np2_f64"]}
     for lib, names in kinds.items():
         src = lib.removesuffix("_ceil")
         query = getattr(_native.library(lib), f"{src}_attrs")
