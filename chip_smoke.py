@@ -12,8 +12,8 @@ Every line printed is one JSON object.  Phases, in order:
    local memory of every K4 (n_dof 7 and the ceiling 12), K4v, K5, K7 and
    K7v instantiation and of K6's (float32 and float64 at every b from 1 to
    21) (``cudaFuncGetAttributes``),
-   which the kernel summary repeats; the float32 K4 (n_dof 7) and K4v
-   without the CONVEX routes, and the float32 K6 at every b up to
+   which the kernel summary repeats; the float32 K4 (n_dof 7), K4v
+   without the CONVEX routes, K7 and K7v, and the float32 K6 at every b up to
    ``K6_F32_NO_LOCAL_MAX_B``, must use no local memory; then the registers and local memory of K10 / K10v (float32 and
    float64), of K6 at b 8 and (their ptxas lines) of K1-K3 at b 8;
 2. each kernel held against its plain PyTorch version on the same inputs
@@ -86,7 +86,14 @@ Every line printed is one JSON object.  Phases, in order:
    8b's shapes (128 x 29 gaps x 47 segments, n_sub 48: the translating
    box's SAT sweep), the box-box rows' Jacobians held off the SAT max's
    near ties (``geometry.box_box_ties`` / ``swept_box_box_ties``,
-   counted), then their times and bounds;
+   counted); K7 / K7v also on arm7 with 450 seeded table spheres (128 x 4
+   steps x 3178 pairs), a world whose tables and slot records outgrow a
+   block's shared memory (the plan's slots lowered; float64's tables read
+   from global memory, asserted); then their times and bounds: K7 / K7v's
+   the bare launch on
+   the device clock (``device_ms`` of ``disc_bare_launch``) beside the
+   wrapper's CUDA events (``wrapper_ms``) and, at arm7, one (lane, step),
+   the launch floor (``one_slot_ms``);
 3. the collision-free slice: ``make_glass_upright_free(batch=128, T=30,
    float32)`` through ``solve_batch_compact(bench_params(),
    phase_qp_solves=8)`` with every launch counter and the count of batched
@@ -226,6 +233,19 @@ Every line printed is one JSON object.  Phases, in order:
    path: equal statuses; equal QP counts except on lanes where a path's
    count flips under one ulp of x0 (counted); x within ``JSON_DX_TOL`` on
    the lanes with equal counts;
+7f. 7a's documents with both collision terms at evaluator_type 0, the
+   reference's per-step discrete evaluator (``json_docs("table_discrete")``:
+   dist_pen, coeffs and max_num_cnt 3 as 7a's), 128 x T=30, float32,
+   ``load_problem``'s defaults, ``solve_batch``: one cold run, three warm
+   runs, the counters reset before them; K6 once per batched QP solve at
+   b 7, K7 once per batched QP solve (the cost and the constraint share one
+   pipeline: 30 steps x 28 pairs), K7v, K10 and K10v (their discrete form,
+   K = 3) launched, no cast kernel, K1-K3 never, no lane non-finite;
+   converged and gated (CONVERGED, max violation < 1e-4) at or above
+   ``JSON_LIMITS``; the K5 swept distance at n_sub 16 reported, not gated
+   (a per-step term promises no swept-free path, in the reference either),
+   with the warm wall, the mean QP solves and K7 / K7v / K10 / K10v's
+   launches per batched QP solve;
 8a. boxbot's ``box_cast_test.json`` form (``box_docs("box_cast")``: T=3,
    one document per lane, starts and goals moved by U(-0.2, 0.2) per
    joint, ``port_box_problem``: ``load_problem`` with n_sub
@@ -918,7 +938,8 @@ def port_cartesian_problem(kind, inp, dtype, device):
     return spec, stack_data(datas), chain
 
 
-JSON_KINDS = ("table", "table_time", "timed_vel", "timed_vel_total")
+JSON_KINDS = ("table", "table_time", "timed_vel", "timed_vel_total",
+              "table_discrete")
 
 
 def json_docs(kind, lanes, n_steps=30, seed=0):
@@ -934,6 +955,9 @@ def json_docs(kind, lanes, n_steps=30, seed=0):
     - "table_time" (7b, ``arm_around_table_time.json``'s form): "table"
       with dt_lower_lim 0.05, dt_upper_lim 0.5, the goal's use_time
       "tRuE" and joint_vel's "false" (the 1/dt grid, n_cols 8);
+    - "table_discrete" (7f): "table" with both collision terms at
+      evaluator_type 0, the reference's per-step discrete evaluator
+      (dist_pen, coeffs and max_num_cnt as "table");
     - "timed_vel" (7c(i)): a timed joint_vel INEQ (|velocity| <= 1 rad/s:
       use_time true, upper_tols 1, lower_tols -1) and the goal, no
       collision; dt in [0.01, 1], init dt 0.05 (the straight path then
@@ -964,14 +988,15 @@ def json_docs(kind, lanes, n_steps=30, seed=0):
                              "first_step": T - 1, "last_step": T - 1}}
         init = {"type": "joint_interpolated", "data": start.tolist(),
                 "endpoint": goal.tolist()}
-        if kind in ("table", "table_time"):
+        if kind in ("table", "table_time", "table_discrete"):
+            ev = 0 if kind == "table_discrete" else 3
             vel = {"type": "joint_vel", "name": "jvel",
                    "params": {"coeffs": 1, "targets": 0}}
             costs = [vel, {"type": "collision", "name": "coll",
-                           "params": {"evaluator_type": 3, "dist_pen": 0.025,
+                           "params": {"evaluator_type": ev, "dist_pen": 0.025,
                                       "coeffs": 20, "max_num_cnt": 3}}]
             cnts = [goal_t, {"type": "collision", "name": "coll_cnt",
-                             "params": {"evaluator_type": 3, "dist_pen": 0.01,
+                             "params": {"evaluator_type": ev, "dist_pen": 0.01,
                                         "max_num_cnt": 3}}]
             if kind == "table_time":
                 basic.update(dt_lower_lim=0.05, dt_upper_lim=0.5)
@@ -1439,6 +1464,28 @@ def device_ms(fn, reps=50):
     return ev[1].elapsed_time(ev[2]) / reps, queue
 
 
+def disc_bare_launch(kind, world, x, n_steps, nc, first, span, block=None):
+    """A zero-argument bare launch of K7 ``disc_dist`` / K7v
+    ``disc_dist_value`` on x (a CUDA tensor; arguments as
+    ``terms.collision.disc_launch``, ``block`` (slots, threads, stage) as
+    ``_disc_plan`` takes it, None for the default), and its outputs (D, J;
+    J None for K7v): the wrapper's plan and outputs built once, each call
+    the wrapper's ``_disc_call`` into them, not counted."""
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.terms.collision import _disc_call, _disc_plan
+
+    plan = _disc_plan(_native.library("disc_dist"), kind, world, x, n_steps,
+                      nc, first, span, block)
+    D, J = _disc_call(plan, x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def launch():
+        _disc_call(plan, x, stream, out=(D, J))
+    return launch, D, J
+
+
 def pose_inputs(lanes, dev, T=30):
     """Phase 2f's K9 / K9v inputs, float64: the free flagship's chain and
     x (its x0 plus seeded noise, 128 x T), and per configuration the
@@ -1817,11 +1864,16 @@ def cartesian_phases(dev, smi, time_ms, reset_counts, qp_calls, lanes=128):
 
 # phase 7's limits: the JAX package's own float32 counts on the CPU less 5
 # (scripts/jax_reference_counts.py --names json_table json_table_time
-# json_timed_vel json_timed_vel_total: 128 converged and gated each)
+# json_timed_vel json_timed_vel_total json_table_discrete: 128 converged
+# and gated each)
 JSON_LIMITS = {"json_table": {"converged": 123, "gated": 123},
                "json_table_time": {"converged": 123, "gated": 123},
                "json_timed_vel": {"converged": 123, "gated": 123},
-               "json_timed_vel_total": {"converged": 123, "gated": 123}}
+               "json_timed_vel_total": {"converged": 123, "gated": 123},
+               # 7f (--names json_table_discrete: 128 converged and gated,
+               # mean QP solves 4.0, every lane swept-free, the least swept
+               # distance 0.0239)
+               "json_table_discrete": {"converged": 123, "gated": 123}}
 # a near tie of the selection: two adjacent keys among a group's K + 1
 # largest within this many ulps of the larger
 SELECT_TIE_ULPS = 4
@@ -2004,11 +2056,92 @@ def select_ties(D, m, K):
             <= SELECT_TIE_ULPS * ulp).any(-1)
 
 
+def discrete_json_phase(dev, smi, reset_counts, qp_calls, prob, lanes=128,
+                        warm=3):
+    """Phase 7f (module docstring): ``prob``, 7f's ``port_json_problem``
+    at ``lanes``, through ``solve_batch`` (one cold run, ``warm`` warm runs
+    with the counters reset before them).  Returns its record, whose
+    ``launches`` are the warm runs'."""
+    import numpy as np
+    import torch
+
+    from trajopt_tpu_torch import _native
+    from trajopt_tpu_torch.solver.sqp import solve_batch
+    from trajopt_tpu_torch.solver.types import CONVERGED
+    from trajopt_tpu_torch.terms.collision import (DiscreteDistancePre,
+                                                   trajectory_in_collision)
+
+    key = "json_table_discrete"
+    spec, data, params, chain, world = prob
+    t0 = time.perf_counter()
+    res = solve_batch(spec, data, params, device=dev)
+    torch.cuda.synchronize(dev)
+    cold = time.perf_counter() - t0
+    reset_counts()
+    walls = []
+    for _ in range(warm):
+        t0 = time.perf_counter()
+        res = solve_batch(spec, data, params, device=dev)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+    launches = dict(_native.LAUNCHES)
+    nqp = qp_calls[0]
+    st = res.status.cpu().numpy()
+    v = res.cnt_viols.max(dim=1).values.cpu().numpy()
+    conv = st == CONVERGED
+    gated = conv & (v < 1e-4)
+    X = res.x.reshape(lanes, spec.n_steps, spec.n_cols)
+    # the K5 swept distance at n_sub 16 on the full table world: reported,
+    # not gated (a per-step term promises no swept-free path, in the
+    # reference either)
+    g = trajectory_in_collision(
+        world, X[..., :chain.n_dof].contiguous()).cpu().numpy()
+    pre = next(t.pre_fn for t in spec.cost_terms + spec.cnt_terms
+               if isinstance(t.pre_fn, DiscreteDistancePre))
+    rec = {"phase": key, "batch": lanes, "n_steps": spec.n_steps,
+           "n_cols": spec.n_cols, "n_x": spec.n_x, "dtype": "float32",
+           "terms": [(t.name, t.kind.name, t.n_rows)
+                     for t in spec.cost_terms + spec.cnt_terms],
+           "collision_pairs": pre.P, "collision_nc": pre.nc,
+           "cold_wall_s": cold, "warm_walls_s": walls,
+           "warm_wall_s": float(np.mean(walls)), "runs": warm,
+           "converged": int(conv.sum()), "gated": int(gated.sum()),
+           "mean_qp_solves": float(res.n_qp_solves.double().mean()),
+           "max_qp_solves": int(res.n_qp_solves.max()),
+           "max_viol": float(v.max()),
+           "finite": bool(torch.isfinite(res.x).all()),
+           "status_counts": np.bincount(st, minlength=7).tolist(),
+           "min_swept_distance": float(g.min()),
+           "swept_free_lanes": int((g >= 0.0).sum()),
+           "batched_qp_solves": nqp, "launches": launches,
+           "launches_per_batched_qp_solve": {
+               k: n / nqp for k, n in launches.items() if n} if nqp else {},
+           "limits": JSON_LIMITS[key], "card": smi}
+    emit(rec)
+    assert rec["finite"], rec
+    # K6 once per batched QP solve at b 7; K7 once per convexify (the cost
+    # and the constraint share one pipeline); K7v, K10 and K10v launched;
+    # no cast kernel, K1-K3 never
+    assert nqp > 0 and launches["ipm_banded"] == nqp \
+        and launches["ipm_banded_b8"] == 0 \
+        and launches["disc_dist"] == nqp \
+        and launches["disc_dist_value"] > 0 \
+        and launches["contact_select"] > 0 \
+        and launches["contact_select_value"] > 0 \
+        and launches["cast_seg"] == launches["cast_seg_value"] == 0 \
+        and all(launches[k] == 0 for k in QP_KERNELS), rec
+    assert pre.nc == spec.n_cols == 7 and pre.span == spec.n_steps, rec
+    assert rec["converged"] >= JSON_LIMITS[key]["converged"] \
+        and rec["gated"] >= JSON_LIMITS[key]["gated"], rec
+    return rec
+
+
 def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
                 lanes=128):
-    """Phases 2g and 7a-7e (module docstring); ``json_probs``: each phase-7
-    kind's ``port_json_problem`` at ``lanes``.  Returns (summary entries of
-    K10 and K10v, launches by path of every kernel on 7a-7c)."""
+    """Phases 2g, 7a-7e and 7f (module docstring); ``json_probs``: each
+    phase-7 kind's ``port_json_problem`` at ``lanes``.  Returns (summary
+    entries of K10 and K10v, launches by path of every kernel on 7a-7c and
+    7f)."""
     import json as _json
     import os
     import tempfile
@@ -2335,6 +2468,11 @@ def json_phases(dev, smi, time_ms, reset_counts, qp_calls, json_probs,
             and rec["max_abs_dx_equal_counts"] <= JSON_DX_TOL
         emit(rec)
         assert rec["ok"], rec
+
+    # ---------------- phase 7f: 7a's documents with discrete collision
+    rec7f = discrete_json_phase(dev, smi, reset_counts, qp_calls,
+                                json_probs["table_discrete"], lanes)
+    by_path["json_table_discrete"] = rec7f["launches"]
 
     # the summary's entries
     ta = by_path["json_table"]
@@ -2730,14 +2868,19 @@ def main():
                                               make_simple_collision,
                                               run_benchmarks,
                                               solve_pick_and_place)
+    from trajopt_tpu_torch import models
     from trajopt_tpu_torch.collision import geometry as geom
+    from trajopt_tpu_torch.collision.world import build_collision_world
+    from trajopt_tpu_torch.kinematics.urdf import UrdfGeom
     from trajopt_tpu_torch.ops import banded_rows as br
     from trajopt_tpu_torch.ops import btridiag as bt
     from trajopt_tpu_torch.ops import ipm_qp
     from trajopt_tpu_torch.solver import sqp as sqp_mod
     from trajopt_tpu_torch.solver.sqp import solve_batch, solve_batch_compact
     from trajopt_tpu_torch.solver.types import CONVERGED
-    from trajopt_tpu_torch.terms.collision import (CastDistancePre,
+    from trajopt_tpu_torch.terms.collision import _disc_plan as disc_plan
+    from trajopt_tpu_torch.terms.collision import (DISC_BLOCKS,
+                                                   CastDistancePre,
                                                    DiscreteDistancePre,
                                                    cast_sweep_distances,
                                                    convex_route,
@@ -2792,9 +2935,13 @@ def main():
           "card": smi})
     # the float32 K4 (n_dof 7) and K4v without the CONVEX routes keep every
     # value in registers and shared memory (the launch bounds in
-    # cast_kernel.cuh)
+    # cast_kernel.cuh), and so do the float32 K7 and K7v, their tables
+    # staged or not
     assert all(cast_attrs[k]["local_bytes"] == 0
-               for k in ("cast_seg_f32", "cast_seg_value_f32")), cast_attrs
+               for k in ("cast_seg_f32", "cast_seg_value_f32",
+                         "disc_dist_f32", "disc_dist_value_f32",
+                         "disc_dist_global_f32",
+                         "disc_dist_value_global_f32")), cast_attrs
 
     def sync():
         torch.cuda.synchronize()
@@ -3748,6 +3895,15 @@ def main():
                                                     device=dev)
     x_sb64 = (data_sb.x0 + torch.as_tensor(np.random.default_rng(8).normal(
         0.0, 0.1, tuple(data_sb.x0.shape)), device=dev)).contiguous()
+    # a world larger than a block's shared memory holds beside its slots:
+    # arm7 with 450 seeded spheres of 3 cm on its table (3178 pairs), where
+    # K7's plan lowers the slots and float64 leaves the tables in global
+    # memory (the positions of test_torch_disc_slots.py's)
+    sp_rng = np.random.default_rng(450)
+    world_sp = build_collision_world(*models.arm7(), attachments=[
+        ("table", UrdfGeom("sphere", np.array([0.03]), sp_rng.uniform(
+            [-0.6, -0.6, 0.1], [0.6, 0.6, 1.0]), np.zeros(3)))
+        for _ in range(450)])
     disc_err = {"disc_dist": [], "disc_dist_value": []}
     disc_time = {}
     for dtype in (torch.float32, torch.float64):
@@ -3760,8 +3916,15 @@ def main():
         for label, world, x, TT in (
                 ("spherebot", world_sb, x_sb64.to(dtype).contiguous(), 1),
                 ("arm7", world_arm, x_arm, 30),
-                ("boxbot", box_probs["box_cast_t30"][4], x_box, 30)):
+                ("boxbot", box_probs["box_cast_t30"][4], x_box, 30),
+                ("spheres450", world_sp, x_arm.reshape(lanes, 30, 7)[:, :4]
+                 .reshape(lanes, 28).contiguous(), 4)):
             nd, P = world.chain.n_dof, world.n_pairs
+            blocks = {name: disc_plan(_native.library("disc_dist"), name,
+                                      world, x, TT, nd, 0, TT)
+                      for name in ("disc_dist", "disc_dist_value")}
+            if label == "spheres450" and dtype == torch.float64:
+                assert not any(b.stage for b in blocks.values()), blocks
             X = x.reshape(lanes, TT, nd)
             pre = DiscreteDistancePre(world, TT)
             Dk, Jk = pre.value_jac(x)
@@ -3790,7 +3953,9 @@ def main():
                 rec = value_rows(f"{name}_{label}", dname,
                                  (Dout - Dp).abs() / dscale, step_x,
                                  disc_values, dscale, tol_d)
-                disc_err[name].append(dict(rec, dtype=dname, world=label))
+                disc_err[name].append(dict(
+                    rec, dtype=dname, world=label, slots=blocks[name].slots,
+                    tables_staged=bool(blocks[name].stage)))
             jac_scale[0] = float(Jp.abs().max())
             rowj = (Jk - Jp).abs().amax(-1) / jac_scale[0]
             # capsule-box rows: d_capsule_box's 12 projections, as phase 2's
@@ -3806,6 +3971,10 @@ def main():
                 {k: v for k, v in rec.items() if k.startswith("J_")},
                 tie_rows_excluded=rec["tie_rows_excluded"])
             if dtype == torch.float32:
+                # ms: the bare launch on the device clock (device_ms);
+                # wrapper_ms: the entry point's CUDA events over 50 calls
+                # one after another (its host time where that is longer);
+                # at arm7 also one (lane, step), the launch floor
                 w = disc_work(world, lanes, TT, es, nd)
                 for name, fn, plain, wk in (
                         ("disc_dist", lambda: pre.value_jac(x),
@@ -3813,17 +3982,26 @@ def main():
                         ("disc_dist_value", lambda: pre.value(x),
                          lambda: pre.value(x, kernels=False), w["value"])):
                     disc_time[name, label] = dict(
-                        ms=time_ms(fn), plain_ms=time_ms(plain, reps=3),
+                        ms=device_ms(disc_bare_launch(
+                            name, world, x, TT, nd, 0, TT)[0])[0],
+                        wrapper_ms=time_ms(fn),
+                        plain_ms=time_ms(plain, reps=3),
                         library_ms=None, **bound(wk),
                         shape=f"x ({lanes}, {TT * nd}) -> D ({lanes}, {TT}, "
                         f"{P})" + (f", J ({lanes}, {TT}, {P}, {nd})"
                                    if name == "disc_dist" else ""))
+                    if label == "arm7":
+                        disc_time[name, label]["one_slot_ms"] = device_ms(
+                            disc_bare_launch(name, world,
+                                             x[:1, :nd].contiguous(), 1, nd,
+                                             0, 1)[0])[0]
                     emit({"time": f"{name}_{label}",
                           **disc_time[name, label], "card": smi})
     for name in ("disc_dist", "disc_dist_value"):
-        # the main path's shape: simple_collision's spherebot
-        timing[name] = dict(disc_time[name, "spherebot"],
-                            arm7_table_world=disc_time[name, "arm7"])
+        # the main path's shape: arm7's table world at 128 x 30 (7f's);
+        # simple_collision's spherebot beside it
+        timing[name] = dict(disc_time[name, "arm7"],
+                            spherebot=disc_time[name, "spherebot"])
 
     # K4 / K4v at n_sub 8 (planning) and K4 at n_dof 9 (the rail)
     def cast_check(label, world, X, n_sub, dname, kinds):
@@ -4597,9 +4775,9 @@ def main():
     launches.update(ipm_dense=cart_paths["cartesian_waypoints"]["ipm_dense"],
                     convex_feature=launches_p["convex_feature"],
                     convex_fw=launches_p["convex_fw"],
-                    # K7 / K7v: simple_collision's run_benchmarks entry
-                    disc_dist=bench_launches["simple_collision"]["disc_dist"],
-                    disc_dist_value=bench_launches["simple_collision"][
+                    # K7 / K7v: phase 7f's three warm runs
+                    disc_dist=json_paths["json_table_discrete"]["disc_dist"],
+                    disc_dist_value=json_paths["json_table_discrete"][
                         "disc_dist_value"])
     # errors: K1-K3 the largest relative error of every check and the
     # absolute one at the main path's shape; K4, K4v, K5 the values' error
@@ -4699,7 +4877,8 @@ def main():
     for k in ("convex_feature", "convex_fw"):
         errs[k]["sources"] = cast_sources
     # K7 / K7v: the values' error on every row and K7's Jacobian's, worst
-    # over float32 and float64, both worlds; the arm7 table world's time
+    # over float32 and float64, every world; the times at arm7's table
+    # world (7f's shape), the spherebot's with simple_collision's launches
     for k, v in disc_err.items():
         errs[k] = {"max_abs_err": max(e["D_abs_err_all_rows"] for e in v),
                    "max_abs_err_of": "D, all rows",
@@ -4707,15 +4886,32 @@ def main():
                                                  for e in v),
                    "D_rows_over_tol": max(e["D_rows_over_tol"] for e in v),
                    "worlds": ["spherebot (128 x 1 step)",
-                              "arm7 table (128 x 30 steps x 28 pairs)"],
-                   "arm7_table_world": timing[k]["arm7_table_world"],
-                   "launches_are": "simple_collision's run_benchmarks "
-                   "entry (one cold and three warm runs)",
+                              "arm7 table (128 x 30 steps x 28 pairs)",
+                              "boxbot (128 x 30 steps, 1 pair)",
+                              "arm7 + 450 table spheres (128 x 4 steps x "
+                              "3178 pairs; float64's tables in global "
+                              "memory)"],
+                   "ms_is": "the bare launch on the device clock "
+                   "(device_ms); wrapper_ms the entry point's CUDA events",
+                   "wrapper_ms": timing[k]["wrapper_ms"],
+                   "one_slot_ms": timing[k]["one_slot_ms"],
+                   "shape": timing[k]["shape"],
+                   "spherebot": dict(
+                       timing[k]["spherebot"],
+                       launches=bench_launches["simple_collision"][k],
+                       launches_are="simple_collision's run_benchmarks "
+                       "entry (one cold and three warm runs)"),
+                   "launches_are": "phase 7f's three warm runs (the "
+                   "spherebot's simple_collision beside them)",
+                   "blocks": {f"{kk}_{str(d)[6:]}": list(b) for (kk, d), b
+                              in DISC_BLOCKS.items() if kk == k},
                    "library_ms_null_because": "no one PyTorch call computes "
                    "FK and the pair distances",
                    "sources": [f"trajopt_tpu_torch/csrc/{f}" for f in (
-                       "disc_dist.cu", "cast_block.cuh", "collision.cuh")],
-                   "attributes": {f"{k}_{d}": cast_attrs[f"{k}_{d}"]
+                       "disc_dist.cu", "disc_block.cuh", "cast_block.cuh",
+                       "collision.cuh")],
+                   "attributes": {f"{k}{g}_{d}": cast_attrs[f"{k}{g}_{d}"]
+                                  for g in ("", "_global")
                                   for d in ("f32", "f64")}}
         if k == "disc_dist":
             errs[k].update({f: max(e[f] for e in v) for f in (

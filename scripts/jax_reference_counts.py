@@ -9,13 +9,15 @@ chip_smoke phase on the same entries are these counts less 5.
     JAX_PLATFORMS=cpu python3 scripts/jax_reference_counts.py \\
         [--batch 128] [--names planning redundant_rail] [--out FILE]
 
-``--names json_table json_table_time json_timed_vel json_timed_vel_total``
-counts chip_smoke's phases 7a, 7b and 7c(i) / (ii): 128 lanes x T=30 of
+``--names json_table json_table_time json_timed_vel json_timed_vel_total
+json_table_discrete`` counts chip_smoke's phases 7a, 7b, 7c(i) / (ii) and
+7f: 128 lanes x T=30 of
 ``chip_smoke.json_docs`` (one reference-format document per lane), each
 loaded by the JAX package's ``load_problem`` with its defaults, stacked,
 and solved with the documents' own ``SQPParams`` in float32: converged,
 gated (CONVERGED, max violation < 1e-4, for the table scenes the n_sub=16
-swept check >= 0 on the full table world) and the mean QP solves.
+swept check >= 0 on the full table world; 7f's discrete terms report the
+swept check's lanes beside the gate, not in it) and the mean QP solves.
 
 ``--names box_cast box_cast_t30`` counts chip_smoke's phases 8a and 8b:
 128 lanes of ``chip_smoke.box_docs`` on boxbot (T=3 and T=30), each loaded
@@ -53,7 +55,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 CARTESIAN = ("cartesian_waypoints", "ik_goal", "solve_ik")
 JSON = ("json_table", "json_table_time", "json_timed_vel",
-        "json_timed_vel_total")
+        "json_timed_vel_total", "json_table_discrete")
 BOX = ("box_cast", "box_cast_t30")
 SPHERE_DOCS = "spherebot_docs"
 
@@ -124,8 +126,10 @@ def one_json(name, batch):
         swept = np.asarray(jax.jit(jax.vmap(
             lambda q: trajectory_in_collision(world, q)))(
                 X[:, :, :chain.n_dof]))
-        gated = gated & (swept >= 0.0)
         rec["min_swept_distance"] = float(swept.min())
+        rec["swept_free_lanes"] = int((swept >= 0.0).sum())
+        if kind != "table_discrete":  # a per-step term promises no sweep
+            gated = gated & (swept >= 0.0)
     rec["gated"] = int(gated.sum())
     rec["status_counts"] = {int(k): int(v) for k, v in
                             zip(*np.unique(status, return_counts=True))}

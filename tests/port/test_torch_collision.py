@@ -440,7 +440,7 @@ def test_discrete_distance_pre_and_terms(scene):
 @pytest.mark.parametrize("scene", ["arm7", "spherebot"])
 def test_disc_kernels_host_build(scene, dtype):
     """K7 and K7v built for the host (their block body, one thread or the
-    card's 64) against the plain versions; the inv-dt column K7 writes
+    card's layout) against the plain versions; the inv-dt column K7 writes
     past n_dof is zero; one thread and the card's block bitwise equal."""
     _host_compiler()
     _, tw, TT, xn = _disc_scene(scene)

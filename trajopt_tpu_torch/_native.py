@@ -44,7 +44,8 @@ _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_long, ctypes.c_double
 _CAST = [_P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
          _I, _I, _P, _P]
 _ROUTE = [_P, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P, _P, _I, _I, _P]
-_DISC = [_P, _P, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+_DISC = [_P, _P, _I, _I, _P, _L, _I, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+         _I, _P]
 _POSE = [_P, _P, _P, _L, _I, _I, _I, _I, _I] + [_P] * 9 + [_L, _I, _I, _P]
 _IK = [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _D, _D, _I, _I, _P, _P, _P,
        _P, _I, _P]
@@ -68,7 +69,8 @@ _SIGNATURES = {
     + [("cast_cvx_attrs", [_I, _P])],
     # K7 / K7v: the discrete terms' distances per (lane, step)
     "disc_dist": [(f"{k}_{s}", _DISC) for k in ("disc_dist", "disc_dist_value")
-                  for s in ("f32", "f64")] + [("disc_dist_attrs", [_I, _P])],
+                  for s in ("f32", "f64")]
+    + [("disc_dist_layout", [_I] * 7 + [_P]), ("disc_dist_attrs", [_I, _P])],
     # K9 / K9v: a cart_pose term's error rows (and Jacobian) per lane
     "cart_pose": [(f"cart_pose_{s}", _POSE) for s in ("f32", "f64")]
     + [("cart_pose_attrs", [_I, _P])],
@@ -371,7 +373,9 @@ def check(name: str, code: int) -> None:
                          "in its library's range; the cast kernels' blocks "
                          "of 64 or 128 threads in teams of 4-32 on the card, "
                          "a team of 1 or a divisor of the threads up to 32 "
-                         "on the host; disc_dist's of 32-128 threads; solve_ik "
+                         "on the host; disc_dist's of 32-256 threads, its "
+                         "slots (and staged tables) within 227 KB of shared "
+                         "memory; solve_ik "
                          f"n_dof 1 to {CAST_ND_MAX} and n_e 3 or 6; the "
                          "pose kernels' staged chain paths within the "
                          "shared memory; contact_select 1 <= K <= P with its "

@@ -554,7 +554,7 @@ class CollisionWorld:
         return [len(x) for x in lists] + [k for x in lists for k in x]
 
     def _disc_list(self):
-        """K7's work list (``csrc/cast_block.cuh`` disc_step): two counts,
+        """K7's work list (``csrc/disc_block.cuh``): two counts,
         then every pair of [closed form | CONVEX side], the closed forms
         grouped by kind pair."""
         kinds = [(self.geoms[i].kind, self.geoms[j].kind) for i, j in self.pairs]

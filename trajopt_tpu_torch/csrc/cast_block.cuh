@@ -431,9 +431,9 @@ HD void team_route(const int* I, const T* F, const Slot<T>& sa,
 
 // ------------------------------------------------------------ the phases
 
-// Phase B, one closed-form (slot, pair, column) thread: the discrete
-// distance of pair pr at slot sl to *dv (written by column 0) and, with
-// JAC, its tangent column d to *dt
+// Phase B (and K7's phase C, disc_block.cuh), one closed-form (slot, pair,
+// column) thread: the discrete distance of pair pr at slot sl to *dv
+// (written by column 0) and, with JAC, its tangent column d to *dt
 template <typename T, bool JAC>
 HD void discrete_col(const int* I, const T* F, const Slot<T>& sl,
                      const int* pr, int d, T* dv, T* dt) {
@@ -701,56 +701,6 @@ HD void cast_gap(const int* I, const T* F, const T* x, long x_stride, int nc,
   if (clk != nullptr) {
     CB_SYNC();
     CB_MARK(clk, 3);
-  }
-}
-
-// K7 disc_dist (JAC) and K7v disc_dist_value: one (lane, step) of the
-// discrete terms' distances.  Phase A: one thread runs the chain at the
-// step's q, then a thread per dof and geometry the joint frames and world
-// records (one slot); phase B: a thread per (pair, tangent column) over
-// the world's discrete work list, K4's closed forms at one slot (a
-// Dual<T, 1> seeded with one dof's point Jacobian, each column's thread
-// recomputing the value; column 0 writes it).  x (lanes, x_stride) holds
-// steps of nc columns, the steps are [first, first + span); D (lanes,
-// span, P); J (lanes, span, P, nc), zero past n_dof.  The work list holds
-// the closed-form pairs (a CONVEX side has no route here).
-template <typename T, bool JAC>
-HD void disc_step(const int* I, const T* F, const T* x, long x_stride, int nc,
-                  int first, int span, T* D, T* J, int lane, int step,
-                  unsigned char* smem, int nthr) {
-  const int nd = I[1], NG = I[2], P = I[3];
-  const T* q = x + lane * x_stride + (first + step) * nc;
-  const long g = (long)lane * span + step;
-  D += g * P;
-  if (JAC) J += g * P * nc;
-  T* slot = reinterpret_cast<T*>(smem);
-  const int* W = I + I[15];
-  const int nDc = W[0];
-  const int* Ld = W + 2;
-  CB_THREAD(t) {
-    if (t == 0) slot_chain<T>(I, F, q, q, nullptr, 0, 0, slot);
-  }
-  CB_SYNC();
-  CB_THREAD(t) {
-    for (int it = t; it < nd + NG; it += nthr) {
-      if (it < nd)
-        slot_frame(I, F, slot, it);
-      else
-        slot_geom(I, F, slot, it - nd);
-    }
-  }
-  CB_SYNC();
-  const int ncol = JAC ? nc : 1;
-  CB_THREAD(t) {
-    for (int it = t; it < nDc * ncol; it += nthr) {
-      const int c = it % ncol, p = Ld[it / ncol];
-      if (c >= nd) {  // the columns past n_dof (an inv-dt column)
-        J[p * nc + c] = T(0);
-        continue;
-      }
-      discrete_col<T, JAC>(I, F, Slot<T>{I, slot}, pair_rec(I, p), c, D + p,
-                           JAC ? J + p * nc + c : nullptr);
-    }
   }
 }
 

@@ -1,11 +1,11 @@
-// Host build of the cast kernels and of K7 / K7v (cast_block.cuh over
-// collision.cuh), for checking them on a CPU against the plain PyTorch
+// Host build of the cast kernels and of K7 / K7v (cast_block.cuh and
+// disc_block.cuh over collision.cuh), for checking them on a CPU against the plain PyTorch
 // version.
 //
 // The same entry points as cast_seg.cu / cast_cvx.cu / disc_dist.cu (same
 // arguments, same output layouts), and the same block body: each (lane,
-// gap) runs cast_gap (each (lane, step) disc_step) with the block played
-// by one thread, stage by stage.  `threads`
+// gap) runs cast_gap (each block of (lane, step) slots disc_block) with
+// the block played by one thread, stage by stage.  `threads`
 // and `team` set the layout: team 1 is one thread that is the whole block
 // and its only team; a team of t > 1 (t dividing threads, at most
 // CAST_TEAM) runs `threads` threads in teams of t, each thread's share in
@@ -16,7 +16,7 @@
 
 #include <vector>
 
-#include "cast_block.cuh"
+#include "disc_block.cuh"
 
 using namespace coll;
 
@@ -113,19 +113,26 @@ HOST_ENTRY(cast_sweep_cvx_f64, double, 1, MODE_SWEEP, true, false)
 ROUTE_ENTRY(convex_route_f32, float)
 ROUTE_ENTRY(convex_route_f64, double)
 
-// K7 disc_dist / K7v disc_dist_value of disc_dist.cu: each (lane, step)
-// runs disc_step with one thread playing the block's `threads` threads
+// K7 disc_dist / K7v disc_dist_value of disc_dist.cu: each block of
+// `slots` (lane, step) slots runs disc_block with one thread playing the
+// block's `threads` threads in turn (any slots >= 1, threads 1 to
+// DISC_MAX_THREADS, within the card's shared memory)
 #define DISC_ENTRY(NAME, T, JAC)                                              \
-  extern "C" int NAME(const int* I, const T* F, const T* x, long x_stride,   \
-                      int nc, int first, int span, T* D, T* J, int lanes,    \
-                      int L, int nd, int NG, int P, int threads, void*) {    \
-    (void)P;                                                                  \
-    if (threads < 1 || threads > CAST_THREADS) return -1;                     \
-    std::vector<unsigned char> smem(sizeof(T) * slot_size_of(L, nd, NG));     \
-    for (int lane = 0; lane < lanes; ++lane)                                  \
-      for (int s = 0; s < span; ++s)                                          \
-        disc_step<T, JAC>(I, F, x, x_stride, nc, first, span, D, J, lane, s, \
-                          smem.data(), threads);                              \
+  extern "C" int NAME(const int* I, const T* F, int n_ints, int n_reals,     \
+                      const T* x, long x_stride, int nc, int first, int span,\
+                      T* D, T* J, int lanes, int L, int nd, int NG,          \
+                      int slots, int stage, int threads, void*) {             \
+    if (threads < 1 || threads > DISC_MAX_THREADS || slots < 1) return -1;   \
+    const long smem =                                                         \
+        disc_smem_bytes<T>(n_ints, n_reals, slots, stage, L, nd, NG);         \
+    if (smem > DISC_MAX_SMEM) return -1;                                      \
+    std::vector<double> buf((smem + 7) / 8);                                  \
+    const long n_slots = (long)lanes * span;                                  \
+    auto body = stage ? disc_block<T, JAC, true> : disc_block<T, JAC, false>; \
+    for (long b = 0; b * slots < n_slots; ++b)                                \
+      body(I, F, n_ints, n_reals, x, x_stride, nc, first, span, n_slots, D, \
+           J, b, slots, reinterpret_cast<unsigned char*>(buf.data()),         \
+           threads);                                                          \
     return 0;                                                                 \
   }
 
@@ -133,3 +140,9 @@ DISC_ENTRY(disc_dist_f32, float, true)
 DISC_ENTRY(disc_dist_f64, double, true)
 DISC_ENTRY(disc_dist_value_f32, float, false)
 DISC_ENTRY(disc_dist_value_f64, double, false)
+
+// disc_dist.cu's: the block of at most `slots` slots that fits the card
+extern "C" int disc_dist_layout(int esz, int n_ints, int n_reals, int L,
+                                int nd, int NG, int slots, int* out) {
+  return (int)disc_layout_of(esz, n_ints, n_reals, L, nd, NG, slots, out);
+}

@@ -43,7 +43,7 @@ params: {"margins": (B,) or (B, n_pairs), "coeffs": likewise}.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -59,8 +59,20 @@ from .base import Term, hinge_cost, ineq_constraint
 # in an instantiation of its own, every other n_dof from 1 up to the
 # ceiling in one more, with and without the CONVEX routes
 JAC_NDOF = tuple(range(1, _native.CAST_ND_MAX + 1))
-# K7's block (csrc/disc_dist.cu): threads per (lane, step)
-DISC_THREADS = 64
+# K7's blocks (csrc/disc_dist.cu): (lane, step) slots and threads per CTA,
+# per instantiation (the slots lowered where a world's records do not fit
+# the shared memory: _disc_plan), chosen by measurement at the spherebot's, arm7's and
+# boxbot's shapes (scripts/disc_ab.py --sweep; PERF.md section 6)
+DISC_BLOCKS = {("disc_dist", torch.float32): (10, 256),
+               ("disc_dist", torch.float64): (16, 256),
+               ("disc_dist_value", torch.float32): (8, 256),
+               ("disc_dist_value", torch.float64): (8, 128)}
+# the (pair, slot, column) items a K7 CTA takes at most by default: a
+# world whose slots carry more takes fewer slots a CTA (down to one), so
+# that its grid still fills the card (PERF.md section 6: arm7 with 450
+# table spheres, 22,246 items a slot: 0.88 ms at 8 slots a CTA, 0.22 ms
+# at one, on an H100)
+DISC_CTA_ITEMS = 4096
 # the cast kernels' blocks (csrc/cast_block.cuh): a CTA of 64 or 128
 # threads per (lane, gap), in teams of 4, 8, 16 or 32 lanes of a warp that
 # share one feature enumeration.  On the card each kernel runs at the
@@ -342,7 +354,9 @@ def kernel_attributes():
     """{instantiation: {"num_regs", "local_bytes", "max_threads",
     "static_smem_bytes"}} of every K4, K4v, K5, K7 and K10 instantiation on
     the card (``cudaFuncGetAttributes``, through each library's query);
-    ``cast_seg_ceil_*`` is K4 at the n_dof ceiling (every n_dof but 7)."""
+    ``cast_seg_ceil_*`` is K4 at the n_dof ceiling (every n_dof but 7),
+    ``disc_dist*_global_*`` K7 / K7v reading a large world's tables from
+    global memory."""
     out = {}
     kinds = {"cast_seg": [f"{k}_{s}" for k in ("cast_seg", "cast_seg_value",
                                                 "cast_sweep")
@@ -354,7 +368,8 @@ def kernel_attributes():
                           for s in ("f32", "f64")],
              "cast_cvx_ceil": ["cast_seg_cvx_ceil_f32",
                                "cast_seg_cvx_ceil_f64"],
-             "disc_dist": [f"{k}_{s}" for k in ("disc_dist", "disc_dist_value")
+             "disc_dist": [f"{k}{g}_{s}" for g in ("", "_global")
+                           for k in ("disc_dist", "disc_dist_value")
                            for s in ("f32", "f64")],
              "contact_select": ["contact_select_f32", "contact_select_f64",
                                 "contact_select_np2_f32",
@@ -434,59 +449,132 @@ def convex_route_host(world: CollisionWorld, V1, r1, V2, r2, fw: bool,
 # --------------------------------------------------------------------------
 
 
-def _disc_call(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
-               n_steps: int, nc: int, first: int, span: int, stream=None,
-               threads: int = DISC_THREADS):
-    """Call entry point ``kind`` (``disc_dist`` or ``disc_dist_value``) of
-    a library on ``x`` (B, n_steps * nc); the steps are [first, first +
-    span).  Returns D (B, span, P) and, for ``disc_dist``, J (B, span, P,
-    nc)."""
+class DiscPlan(NamedTuple):
+    """What a call of K7 / K7v takes that does not depend on x's values or
+    lanes (:func:`_disc_plan`)."""
+    kind: str           # "disc_dist" or "disc_dist_value"
+    fn: object          # the library's entry point
+    tables: tuple       # the world's ints, reals: pointers, lengths
+    n_steps: int        # x holds n_steps steps of nc columns
+    nc: int
+    first: int          # the steps [first, first + span)
+    span: int
+    sizes: tuple        # links, dofs, geometries
+    slots: int          # (lane, step) slots a CTA, within the shared memory
+    stage: int          # 1: the tables staged into shared memory
+    threads: int
+    n_pairs: int
+    box_pairs: bool     # a pair is box-box (cast_boxbox's count)
+
+
+def _disc_plan(lib, kind: str, world: CollisionWorld, x: torch.Tensor,
+               n_steps: int, nc: int, first: int, span: int,
+               block: Optional[tuple] = None) -> DiscPlan:
+    """The plan of a call of entry point ``kind`` (``disc_dist`` or
+    ``disc_dist_value``) of a library on the steps [first, first + span)
+    of n_steps steps of nc columns, cached on the world per (library,
+    kind, dtype, device, steps, block).  ``block`` (slots, threads,
+    stage), each None for the default: ``DISC_BLOCKS``'s threads and its
+    slots, fewer where they would carry more than ``DISC_CTA_ITEMS``
+    items, then lowered to what fits the card's shared memory and the
+    tables staged or not as the launcher's ``disc_dist_layout`` finds.
+    Raises, and caches nothing, on a dtype, a step range or a world the
+    kernel does not take (CONVEX geometry, or one (lane, step)'s record
+    larger than a block's shared memory)."""
+    key = ("disc_plan", id(lib), kind, x.dtype, x.device, n_steps, nc, first,
+           span, block)
+    plan = world._cache.get(key)
+    if plan is not None:
+        return plan
     if x.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{kind}: dtype {x.dtype} is not float32/float64")
-    if x.dim() != 2 or x.shape[1] != n_steps * nc or not x.is_contiguous():
-        raise ValueError(f"{kind}: x must be contiguous (B, {n_steps * nc})")
     if span < 1 or first < 0 or first + span > n_steps:
         raise ValueError(f"{kind}: bad step range")
     if world.n_convex_verts:
         raise NotImplementedError(
             f"{kind}: a world with CONVEX geometry has no K7 instantiation "
             "yet")
-    lanes, P = x.shape[0], world.n_pairs
+    S, nt, stage = (None, None, None) if block is None else block
+    if S is None:
+        items = world.n_pairs * (nc if kind == "disc_dist" else 1)
+        S = min(DISC_BLOCKS[kind, x.dtype][0],
+                max(1, DISC_CTA_ITEMS // max(1, items)))
     ints, reals = world.kernel_tables(x.dtype, x.device)
-    D = torch.empty((lanes, span, P), dtype=x.dtype, device=x.device)
-    J = torch.empty((lanes, span, P, nc), dtype=x.dtype, device=x.device) \
-        if kind == "disc_dist" else None
+    sizes = (world.chain.n_links, world.chain.n_dof, len(world.geoms))
+    fit = (ctypes.c_int * 2)()
+    if lib.disc_dist_layout(x.element_size(), ints.numel(), reals.numel(),
+                            *sizes, S, fit) < 0:
+        raise ValueError(f"{kind}: one (lane, step)'s record of this world "
+                         "does not fit a block's shared memory")
     sfx = "f32" if x.dtype == torch.float32 else "f64"
-    code = getattr(lib, f"{kind}_{sfx}")(
-        ints.data_ptr(), reals.data_ptr(), x.data_ptr(), x.stride(0), nc,
-        first, span, D.data_ptr(), 0 if J is None else J.data_ptr(), lanes,
-        world.chain.n_links, world.chain.n_dof, len(world.geoms), P,
-        threads, stream)
-    _native.check(kind, code)
+    plan = world._cache[key] = DiscPlan(
+        kind, getattr(lib, f"{kind}_{sfx}"),
+        (ints.data_ptr(), reals.data_ptr(), ints.numel(), reals.numel()),
+        n_steps, nc, first, span, sizes, fit[0],
+        fit[1] if stage is None else int(stage),
+        nt or DISC_BLOCKS[kind, x.dtype][1], world.n_pairs,
+        world.n_box_pairs > 0)
+    return plan
+
+
+def _disc_call(plan: DiscPlan, x: torch.Tensor, stream=None, out=None):
+    """Run a plan of :func:`_disc_plan` on ``x`` (B, n_steps * nc), into
+    ``out`` (D, J) where given.  Returns D (B, span, P) and, for
+    ``disc_dist``, J (B, span, P, nc)."""
+    width = plan.n_steps * plan.nc
+    if x.dim() != 2 or x.shape[1] != width or not x.is_contiguous():
+        raise ValueError(f"{plan.kind}: x must be contiguous (B, {width})")
+    lanes = x.shape[0]
+    if out is None:
+        D = torch.empty((lanes, plan.span, plan.n_pairs), dtype=x.dtype,
+                        device=x.device)
+        J = torch.empty((lanes, plan.span, plan.n_pairs, plan.nc),
+                        dtype=x.dtype, device=x.device) \
+            if plan.kind == "disc_dist" else None
+    else:
+        D, J = out
+    code = plan.fn(*plan.tables, x.data_ptr(), x.stride(0), plan.nc,
+                   plan.first, plan.span, D.data_ptr(),
+                   0 if J is None else J.data_ptr(), lanes, *plan.sizes,
+                   plan.slots, plan.stage, plan.threads, stream)
+    _native.check(plan.kind, code)
     return D, J
 
 
-def disc_launch(kind: str, world: CollisionWorld, x: torch.Tensor, *args):
-    """Launch K7 / K7v on the card (arguments as :func:`_disc_call`)."""
+def disc_launch(kind: str, world: CollisionWorld, x: torch.Tensor,
+                n_steps: int, nc: int, first: int, span: int):
+    """Launch K7 / K7v on the card on ``x`` (B, n_steps * nc), the steps
+    [first, first + span): D (B, span, P) and, for ``disc_dist``, J (B,
+    span, P, nc), zero past n_dof."""
     if not x.is_cuda:
         raise ValueError(f"{kind}: tensors must be on a CUDA device")
-    out = _disc_call(_native.library("disc_dist"), kind, world, x, *args,
-                     stream=torch.cuda.current_stream(x.device).cuda_stream)
+    plan = _disc_plan(_native.library("disc_dist"), kind, world, x, n_steps,
+                      nc, first, span)
+    # the current stream's handle, as torch.cuda.current_stream(...)
+    # .cuda_stream gives it, without building a Stream object per call
+    out = _disc_call(plan, x,
+                     torch._C._cuda_getCurrentRawStream(x.get_device()))
     _native.LAUNCHES[kind] += 1
-    if world.n_box_pairs:
+    if plan.box_pairs:
         _native.LAUNCHES["cast_boxbox"] += 1
     return out
 
 
-def disc_host(kind: str, world: CollisionWorld, x: torch.Tensor, *args,
-              threads: int = DISC_THREADS):
+def disc_host(kind: str, world: CollisionWorld, x: torch.Tensor,
+              n_steps: int, nc: int, first: int, span: int,
+              slots: Optional[int] = None, threads: Optional[int] = None,
+              stage: Optional[bool] = None):
     """K7 / K7v built for the host (``csrc/cast_host.cpp``: the kernels'
     block body, its threads played in turn), on a CPU tensor (arguments as
-    :func:`_disc_call`)."""
+    :func:`disc_launch`; ``slots`` (lane, step) slots, ``threads`` a CTA
+    and ``stage`` the tables staged, by default the card's for the kind,
+    dtype and world: any slots >= 1 and threads 1 to 256 within the
+    card's shared memory)."""
     if x.is_cuda:
         raise ValueError(f"{kind}: the host build takes CPU tensors")
-    return _disc_call(_native.host_library("cast_host"), kind, world, x,
-                      *args, threads=threads)
+    plan = _disc_plan(_native.host_library("cast_host"), kind, world, x,
+                      n_steps, nc, first, span, (slots, threads, stage))
+    return _disc_call(plan, x)
 
 
 class DiscreteDistancePre:
